@@ -10,11 +10,13 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
 1. device: ``torch.cuda.get_device_name(0)`` and the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line;
 2. build: compile the kernels with nvcc for sm_90a;
-3. kernels: each hand-written kernel against its plain PyTorch version at
-   the serving shapes of Llama-2-7B, in bfloat16 and float32, with its
-   median device time, the plain version's, a library yardstick where one
-   PyTorch call computes the same function, and the least time the card
-   could take for the work (``bound_ms``);
+3. kernels: each of the five hand-written kernels against its plain
+   PyTorch version at the shapes the two serving paths give it at the
+   widths of Llama-2-7B, in bfloat16 and float32 (and GQA and window
+   cases of the two ring-engine kernels), with its median device time, the
+   plain version's, a library yardstick where one PyTorch call computes
+   the same function, and the least time the card could take for the work
+   (``bound_ms``);
 4. serve: ``ContinuousRuntime`` + ``replay_trace`` at the full width of
    Llama-2-7B (random weights from a seed, a 4-adapter LoRA bank, a
    shared-prefix multi-adapter trace).  Every request must finish, the
@@ -24,12 +26,22 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    on the host clock, then the same round again, from the same state on
    fresh prompts of the same lengths, under ``torch.profiler`` for the
    device's busy time by kind (hence its idle share);
-5. parity: the SMOKE config in float32, replayed on the card (kernels) and
-   on the CPU (plain versions), must emit the same tokens, greedy and
-   sampled.
+5. warm functions: the launcher ``repro_torch.launch.serve`` on the same
+   weights (``BackboneStore`` + one ``FunctionInstance`` per adapter, the
+   adaptive ``BatchingScheduler``, ``InferenceEngine.generate`` over ring
+   caches): 32 requests of 500 prompt tokens and 32 new tokens.  Every
+   request must be served, no logit may be non-finite, the four handles
+   must read the very backbone tensors, and the launch counts must equal
+   layers x (prefill calls | decode steps) x sites.  Then one batch's
+   prefill and decode steps are timed on the host clock and, from the same
+   state, under ``torch.profiler`` (device busy, hence idle share);
+6. parity: the SMOKE config in float32, replayed through the serving
+   runtime on the card (kernels) and on the CPU (plain versions), must emit
+   the same tokens, greedy and sampled; and ``InferenceEngine.generate``
+   on the two devices must emit the same greedy tokens.
 
-``--report`` writes every number to a JSON file.  The model of phase 4
-runs at its full depth.  The last two lines of output are a
+``--report`` writes every number to a JSON file.  The model of phases 4
+and 5 runs at its full depth.  The last two lines of output are a
 ``{"kernels": [...]}`` object and ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout, the script exits nonzero and
 prints no result.
@@ -74,6 +86,13 @@ SYSTEM_PROMPT = 128          # per-adapter shared prefix (8 whole blocks)
 MAX_PROMPT = 768
 OUTPUT_TOKENS = 32
 
+# Phase 5: the warm-function launcher's flags.  Its scheduler forms
+# batches of 1-3 rows at these flags; phase 3 times the ring-engine kernels
+# at the largest, LAUNCH_BATCH rows.
+LAUNCH = dict(adapters=4, requests=32, prompt_len=500, max_new=32, rate=50.0)
+LAUNCH_BATCH = 3
+LAUNCH_CONTEXT = LAUNCH["prompt_len"] + LAUNCH["max_new"] + 8   # ring S
+
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
              "src/repro/kernels/sgmv/sgmv.py:28"),
@@ -81,6 +100,11 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/paged_attention/paged_attn.py:48"),
     "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                       "src/repro/kernels/paged_prefill/prefill_attn.py:52"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attention/flash.py:33"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attention/"
+                         "decode_attn.py:34"),
 }
 
 
@@ -293,6 +317,90 @@ def prefill_case(gen, dtype) -> Dict:
                 + 4 * (B * MB + B * C), 4 * hd * H * int(ok.sum()), dtype))
 
 
+def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
+               window: Optional[int] = None) -> Dict:
+    """Ring-engine prefill: causal attention of B rows of T tokens over
+    their own keys, at Llama-2-7B head widths."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    hd, H = 128, K * G
+    q = _randn(gen, B, T, H, hd, dtype=dtype)
+    k = _randn(gen, B, T, K, hd, dtype=dtype)
+    v = _randn(gen, B, T, K, hd, dtype=dtype)
+    i = torch.arange(T, device="cuda")
+    ok = i[None, :] <= i[:, None]
+    if window is not None:
+        ok = ok & (i[None, :] > i[:, None] - window)
+    pairs = int(ok.sum())
+    es = q.element_size()
+    # library yardstick: SDPA over (B, H, T, hd) copies, K/V repeated to H
+    # heads for GQA (the copies are not timed)
+    q4 = q.transpose(1, 2).contiguous()
+    k4 = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    v4 = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    if window is None:
+        library = lambda: F.scaled_dot_product_attention(     # noqa: E731
+            q4, k4, v4, is_causal=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(     # noqa: E731
+            q4, k4, v4, attn_mask=ok)
+    return dict(
+        shape=f"B={B} T={T} H={H} K={K} hd={hd} causal window={window}",
+        kernel=lambda: flash_mha(q, k, v, causal=True, window=window),
+        plain=lambda: flash_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                window=window).transpose(1, 2),
+        library=library,
+        library_label="scaled_dot_product_attention over (B, H, T, hd) "
+                      "copies" + (", K/V repeated per head" if G > 1
+                                  else ""),
+        zero_rows=[],
+        **bound(es * (2 * B * T * H * hd + 2 * B * T * K * hd),
+                4 * hd * H * B * pairs, dtype))
+
+
+def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
+                     window: Optional[int] = None) -> Dict:
+    """Ring-engine decode: one token per row over a ring of S slots that
+    has seen positions 0..pos (slot = position % S; wrapped when pos >=
+    S)."""
+    from repro_torch.kernels.decode_attention.ops import decode_gqa
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_ref
+    hd, H = 128, K * G
+    q = _randn(gen, B, H, hd, dtype=dtype)
+    k = _randn(gen, B, S, K, hd, dtype=dtype)
+    v = _randn(gen, B, S, K, hd, dtype=dtype)
+    p = torch.arange(max(0, pos - S + 1), pos + 1, device="cuda",
+                     dtype=torch.int32)
+    slot_pos = torch.full((S,), -1, dtype=torch.int32, device="cuda")
+    slot_pos[(p % S).long()] = p
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        ok = ok & (slot_pos > pos - window)
+    valid = int(ok.sum())
+    es = q.element_size()
+    # library yardstick: SDPA over K/V already in (B, H, S, hd) and a
+    # boolean slot mask (the transposes are not timed)
+    q4 = q[:, :, None, :].contiguous()
+    k4 = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    v4 = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    mask = ok[None, None, None, :].contiguous()
+    return dict(
+        shape=f"B={B} S={S} K={K} G={G} hd={hd} pos={pos} window={window} "
+              f"valid_slots={valid}",
+        kernel=lambda: decode_gqa(q, k, v, slot_pos, pos, window=window),
+        plain=lambda: decode_attention_ref(q, k, v, slot_pos, pos,
+                                           window=window),
+        library=lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       attn_mask=mask),
+        library_label="scaled_dot_product_attention over K/V already "
+                      "transposed to (B, H, S, hd)",
+        zero_rows=[],
+        **bound(es * (2 * B * valid * K * hd + 2 * B * H * hd) + 4 * S,
+                4 * hd * H * B * valid, dtype))
+
+
 def kernels_phase() -> Dict[str, Dict]:
     """Every kernel against its plain version; the bf16 cases are timed.
     Returns name -> the numbers of its first timed (main-path) case."""
@@ -301,17 +409,40 @@ def kernels_phase() -> Dict[str, Dict]:
     gen.manual_seed(0)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
-    cases = []
+    Bl, T, S = LAUNCH_BATCH, LAUNCH["prompt_len"], LAUNCH_CONTEXT
+    last = T + LAUNCH["max_new"] - 2        # position of the last decode
+    makers = []
     for dtype in (torch.bfloat16, torch.float32):
-        cases += [("sgmv", dtype, sgmv_case(gen, dtype, SERVE["num_slots"])),
-                  ("sgmv", dtype, sgmv_case(
-                      gen, dtype,
-                      SERVE["prefill_rows"] * SERVE["prefill_chunk"])),
-                  ("paged_attention", dtype, decode_case(gen, dtype)),
-                  ("paged_prefill", dtype, prefill_case(gen, dtype))]
+        makers += [
+            ("sgmv", dtype,
+             lambda d=dtype: sgmv_case(gen, d, SERVE["num_slots"])),
+            ("sgmv", dtype, lambda d=dtype: sgmv_case(
+                gen, d, SERVE["prefill_rows"] * SERVE["prefill_chunk"])),
+            ("paged_attention", dtype, lambda d=dtype: decode_case(gen, d)),
+            ("paged_prefill", dtype, lambda d=dtype: prefill_case(gen, d)),
+            # ring engine: the launcher's shapes first, then a batch of 8,
+            # GQA (32 query heads over 8 kv heads) and a window
+            ("flash_attention", dtype,
+             lambda d=dtype: flash_case(gen, d, Bl, T, 32, 1)),
+            ("decode_attention", dtype,
+             lambda d=dtype: ring_decode_case(gen, d, Bl, S, 32, 1, last))]
+    bf = torch.bfloat16
+    makers += [
+        ("flash_attention", bf, lambda: flash_case(gen, bf, 8, T, 32, 1)),
+        ("flash_attention", bf, lambda: flash_case(gen, bf, Bl, T, 8, 4)),
+        ("flash_attention", bf,
+         lambda: flash_case(gen, bf, Bl, T, 32, 1, window=128)),
+        ("decode_attention", bf,
+         lambda: ring_decode_case(gen, bf, 8, S, 32, 1, 2 * S + 17)),
+        ("decode_attention", bf,
+         lambda: ring_decode_case(gen, bf, Bl, S, 8, 4, last)),
+        ("decode_attention", bf,
+         lambda: ring_decode_case(gen, bf, Bl, S, 32, 1, 2 * S + 17,
+                                  window=128))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
-    for name, dtype, c in cases:
+    for name, dtype, make in makers:
+        c = make()
         got = c["kernel"]()
         want = c["plain"]()
         torch.cuda.synchronize()
@@ -342,6 +473,8 @@ def kernels_phase() -> Dict[str, Dict]:
                  f"{err:.3e} > {tol:.3e}")
         results.append(row)
         summary.setdefault(name, row)
+        del c, got, want
+    torch.cuda.empty_cache()
     print(f"phase 3 ok: {len(results)} cases within tolerance "
           f"({time.perf_counter() - t0:.1f} s)")
     return {"summary": summary, "cases": results}
@@ -367,24 +500,19 @@ def shared_prefix_trace(n_req: int, n_fn: int, system: int, max_prompt: int,
     return work, prompts, {f"fn{f}": f for f in range(n_fn)}
 
 
-def serve_phase() -> Dict:
-    from repro_torch import kernels
+def model_params():
+    """Llama-2-7B at full width with a 4-adapter rank-16 LoRA bank on
+    q/k/v/o, random from seed 0, for phases 4 and 5."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.models.config import LoRAConfig
-    from repro_torch.serving import (ContinuousRuntime, ServingConfig,
-                                     replay_trace, terminal_state)
-
-    t0 = phase("phase 4: serve Llama-2-7B on the card")
     cfg = get_config("llama2_7b").with_(
         lora=LoRAConfig(rank=16, alpha=32.0, num_adapters=ADAPTERS))
-    layers = cfg.num_layers
-    print(f"model: {cfg.name}, {layers} layers (no depth cut), d_model "
-          f"{cfg.d_model}, {cfg.num_heads} heads x "
+    print(f"model: {cfg.name}, {cfg.num_layers} layers (no depth cut), "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads x "
           f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}; LoRA rank {cfg.lora.rank} on "
           f"{'/'.join(cfg.lora.targets)}, bank of {ADAPTERS}")
-    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t_init = time.perf_counter()
@@ -393,6 +521,40 @@ def serve_phase() -> Dict:
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"weights: {n_bytes / 1e9:.2f} GB random from seed 0 in "
           f"{time.perf_counter() - t_init:.1f} s")
+    return cfg, params
+
+
+class FiniteLogits:
+    """Within the block, every LM-head output is checked for non-finite
+    values (the flags stay on the device until ``ok`` is read)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.tf, self.plain, self.flags = tf, tf._logits, []
+
+        def checked(p, c, x):
+            out = self.plain(p, c, x)
+            self.flags.append(torch.isfinite(out).all())
+            return out
+
+        tf._logits = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._logits = self.plain
+
+    def ok(self) -> bool:
+        return bool(self.flags) and bool(torch.stack(self.flags).all())
+
+
+def serve_phase(cfg, params) -> Dict:
+    from repro_torch import kernels
+    from repro_torch.serving import (ContinuousRuntime, ServingConfig,
+                                     replay_trace, terminal_state)
+
+    t0 = phase("phase 4: serve Llama-2-7B on the card")
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
     scfg = ServingConfig(**SERVE)
     rt = ContinuousRuntime(cfg, params, scfg)
     print(f"serving: {SERVE}")
@@ -405,25 +567,14 @@ def serve_phase() -> Dict:
           f"({SYSTEM_PROMPT}-token system prompt per adapter), "
           f"{OUTPUT_TOKENS} output tokens")
 
-    finite: List[torch.Tensor] = []
-    plain_logits = tf._logits
-
-    def checked_logits(p, c, x):
-        out = plain_logits(p, c, x)
-        finite.append(torch.isfinite(out).all())
-        return out
-
     sink: Dict[int, List[int]] = {}
-    tf._logits = checked_logits
-    kernels.reset_launches()
-    t_run = time.perf_counter()
-    try:
+    with FiniteLogits() as finite:
+        kernels.reset_launches()
+        t_run = time.perf_counter()
         res, _ = replay_trace(rt, work, fn_adapter, prompts=prompts,
                               prefill_group=SERVE["prefill_rows"],
                               token_sink=sink)
         torch.cuda.synchronize()
-    finally:
-        tf._logits = plain_logits
     wall = time.perf_counter() - t_run
     launches = kernels.launch_counts()
 
@@ -440,7 +591,7 @@ def serve_phase() -> Dict:
     report = rt.check_invariants(res.requests)
     if report["pool"]["live"] != 0 or report["slots_active"] != 0:
         fail(f"blocks or slots still held after the drain: {report}")
-    if not finite or not bool(torch.stack(finite).all()):
+    if not finite.ok():
         fail("non-finite logits during the replay")
     for layer in rt.cache:
         for pool in layer.values():
@@ -452,11 +603,12 @@ def serve_phase() -> Dict:
     sites = len(cfg.lora.targets)
     expected = {"sgmv": sites * layers * (prefills + steps),
                 "paged_attention": layers * steps,
-                "paged_prefill": layers * prefills}
+                "paged_prefill": layers * prefills,
+                "flash_attention": 0, "decode_attention": 0}
     print(f"launches {launches}, expected {expected} ({prefills} prefill "
           f"dispatches, {steps} decode steps incl. warmup, {layers} "
           f"layers, {sites} LoRA sites)")
-    if launches != expected or min(launches.values()) <= 0:
+    if launches != expected:
         fail("launch counts differ from layers x dispatches x sites")
 
     m = rt.metrics.histogram
@@ -485,7 +637,7 @@ def serve_phase() -> Dict:
           f"{out['peak_memory_gb']:.2f} GB, shared block maps "
           f"{out['shared_block_maps']}")
     out["breakdown"] = breakdown(rt, cfg)
-    del rt, params
+    del rt
     torch.cuda.empty_cache()
     print(f"phase 4 ok ({time.perf_counter() - t0:.1f} s)")
     return out
@@ -495,6 +647,9 @@ def _kernel_kind(name: str) -> str:
     low = name.lower()
     for key, kind in (("sgmv", "sgmv"), ("paged_decode", "paged_attention"),
                       ("paged_prefill", "paged_prefill"),
+                      ("flash_kernel", "flash_attention"),
+                      ("ring_decode", "decode_attention"),
+                      ("split_kv_merge", "decode_merge"),
                       ("memcpy", "copy"), ("memset", "copy")):
         if key in low:
             return kind
@@ -600,14 +755,126 @@ def breakdown(rt, cfg) -> Dict:
                                  "wall_ms": pre_wall, **pre},
            "decode_4_chunks": {"steps": 4 * scfg.decode_chunk,
                                "wall_ms": dec_wall, **dec}}
+    return report_rounds("breakdown", res)
+
+
+def report_rounds(label: str, res: Dict[str, Dict]) -> Dict[str, Dict]:
+    """Add each round's profiler slowdown and idle share (1 - device busy /
+    unprofiled host wall), print it, and fail when the device was busy
+    longer than the host wall of the same work."""
     for name, r in res.items():
         r["profiler_slowdown"] = r["profiled_wall_ms"] / r["wall_ms"]
         if r["device_busy_ms"] is not None:
             r["idle_share"] = 1.0 - r["device_busy_ms"] / r["wall_ms"]
-        print(f"breakdown {name}: {json.dumps(r)}")
+        print(f"{label} {name}: {json.dumps(r)}")
         if r.get("idle_share", 0.0) < 0.0:
-            fail(f"breakdown {name}: device busy {r['device_busy_ms']} ms "
+            fail(f"{label} {name}: device busy {r['device_busy_ms']} ms "
                  f"exceeds the host wall {r['wall_ms']} ms of the same work")
+    return res
+
+
+# ----------------------------------------------------------- 5. warm functions
+def launcher_phase(cfg, params, device: Dict) -> Dict:
+    from repro_torch import kernels
+    from repro_torch.core.lora import partition_lora, tree_leaves
+    from repro_torch.launch import serve as launcher
+
+    t0 = phase("phase 5: warm-function launcher, Llama-2-7B full width on "
+               "the card")
+    argv = ["--adapters", str(LAUNCH["adapters"]),
+            "--requests", str(LAUNCH["requests"]),
+            "--prompt-len", str(LAUNCH["prompt_len"]),
+            "--max-new", str(LAUNCH["max_new"]),
+            "--rate", str(LAUNCH["rate"]), "--full"]
+    args = launcher.build_parser().parse_args(argv)
+    print(f"launcher flags: {' '.join(argv)} (device {args.device}); ring "
+          f"of {LAUNCH_CONTEXT} slots per layer")
+    torch.cuda.reset_peak_memory_stats()
+    with FiniteLogits() as finite:
+        kernels.reset_launches()
+        res = launcher.serve(cfg, params, args)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+
+    new = LAUNCH["max_new"]
+    sizes = [b for _, b in res["schedule"]]
+    if res["served"] != LAUNCH["requests"] or sum(sizes) != res["served"]:
+        fail(f"served {res['served']} of {LAUNCH['requests']} requests")
+    if res["shapes"] != [(b, new) for b in sizes]:
+        fail(f"output shapes {res['shapes']} != (batch, {new})")
+    if not finite.ok():
+        fail("non-finite logits in the launcher run")
+    if res["open_handles"] != LAUNCH["adapters"]:
+        fail(f"store reported {res['open_handles']} open handles")
+    own = [t.data_ptr() for t in tree_leaves(partition_lora(params)[0])]
+    if any(ptrs != own for ptrs in res["backbone_ptrs"]):
+        fail("a function's handle does not read the shared backbone")
+    if LAUNCH_BATCH != max(sizes):
+        fail(f"phase 3 timed {LAUNCH_BATCH} rows; the launcher's largest "
+             f"batch was {max(sizes)}")
+    L, sites, calls = cfg.num_layers, len(cfg.lora.targets), len(sizes)
+    steps = calls * (new - 1)
+    expected = {"flash_attention": L * calls,
+                "decode_attention": L * steps,
+                "sgmv": sites * L * (calls + steps),
+                "paged_attention": 0, "paged_prefill": 0}
+    print(f"launches {launches}, expected {expected} ({calls} prefill "
+          f"calls, {steps} decode steps, {L} layers, {sites} LoRA sites)")
+    if launches != expected or res["launches"] != expected:
+        fail("launch counts differ from layers x calls x sites")
+    tokens_per_s = res["tokens"] / res["wall_s"]
+    print(f"batches {sizes}; {res['tokens']} tokens in "
+          f"{res['wall_s']:.2f} s: {tokens_per_s:.1f} tokens/s (host clock) "
+          f"on {device['kind']} [{'; '.join(device['nvidia_smi'])}]")
+    out = {"schedule": res["schedule"], "requests": res["served"],
+           "tokens": res["tokens"], "wall_s": res["wall_s"],
+           "tokens_per_s": tokens_per_s, "prefill_calls": calls,
+           "decode_steps": steps, "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["breakdown"] = engine_breakdown(cfg, params, device)
+    torch.cuda.empty_cache()
+    print(f"phase 5 ok ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def engine_breakdown(cfg, params, device: Dict, steps: int = 16) -> Dict:
+    """Where one warm batch's time goes: a prefill of LAUNCH_BATCH fresh
+    prompts and ``steps`` greedy decode steps, first on the host clock
+    alone, then again from the same state (a fresh cache, the same prompts)
+    under the profiler for device busy.  Idle share = 1 - device busy /
+    unprofiled host wall; a busy time above that wall fails."""
+    from repro_torch.core.engine import InferenceEngine
+    eng = InferenceEngine(cfg, params, max_context=LAUNCH_CONTEXT)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    B, T = LAUNCH_BATCH, LAUNCH["prompt_len"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    ai = (torch.arange(B, device="cuda") % ADAPTERS).to(torch.int32)
+    state: Dict = {}
+
+    def prefill() -> None:
+        logits, state["cache"] = eng.prefill(prompts, ai)
+        state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def decode() -> None:
+        tok, cache = state["tok"], state["cache"]
+        for i in range(steps):
+            logits, cache = eng.decode_one(tok, cache, T + i, ai)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    res = {"prefill": {"rows": B, "tokens": T, "wall_ms": wall_ms(prefill)},
+           "decode": {"rows": B, "steps": steps, "wall_ms": wall_ms(decode)}}
+    res["prefill"].update(profiled(prefill))
+    res["decode"].update(profiled(decode))
+    report_rounds("engine breakdown", res)
+    d = res["decode"]
+    busy = d["device_busy_ms"]
+    print(f"decode step, {B} rows at positions {T}-{T + steps - 1}: host "
+          f"wall {d['wall_ms'] / steps:.2f} ms against device busy "
+          + (f"{busy / steps:.2f} ms" if busy is not None
+             else "not measured")
+          + f" on {device['kind']} [{'; '.join(device['nvidia_smi'])}]")
     return res
 
 
@@ -639,18 +906,20 @@ class StepClock:
         return self.calls * 1e-4
 
 
-# --------------------------------------------------------------- 5. parity
+# --------------------------------------------------------------- 6. parity
 def parity_phase() -> Dict:
     from repro_torch import kernels
     from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import InferenceEngine
     from repro_torch.core.sampling import SamplingParams
     from repro_torch.models import transformer as tf
     from repro_torch.models.config import LoRAConfig
     from repro_torch.serving import (ContinuousRuntime, ServingConfig,
                                      replay_trace)
 
-    t0 = phase("phase 5: SMOKE float32 replay, card (kernels) vs CPU "
-               "(plain versions), greedy and sampled")
+    t0 = phase("phase 6: SMOKE float32, card (kernels) vs CPU (plain "
+               "versions): runtime replay, greedy and sampled; engine "
+               "generate")
     cfg = get_smoke("llama2_7b").with_(
         dtype="float32", lora=LoRAConfig(rank=8, alpha=16.0,
                                          num_adapters=3))
@@ -685,7 +954,10 @@ def parity_phase() -> Dict:
     if results["cuda"]["sampled_tokens"] != 2 * 8:
         fail(f"expected 16 sampled tokens, the card drew "
              f"{results['cuda']['sampled_tokens']}")
-    if min(results["cuda"]["launches"].values()) <= 0 or \
+    runtime_kernels = ("sgmv", "paged_attention", "paged_prefill")
+    card = results["cuda"]["launches"]
+    if min(card[k] for k in runtime_kernels) <= 0 or \
+            card["flash_attention"] or card["decode_attention"] or \
             max(results["cpu"]["launches"].values()) != 0:
         fail(f"launches: card {results['cuda']['launches']}, CPU "
              f"{results['cpu']['launches']}")
@@ -701,8 +973,37 @@ def parity_phase() -> Dict:
           f"{results['cuda']['sampled_tokens']} sampled) equal on card "
           f"and CPU; stall steps {results['cuda']['stall_steps']}; card "
           f"launches {results['cuda']['launches']}")
-    print(f"phase 5 ok ({time.perf_counter() - t0:.1f} s)")
-    return {"requests": len(sinks["cpu"]), "tokens": n, **results["cuda"]}
+
+    # the warm-function engine: 3 rows, one adapter each, 8 greedy tokens
+    B, T, new = 3, 24, 8
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32))
+    engine = {}
+    for device in ("cuda", "cpu"):
+        eng = InferenceEngine(cfg, _to(params, device), max_context=40,
+                              device=device)
+        kernels.reset_launches()
+        out, _ = eng.generate(toks.to(device), new,
+                              adapter_idx=torch.arange(
+                                  B, dtype=torch.int32, device=device))
+        engine[device] = {"tokens": out.cpu().tolist(),
+                          "launches": kernels.launch_counts()}
+    L = cfg.num_layers
+    want = {"flash_attention": L, "decode_attention": L * (new - 1),
+            "sgmv": len(cfg.lora.targets) * L * new, "paged_attention": 0,
+            "paged_prefill": 0}
+    if engine["cuda"]["launches"] != want or \
+            max(engine["cpu"]["launches"].values()) != 0:
+        fail(f"engine launches: card {engine['cuda']['launches']} "
+             f"(expected {want}), CPU {engine['cpu']['launches']}")
+    if engine["cuda"]["tokens"] != engine["cpu"]["tokens"]:
+        fail(f"engine tokens differ: card {engine['cuda']['tokens']}, CPU "
+             f"{engine['cpu']['tokens']}")
+    print(f"engine generate: {B} rows x {new} greedy tokens equal on card "
+          f"and CPU; card launches {engine['cuda']['launches']}")
+    print(f"phase 6 ok ({time.perf_counter() - t0:.1f} s)")
+    return {"requests": len(sinks["cpu"]), "tokens": n, **results["cuda"],
+            "engine": engine["cuda"]}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -714,15 +1015,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = device_phase()
     build = build_phase()
     kern = kernels_phase()
-    serve = serve_phase()
+    cfg, params = model_params()
+    serve = serve_phase(cfg, params)
+    launch = launcher_phase(cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
     parity = parity_phase()
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         k = kern["summary"][name]
+        # each kernel's count comes from the path that runs it
+        path = launch if name in ("flash_attention", "decode_attention") \
+            else serve
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": serve["launches"][name],
+                     "launches": path["launches"][name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
@@ -731,7 +1039,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(
             {"device": device, "build": build, "kernels": kern["cases"],
-             "serve": serve, "parity": parity,
+             "serve": serve, "launcher": launch, "parity": parity,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

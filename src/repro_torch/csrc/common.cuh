@@ -65,6 +65,54 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
+// Four consecutive elements from 16-byte (float) or 8-byte (bf16) aligned
+// storage, widened to float32.
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const auto* pair = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 lo = __bfloat1622float2(pair[0]);
+  const float2 hi = __bfloat1622float2(pair[1]);
+  o[0] = lo.x;
+  o[1] = lo.y;
+  o[2] = hi.x;
+  o[3] = hi.y;
+}
+
+// Second pass of split-KV decode: one block per output row merges the
+// row's S partitions' (max, sum, unnormalised output) triples,
+// acc (rows, S, HD) and m / l (rows, S) in float32.  A partition that saw
+// no live key reports m = -inf and is skipped; a row with none at all
+// yields exact zeros.
+template <typename T, int HD>
+__global__ void split_kv_merge_kernel(const float* __restrict__ acc,
+                                      const float* __restrict__ m,
+                                      const float* __restrict__ l,
+                                      T* __restrict__ out, int S) {
+  const size_t row = blockIdx.x;
+  float mx = neg_inf();
+  for (int s = 0; s < S; ++s) mx = fmaxf(mx, m[row * S + s]);
+  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+    float num = 0.f, den = 0.f;
+    if (mx != neg_inf()) {
+      for (int s = 0; s < S; ++s) {
+        const float ms = m[row * S + s];
+        if (ms == neg_inf()) continue;
+        const float w = expf(ms - mx);
+        num += w * acc[(row * S + s) * HD + d];
+        den += w * l[row * S + s];
+      }
+    }
+    out[row * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+  }
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace rt

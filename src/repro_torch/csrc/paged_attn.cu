@@ -141,29 +141,6 @@ __global__ void paged_decode_part_kernel(
 }
 
 template <typename T, int HD>
-__global__ void paged_decode_merge_kernel(const float* __restrict__ acc,
-                                          const float* __restrict__ m,
-                                          const float* __restrict__ l,
-                                          T* __restrict__ out, int S) {
-  const size_t row = blockIdx.x;  // (b, kv head, g) == output head row
-  float mx = rt::neg_inf();
-  for (int s = 0; s < S; ++s) mx = fmaxf(mx, m[row * S + s]);
-  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
-    float num = 0.f, den = 0.f;
-    if (mx != rt::neg_inf()) {
-      for (int s = 0; s < S; ++s) {
-        const float ms = m[row * S + s];
-        if (ms == rt::neg_inf()) continue;
-        const float w = expf(ms - mx);
-        num += w * acc[(row * S + s) * HD + d];
-        den += w * l[row * S + s];
-      }
-    }
-    out[row * HD + d] = rt::from_f32<T>(num / fmaxf(den, 1e-30f));
-  }
-}
-
-template <typename T, int HD>
 void launch(const void* q, const void* kp, const void* vp, const void* tbl,
             const void* pos, void* acc, void* m, void* l, void* out, int B,
             int K, int G, int NB, int bs, int MB, int part, int window,
@@ -179,7 +156,7 @@ void launch(const void* q, const void* kp, const void* vp, const void* tbl,
       static_cast<float*>(m), static_cast<float*>(l), K, G, NB, bs, MB, part,
       window, scale);
   if (cudaPeekAtLastError() != cudaSuccess) return;
-  paged_decode_merge_kernel<T, HD><<<B * K * G, HD, 0, st>>>(
+  rt::split_kv_merge_kernel<T, HD><<<B * K * G, HD, 0, st>>>(
       static_cast<const float*>(acc), static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<T*>(out), S);
 }

@@ -21,40 +21,27 @@
 // see up to its last query — keys wholly in the future or wholly outside
 // the window are never visited — in stages of 64 keys, each resolved
 // through the block table (a -1 entry is never read; its key is staged as
-// zeros and masked).  Per stage:
-//  * K and V go to shared memory as float32 rows padded to HD + 4 floats;
-//  * each thread computes a 4 x 4 register tile of scores (rows 4*ty + i,
-//    keys tx + 16*j) from float4 reads — the odd padded stride keeps the
-//    key reads free of bank conflicts — so a shared-memory read feeds
-//    eight FMAs rather than half of one;
-//  * masking (kpos <= qpos, window, table) sets probabilities to exactly
-//    0; the float32 online softmax's row max and row sum are reduced
-//    across the 16 threads of a row group with shuffles;
-//  * the probabilities go through shared memory to the P @ V product,
-//    where each thread owns 4 rows x HD/16 output columns in registers.
+// zeros and masked by kpos <= qpos, window and table).  Each stage is the
+// tile step of prefill_tile.cuh: a 4 x 4 register tile of scores per
+// thread, a shuffle-reduced float32 online softmax and P @ V.
 //
 // Queries sit at start[b] + c.  The kernel also receives the positions
 // the plain version would take and asserts they are that contiguous run.
 #include <cmath>
 
-#include "common.cuh"
+#include "prefill_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kM = 64;      // query-head rows per CTA
-constexpr int kKT = 64;     // keys per staged sub-tile
-constexpr int kRPT = 4;     // rows per thread (kM / 16)
-constexpr int kKPT = 4;     // keys per thread (kKT / 16)
-constexpr int kLDP = kM + 4;  // padded row stride of the probability tile
-static_assert(kRPT == 4 && kM == 16 * kRPT && kKT == 16 * kKPT &&
-                  kThreads == 256,
-              "the thread layout is 16 row groups x 16 key groups");
+using rt::tile::kKT;
+using rt::tile::kLDP;
+using rt::tile::kM;
+using rt::tile::kRPT;
+using rt::tile::kThreads;
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return (static_cast<size_t>(kM + 2 * kKT) * (HD + 4) + kKT * kLDP) *
-             sizeof(float) +
+  return rt::tile::smem_floats<HD>() * sizeof(float) +
          kKT * (sizeof(long long) + sizeof(int));
 }
 
@@ -97,16 +84,13 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 
   int qp[kRPT];  // absolute position of each owned row; -1 for a dead row
-  float m[kRPT], l[kRPT], acc[kRPT][DPT];
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) {
     const int rr = r0 + ty * kRPT + i;
     qp[i] = rr < r_end ? st + rr / G : -1;
-    m[i] = rt::neg_inf();
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
   }
+  rt::tile::Rows<HD> rows_st;
+  rows_st.init();
 
   const int t_lo = window > 0 ? max(0, q_first - window + 1) : 0;
   const int t_hi = min(q_last, MB * bs - 1);  // inclusive
@@ -139,79 +123,15 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       Vs[kk * LD + d] = vv;
     }
     __syncthreads();
-
-    float s[kRPT][kKPT];
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[kRPT], kv[kKPT];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * kRPT + i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-        for (int j = 0; j < kKPT; ++j)
-          s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y +
-                     qv[i].z * kv[j].z + qv[i].w * kv[j].w;
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) {
-        const int t = kpos[tx + 16 * j];
-        bool ok = t >= 0 && t <= qp[i];
-        if (window > 0) ok = ok && t > qp[i] - window;
-        s[i][j] = ok ? s[i][j] * scale : rt::neg_inf();
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      // mx stays -inf while the row has seen no live key: then every
-      // probability is 0 and nothing is rescaled
-      const float corr = mx == rt::neg_inf() ? 1.f : expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) {
-        const float p = s[i][j] == rt::neg_inf() ? 0.f : expf(s[i][j] - mx);
-        s[i][j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      m[i] = mx;
-      l[i] = l[i] * corr + rs;
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) acc[i][e] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < kKPT; ++j)
-      *reinterpret_cast<float4*>(&Ps[(tx + 16 * j) * kLDP + ty * kRPT]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kKT; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&Ps[kk * kLDP + ty * kRPT]);
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) {
-        const float v = Vs[kk * LD + tx + 16 * e];
-        acc[0][e] += p.x * v;
-        acc[1][e] += p.y * v;
-        acc[2][e] += p.z * v;
-        acc[3][e] += p.w * v;
-      }
-    }
+    rt::tile::attend_stage<HD>(
+        Qs, Ks, Vs, Ps, scale,
+        [&](int i, int j) {
+          const int t = kpos[tx + 16 * j];
+          bool ok = t >= 0 && t <= qp[i];
+          if (window > 0) ok = ok && t > qp[i] - window;
+          return ok;
+        },
+        rows_st);
   }
 
 #pragma unroll
@@ -219,11 +139,10 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const int rr = r0 + ty * kRPT + i;
     if (rr >= r_end) continue;
     const int c = rr / G, hq = h * G + rr % G;
-    const float den = fmaxf(l[i], 1e-30f);
     T* o = out + ((static_cast<size_t>(b) * C + c) * H + hq) * HD;
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
-      o[tx + 16 * e] = rt::from_f32<T>(acc[i][e] / den);
+      o[tx + 16 * e] = rt::from_f32<T>(rows_st.out(i, e));
   }
 }
 

@@ -11,6 +11,10 @@ import importlib
 
 # name -> (ops module, public entry point)
 KERNEL_REGISTRY = {
+    "decode_attention": ("repro_torch.kernels.decode_attention.ops",
+                         "decode_gqa"),
+    "flash_attention": ("repro_torch.kernels.flash_attention.ops",
+                        "flash_mha"),
     "paged_attention": ("repro_torch.kernels.paged_attention.ops",
                         "paged_decode_gqa"),
     "paged_prefill": ("repro_torch.kernels.paged_prefill.ops",

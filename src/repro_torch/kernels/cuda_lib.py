@@ -30,8 +30,9 @@ from typing import List
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("sgmv.cu", "paged_attn.cu", "paged_prefill.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("sgmv.cu", "paged_attn.cu", "paged_prefill.cu",
+           "flash_attn.cu", "decode_attn.cu")
+HEADERS = ("common.cuh", "prefill_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "sgmv_expand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "paged_decode": [_P] * 9 + [_I] * 10 + [_P],
     "paged_prefill": [_P] * 7 + [_I] * 10 + [_P],
+    "flash_attn": [_P] * 4 + [_I] * 9 + [_P],
+    "ring_decode": [_P] * 9 + [_I] * 9 + [_P],
 }
 
 
@@ -158,6 +161,13 @@ def require_contiguous(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels load 16 bytes at a time from these operands."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,0 +1,74 @@
+"""Ring-cache decode attention wrapper.
+
+``decode_gqa`` launches the split-KV CUDA kernel (``csrc/decode_attn.cu``:
+one CTA per (row, kv head, partition of ``PARTITION`` slots) testing each
+slot against ``slot_pos``, then a merge kernel) for CUDA tensors, and takes
+the plain version (``ref.decode_attention_ref``) only for CPU tensors.
+
+The kernel reads the engine's (B, S, K, hd) cache in place; the
+reference's wrapper copies it to (B, K, S, hd) on every step.  ``pos`` is
+a Python int (the engine's decode loop holds it on the host) or a 0-d
+int32 tensor on the card; neither is read back to the host.
+
+``decode_gqa.launches`` counts calls that launched the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+PARTITION = 128          # slots per split-KV partition (kernel max 128)
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 8            # query heads per kv head
+
+
+def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               slot_pos: torch.Tensor, pos: Union[int, torch.Tensor], *,
+               window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, hd); k, v: (B, S, K, hd) (engine cache layout); slot_pos:
+    (S,) int32; pos: the current absolute decode position.  Returns
+    (B, H, hd)."""
+    B, H, hd = q.shape
+    Bk, S, K, hd_k = k.shape
+    pos_t = pos if isinstance(pos, torch.Tensor) else None
+    if (v.shape != k.shape or Bk != B or hd_k != hd or H % K
+            or slot_pos.shape != (S,)
+            or (pos_t is not None and pos_t.dim() != 0)
+            or (window is not None and window < 1)):
+        raise ValueError(f"ring decode shapes: q {tuple(q.shape)}, cache "
+                         f"{tuple(k.shape)}, slot_pos "
+                         f"{tuple(slot_pos.shape)}, pos {pos!r}, window "
+                         f"{window}")
+    extra = () if pos_t is None else (pos_t,)
+    if not cuda_lib.on_cuda(q, k, v, slot_pos, *extra):
+        return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
+    code = cuda_lib.dtype_code(q, k, v)
+    cuda_lib.require_int32(slot_pos, *extra)
+    cuda_lib.require_contiguous(q=q, k=k, v=v, slot_pos=slot_pos)
+    G = H // K
+    if hd not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(f"ring decode kernel supports head_dim {HEAD_DIMS} "
+                         f"and <= {MAX_GROUP} query heads per kv head, got "
+                         f"hd={hd}, G={G}")
+    NP = -(-S // PARTITION)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, K, G, NP, hd), **f32)
+    m = torch.empty((B, K, G, NP), **f32)
+    l = torch.empty((B, K, G, NP), **f32)
+    out = torch.empty_like(q)
+    cuda_lib.check(cuda_lib.library().ring_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
+        None if pos_t is None else pos_t.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), out.data_ptr(),
+        0 if pos_t is not None else int(pos), B, K, G, S, hd, PARTITION,
+        window if window is not None else 0, code,
+        cuda_lib.stream_of(q)), "ring_decode")
+    decode_gqa.launches += 1
+    return out
+
+
+decode_gqa.launches = 0

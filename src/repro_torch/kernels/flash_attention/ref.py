@@ -1,0 +1,38 @@
+"""Plain PyTorch version of dense GQA attention with causal and
+sliding-window masks (port of ``repro/kernels/flash_attention/ref.py``).
+
+Query ``i`` and key ``j`` sit at positions ``i`` and ``j``.  A key is kept
+when ``j <= i`` (causal) and ``j > i - window`` (with a window).  Masked
+keys get probability exactly 0, as in the kernel; a query that keeps no
+key yields zeros (the reference's softmax over -1e30 would average every
+key there; no caller has such a row).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention.ref import masked_attention
+
+
+def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, Tq, hd); k, v: (B, K, Tk, hd).  Returns (B, H, Tq, hd) in
+    q's dtype, computed in float32."""
+    B, H, Tq, hd = q.shape
+    K, Tk = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, Tq, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qp = torch.arange(Tq, device=q.device)[:, None]
+    kp = torch.arange(Tk, device=q.device)[None, :]
+    ok = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    o = masked_attention(s, ok, v.float()[:, :, None])
+    return o.reshape(B, H, Tq, hd).to(q.dtype)

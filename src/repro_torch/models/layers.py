@@ -1,6 +1,6 @@
-"""Core layers for the serving main path (port of the main-path subset of
-``repro/models/layers.py``): dense + multi-LoRA delta, RMSNorm, RoPE,
-SwiGLU, and the two paged branches of attention.
+"""Core layers of the attention-only stacks (port of the serving subset of
+``repro/models/layers.py``): dense + LoRA delta, RMSNorm, RoPE, SwiGLU,
+and the ring and paged branches of attention.
 
 Parameters are plain dicts of tensors in the reference's layout
 (``x @ W`` with W of shape (d_in, d_out)), so weights carry over from the
@@ -16,6 +16,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention.ops import decode_gqa
+from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
 from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
 from repro_torch.kernels.sgmv.ops import sgmv_tokens
@@ -40,15 +42,23 @@ def lora_delta(x: torch.Tensor, lora: Params, adapter_idx: torch.Tensor, *,
 def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None, *,
           scaling: float = 1.0,
           adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ W (+ b) (+ per-row multi-LoRA delta, cast to y's dtype)."""
+    """y = x @ W (+ b) (+ LoRA delta) — unmerged LoRA.
+
+    ``lora`` holds {"a": (D, r), "b": (r, O)} for a single adapter
+    (``adapter_idx`` None: y + scaling * ((x @ A) @ B)), or a stacked bank
+    {"a": (N, D, r), "b": (N, r, O)} with per-row ``adapter_idx`` (the SGMV
+    delta, cast to y's dtype)."""
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     if lora is not None:
         if adapter_idx is None:
-            raise ValueError("a LoRA bank needs per-row adapter_idx")
-        y = y + lora_delta(x, lora, adapter_idx,
-                           scaling=scaling).to(y.dtype)
+            if lora["a"].dim() != 2:
+                raise ValueError("a LoRA bank needs per-row adapter_idx")
+            y = y + scaling * ((x @ lora["a"]) @ lora["b"])
+        else:
+            y = y + lora_delta(x, lora, adapter_idx,
+                               scaling=scaling).to(y.dtype)
     return y
 
 
@@ -100,18 +110,62 @@ def _write_decode_kv(pool: torch.Tensor, new: torch.Tensor,
     pool[:, blk.long(), off] = new.to(pool.dtype).transpose(0, 1)
 
 
+def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, positions: torch.Tensor,
+                    window: Optional[int]) -> torch.Tensor:
+    """Ring-cache write, then attention (the warm-function engine).
+
+    T > 1 is prefill into a fresh cache (``idx == 0``): the T new K/V go to
+    slots [0, T) with ``slot_pos`` = their positions, and since every other
+    slot is empty (-1) the reference's masked attention over the whole
+    ring is causal attention over the T new keys: the flash kernel.  A
+    prompt longer than the ring (T > S) attends over all T keys and keeps
+    the last S (the reference's ring overflow, transformer.py:193-224).
+    T == 1 is decode: write at slot ``idx % S``, then attend over the ring
+    by ``slot_pos`` with the ring-decode kernel.  ``idx`` advances by T."""
+    B, T = q.shape[:2]
+    S = cache["k"].shape[1]
+    idx = cache["idx"]
+    if T > 1 and idx != 0:
+        raise ValueError(f"ring prefill needs a fresh cache (idx 0, got "
+                         f"{idx}): queries at positions [0, T) would "
+                         f"attend to older slots")
+    if T > S:
+        out = flash_mha(q, k, v, causal=True, window=window)
+        cache["k"].copy_(k[:, -S:])
+        cache["v"].copy_(v[:, -S:])
+        cache["slot_pos"].copy_(positions[0, -S:])
+    else:
+        slot = idx % S
+        cache["k"][:, slot:slot + T] = k.to(cache["k"].dtype)
+        cache["v"][:, slot:slot + T] = v.to(cache["v"].dtype)
+        cache["slot_pos"][slot:slot + T] = positions[0]
+        if T > 1:
+            out = flash_mha(q, k, v, causal=True, window=window)
+        else:
+            out = decode_gqa(q[:, 0], cache["k"], cache["v"],
+                             cache["slot_pos"], positions[0, 0],
+                             window=window)[:, None]
+    cache["idx"] = idx + T
+    return out
+
+
 def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                    positions: torch.Tensor, cache: Dict[str, torch.Tensor],
-                    block_tbl: torch.Tensor,
+                    positions: torch.Tensor, cache: Dict[str, Any],
+                    block_tbl: Optional[torch.Tensor] = None,
                     adapter_idx: Optional[torch.Tensor] = None,
                     chunk_ids: Optional[torch.Tensor] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """GQA attention over the paged block pools (serving).
+    """GQA attention over one layer's cache, updated IN PLACE.
 
-    x: (B, T, D); positions: (B, T) absolute positions; cache: one layer's
-    {"kp","vp"}: (K, NB, bs, hd) pools, updated IN PLACE; block_tbl:
+    x: (B, T, D); positions: (B, T) absolute positions.  The cache's kind
+    picks the branch, as in the reference:
+
+    Ring cache {"k","v": (B, S, K, hd), "slot_pos", "idx"} (the engine):
+    every row shares the positions of row 0 (``_ring_attention``).
+
+    Paged pools {"kp","vp"}: (K, NB, bs, hd) (serving), with block_tbl:
     (B, MB) int32 logical -> physical block map (-1 = unallocated).
-
     T > 1 is chunked paged prefill: the chunk's K/V go straight into whole
     pool blocks (``chunk_ids`` (B, T//bs) physical ids; garbage-block
     entries are skipped writes), then the chunk's queries attend over the
@@ -129,6 +183,10 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     q = rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(B, T, K, hd), positions, cfg.rope_theta)
     v = v.reshape(B, T, K, hd)
+    if "k" in cache:
+        out = _ring_attention(cache, q, k, v, positions, window)
+        return dense(out.reshape(B, T, H * hd), p["wo"], lora.get("o"),
+                     scaling=s, adapter_idx=adapter_idx)
     kp, vp = cache["kp"], cache["vp"]
     bs = kp.shape[2]
 

@@ -1,25 +1,31 @@
-"""Causal LM for attention-only stacks on the paged serving path (port of
-the serving subset of ``repro/models/transformer.py``).
+"""Causal LM for attention-only stacks (port of the serving subset of
+``repro/models/transformer.py``), over ring caches (the warm-function
+engine) or paged pools (the serving runtime).
 
 A plain loop over layers replaces the reference's period ``lax.scan``;
 parameters are a dict with one entry per layer in ``params["layers"]``
 (the weight bridge, ``checkpoint/bridge.py``, unstacks the reference's
-period-stacked layout into it).
+period-stacked layout into it).  The cache's kind (``"k"`` ring vs
+``"kp"`` paged) picks the branch, as in the reference.
 
 Entry points:
-  * ``forward``     — one chunk of paged prefill: tokens at ``start_pos +
-                      [0, T)``, logits at the per-row ``last_pos``.
-  * ``decode_step`` — ONE token per row against the paged pools.
+  * ``forward``     — ring: prefill of a fresh cache at positions
+                      ``[0, T)``; paged: one chunk of prefill at
+                      ``start_pos + [0, T)``, logits at ``last_pos``.
+  * ``decode_step`` — ONE token per row: a scalar position on a ring
+                      cache, per-row positions on the paged pools.
   * ``init_params`` — seeded random weights (for runs without a
                       checkpoint, e.g. the full-width run on the card).
+  * ``init_cache``  — ring caches (``models/cache.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import ATTN, SWIGLU, ModelConfig
 from repro_torch.models.layers import apply_attention, apply_mlp, apply_norm
 
@@ -97,10 +103,11 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-               positions: torch.Tensor, cache: List[Dict[str, torch.Tensor]],
-               adapter_idx: Optional[torch.Tensor], block_tbl: torch.Tensor,
+               positions: torch.Tensor, cache: List[Dict[str, Any]],
+               adapter_idx: Optional[torch.Tensor],
+               block_tbl: Optional[torch.Tensor] = None,
                chunk_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Residual blocks in stack order; the pools update in place."""
+    """Residual blocks in stack order; the caches update in place."""
     T = x.shape[1]
     if adapter_idx is not None and T > 1:
         # per-token adapter ids, once per dispatch for all 4 x layers sites
@@ -123,40 +130,74 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: List[Dict[str, torch.Tensor]], start_pos: torch.Tensor,
-            last_pos: torch.Tensor, block_tbl: torch.Tensor,
-            chunk_ids: torch.Tensor,
-            adapter_idx: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """One chunk of paged prefill.
+def _is_ring(cache: List[Dict[str, Any]]) -> bool:
+    return "k" in cache[0]
 
-    tokens: (B, T) int at positions ``start_pos[b] + [0, T)``; chunk_ids:
-    (B, T//bs) pool blocks this chunk writes; block_tbl: (B, MB) the rows'
-    full logical history; last_pos: (B,) in-chunk index whose logit to
-    return.  Returns ((B, 1, V) logits, cache updated in place)."""
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            cache: List[Dict[str, Any]],
+            adapter_idx: Optional[torch.Tensor] = None,
+            last_only: bool = False,
+            start_pos: Optional[torch.Tensor] = None,
+            last_pos: Optional[torch.Tensor] = None,
+            block_tbl: Optional[torch.Tensor] = None,
+            chunk_ids: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """Prefill; the cache updates in place.
+
+    Ring cache: tokens (B, T) at positions [0, T) fill a FRESH cache
+    (``idx`` 0; anything else raises ValueError — the reference would let
+    the new queries attend to older slots).  A prompt longer than the ring
+    keeps its last S keys.
+
+    Paged pools: one chunk at positions ``start_pos[b] + [0, T)``;
+    chunk_ids: (B, T//bs) pool blocks this chunk writes; block_tbl: (B, MB)
+    the rows' full logical history.
+
+    Logits: at the per-row in-chunk index ``last_pos`` (B,) if given, else
+    at the last position with ``last_only``, else at every position.
+    Returns (logits (B, 1 or T, V), cache)."""
     B, T = tokens.shape
     x = _embed(params, tokens)
-    positions = (start_pos[:, None]
-                 + torch.arange(T, device=tokens.device)[None, :]
-                 ).to(torch.int32)
+    offs = torch.arange(T, device=tokens.device)[None, :]
+    if _is_ring(cache):
+        positions = offs.expand(B, T).to(torch.int32)
+    else:
+        positions = (start_pos[:, None] + offs).to(torch.int32)
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
                    adapter_idx=adapter_idx, block_tbl=block_tbl,
                    chunk_ids=chunk_ids)
-    idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
-    return _logits(params, cfg, torch.gather(x, 1, idx)), cache
+    if last_pos is not None:
+        idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
+        return _logits(params, cfg, torch.gather(x, 1, idx)), cache
+    if last_only:
+        return _logits(params, cfg, x[:, -1:]), cache
+    return _logits(params, cfg, x), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: List[Dict[str, torch.Tensor]], pos: torch.Tensor, *,
-                block_tbl: torch.Tensor,
+                cache: List[Dict[str, Any]],
+                pos: Union[int, torch.Tensor], *,
+                block_tbl: Optional[torch.Tensor] = None,
                 adapter_idx: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """ONE decode step.  token: (B,) int; pos: (B,) int32 per-row
-    positions; block_tbl: (B, MB) int32.  Returns ((B, V) logits, cache
+                ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """ONE decode step.  token: (B,) int.  On a ring cache ``pos`` is the
+    scalar absolute position of every row (an int, or a 0-d tensor),
+    broadcast to (B, 1); on the paged pools it is (B,) int32 per-row
+    positions and block_tbl (B, MB) int32.  Returns ((B, V) logits, cache
     updated in place)."""
+    B = token.shape[0]
     x = _embed(params, token[:, None])                     # (B, 1, D)
-    positions = pos[:, None].to(torch.int32)
+    if not isinstance(pos, torch.Tensor):
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=token.device)
+    elif pos.dim() == 1:
+        positions = pos[:, None].to(torch.int32)
+    else:
+        positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
                    adapter_idx=adapter_idx, block_tbl=block_tbl)
     return _logits(params, cfg, x)[:, 0], cache
+
+
+init_cache = cache_lib.init_cache
