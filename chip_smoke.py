@@ -9,14 +9,17 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
 
 1. device: ``torch.cuda.get_device_name(0)`` and the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line;
-2. build: compile the kernels with nvcc for sm_90a;
+2. build: compile the kernels with nvcc for sm_90a; print ptxas's
+   registers and spills of the tensor-core (bf16) prefill kernels;
 3. kernels: each of the five hand-written kernels against its plain
    PyTorch version at the shapes the two serving paths give it at the
-   widths of Llama-2-7B, in bfloat16 and float32 (and GQA and window
-   cases of the two ring-engine kernels), with its median device time, the
+   widths of Llama-2-7B, in bfloat16 and float32 (and bfloat16 GQA and
+   window cases of flash, ring decode and paged prefill, whose bfloat16
+   tile step runs on the tensor cores), with its median device time, the
    plain version's, a library yardstick where one PyTorch call computes
-   the same function, and the least time the card could take for the work
-   (``bound_ms``);
+   the same function, the least time the card could take for the work
+   (``bound_ms``) and the share of it the kernel reaches
+   (``bound_share`` = bound_ms / ms);
 4. serve: ``ContinuousRuntime`` + ``replay_trace`` at the full width of
    Llama-2-7B (random weights from a seed, a 4-adapter LoRA bank, a
    shared-prefix multi-adapter trace).  Every request must finish, the
@@ -51,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -147,16 +151,40 @@ def device_phase() -> Dict:
 
 
 # ---------------------------------------------------------------- 2. build
+def ptxas_usage(log: str) -> List[Dict]:
+    """Registers and spills of each kernel instantiation, from the
+    ``-Xptxas -v`` lines of the build log."""
+    out: List[Dict] = []
+    cur: Dict = {}
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            cur = {"function": ln.split("Function properties for")[1].strip()}
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", ln):
+            cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and cur:
+            out.append({**cur, "registers": int(m[1])})
+            cur = {}
+    return out
+
+
 def build_phase() -> Dict:
     from repro_torch.kernels import cuda_lib
     t0 = phase("phase 2: build")
     info = cuda_lib.build()
     cuda_lib.library()
-    usage = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln and "Used" in ln]
+    usage = ptxas_usage(info.log)
     print(f"built {info.path} in {info.seconds:.1f} s "
           f"({'fresh' if info.built else 'cached'}); ptxas: "
-          f"{len(usage)} kernel instantiations")
+          f"{len(usage)} kernel instantiations, "
+          f"{sum(u.get('spill_stores', 0) for u in usage)} bytes of spill "
+          f"stores in all")
+    # the tensor-core prefill steps (bf16): registers and spills
+    for u in usage:
+        if "_bf16" in u["function"]:
+            print(f"ptxas {u['function']}: {u['registers']} registers, "
+                  f"spill stores {u.get('spill_stores')} B, spill loads "
+                  f"{u.get('spill_loads')} B")
     print(f"phase 2 ok ({time.perf_counter() - t0:.1f} s)")
     return {"seconds": info.seconds, "fresh": info.built, "ptxas": usage}
 
@@ -273,11 +301,15 @@ def decode_case(gen, dtype) -> Dict:
                 + 4 * (B * MB + B), 4 * hd * H * live, dtype))
 
 
-def prefill_case(gen, dtype) -> Dict:
+def prefill_case(gen, dtype, K: int = 32, G: int = 1,
+                 window: Optional[int] = None) -> Dict:
+    """Runtime prefill: a chunk of ``prefill_chunk`` queries for each of
+    ``prefill_rows`` rows over its paged history, at Llama-2-7B head
+    widths (``H = K * G`` query heads)."""
     from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
     B, C = SERVE["prefill_rows"], SERVE["prefill_chunk"]
-    K, G, hd = 32, 1, 128
+    hd = 128
     NB, bs, MB = SERVE["num_blocks"], SERVE["block_size"], \
         SERVE["max_blocks_per_slot"]
     H = K * G
@@ -293,25 +325,33 @@ def prefill_case(gen, dtype) -> Dict:
     t = torch.arange(MB * bs, device="cuda")
     valid = tbl[:, t // bs] >= 0                              # (B, S)
     ok = (t[None, None] <= q_pos[:, :, None]) & valid[:, None]  # (B, C, S)
-    keys = int((valid & (t[None] <= (start + C - 1)[:, None])).sum())
+    seen = valid & (t[None] <= (start + C - 1)[:, None])
+    if window is not None:
+        ok = ok & (t[None, None] > q_pos[:, :, None] - window)
+        seen = seen & (t[None] > (start - window)[:, None])
+    keys = int(seen.sum())
     es = q.element_size()
     L = int(start.max()) + C
     nblk = -(-L // bs)
     phys = tbl[:, :nblk].clamp(min=0).long()
     kc = kp[:, phys].permute(1, 0, 2, 3, 4).reshape(B, K, nblk * bs, hd)
     vc = vp[:, phys].permute(1, 0, 2, 3, 4).reshape(B, K, nblk * bs, hd)
-    kc, vc = kc[:, :, :L].contiguous(), vc[:, :, :L].contiguous()
+    kc = kc[:, :, :L].repeat_interleave(G, dim=1).contiguous()
+    vc = vc[:, :, :L].repeat_interleave(G, dim=1).contiguous()
     mask = ok[:, None, :, :L].contiguous()
     q4 = q.permute(0, 2, 1, 3).contiguous()
     return dict(
         shape=f"B={B} C={C} K={K} G={G} hd={hd} NB={NB} bs={bs} MB={MB} "
-              f"history_keys={keys}",
-        kernel=lambda: paged_prefill_gqa(q, kp, vp, tbl, q_pos),
-        plain=lambda: paged_prefill_ref(q, kp, vp, tbl, q_pos),
+              f"window={window} history_keys={keys}",
+        kernel=lambda: paged_prefill_gqa(q, kp, vp, tbl, q_pos,
+                                         window=window),
+        plain=lambda: paged_prefill_ref(q, kp, vp, tbl, q_pos,
+                                        window=window),
         library=lambda: F.scaled_dot_product_attention(q4, kc, vc,
                                                        attn_mask=mask),
         library_label="scaled_dot_product_attention over K/V already "
-                      "gathered contiguous",
+                      "gathered contiguous"
+                      + (", repeated per head" if G > 1 else ""),
         zero_rows=[],
         **bound(es * (2 * keys * K * hd + 2 * B * C * H * hd)
                 + 4 * (B * MB + B * C), 4 * hd * H * int(ok.sum()), dtype))
@@ -438,7 +478,9 @@ def kernels_phase() -> Dict[str, Dict]:
          lambda: ring_decode_case(gen, bf, Bl, S, 8, 4, last)),
         ("decode_attention", bf,
          lambda: ring_decode_case(gen, bf, Bl, S, 32, 1, 2 * S + 17,
-                                  window=128))]
+                                  window=128)),
+        ("paged_prefill", bf, lambda: prefill_case(gen, bf, K=8, G=4)),
+        ("paged_prefill", bf, lambda: prefill_case(gen, bf, window=128))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for name, dtype, make in makers:
@@ -467,6 +509,7 @@ def kernels_phase() -> Dict[str, Dict]:
             row["plain_ms"] = device_ms(c["plain"], 10, flush)
             row["library_ms"] = (device_ms(c["library"], 50, flush)
                                  if c["library"] is not None else None)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         print(json.dumps(row))
         if not err <= tol:
             fail(f"{name} {c['shape']} {dtype}: max |kernel - plain| = "

@@ -1,6 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel reads float32 or bfloat16 storage and computes in float32.
+// Every kernel reads float32 or bfloat16 storage and accumulates in
+// float32 (the bf16 prefill kernels multiply bf16 operands on the tensor
+// cores, prefill_tile.cuh).
 // The C entry points take a dtype code (DTYPE_F32 / DTYPE_BF16, mirrored
 // in kernels/cuda_lib.py), launch on the caller's stream and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -63,26 +65,6 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   float r = IS_MAX ? neg_inf() : 0.f;
   for (int w = 0; w < nw; ++w) r = IS_MAX ? fmaxf(r, red[w]) : r + red[w];
   return r;
-}
-
-// Four consecutive elements from 16-byte (float) or 8-byte (bf16) aligned
-// storage, widened to float32.
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  o[0] = x.x;
-  o[1] = x.y;
-  o[2] = x.z;
-  o[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const auto* pair = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 lo = __bfloat1622float2(pair[0]);
-  const float2 hi = __bfloat1622float2(pair[1]);
-  o[0] = lo.x;
-  o[1] = lo.y;
-  o[2] = hi.x;
-  o[3] = hi.y;
 }
 
 // Second pass of split-KV decode: one block per output row merges the

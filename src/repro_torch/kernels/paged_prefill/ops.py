@@ -43,6 +43,7 @@ def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     cuda_lib.require_int32(block_tbl, q_pos)
     cuda_lib.require_contiguous(q=q, kp=kp, vp=vp, block_tbl=block_tbl,
                                 q_pos=q_pos)
+    cuda_lib.require_aligned(q=q, kp=kp, vp=vp)
     G = H // K
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged prefill kernel supports head_dim "

@@ -1,6 +1,6 @@
-"""The port's own rules: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the smoke script refuses to run
-without a CUDA card."""
+"""The port's own rules: ``repro_torch``, ``chip_smoke.py`` and
+``chip_variants.py`` import neither JAX nor the JAX package, and the smoke
+script refuses to run without a CUDA card."""
 from __future__ import annotations
 
 import ast
@@ -15,6 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+VARIANTS = ROOT / "chip_variants.py"
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -60,7 +61,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert f"imported {len(mods)}" in out.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
+@pytest.mark.parametrize("path",
+                         sorted(PKG.rglob("*.py")) + [SMOKE, VARIANTS],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     assert _banned_imports(path) == []
