@@ -10,16 +10,18 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
 1. device: ``torch.cuda.get_device_name(0)`` and the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line;
 2. build: compile the kernels with nvcc for sm_90a; print ptxas's
-   registers and spills of the tensor-core (bf16) prefill kernels;
+   registers and spills of the tensor-core (bf16) prefill kernels, and
+   the registers, static and dynamic shared memory and spills of the
+   split-KV decode instantiations;
 3. kernels: each of the five hand-written kernels against its plain
    PyTorch version at the shapes the two serving paths give it at the
    widths of Llama-2-7B, in bfloat16 and float32 (and bfloat16 GQA and
-   window cases of flash, ring decode and paged prefill, whose bfloat16
-   tile step runs on the tensor cores), with its median device time, the
-   plain version's, a library yardstick where one PyTorch call computes
-   the same function, the least time the card could take for the work
-   (``bound_ms``) and the share of it the kernel reaches
-   (``bound_share`` = bound_ms / ms);
+   window cases of flash, ring decode, paged decode and paged prefill),
+   with its median device time, the plain version's, a library yardstick
+   where one PyTorch call computes the same function, the least time the
+   card could take for the work (``bound_ms``) and the share of it the
+   kernel reaches (``bound_share`` = bound_ms / ms); then each attention
+   wrapper must refuse a ``q`` one element off a 16-byte boundary;
 4. serve: ``ContinuousRuntime`` + ``replay_trace`` at the full width of
    Llama-2-7B (random weights from a seed, a 4-adapter LoRA bank, a
    shared-prefix multi-adapter trace).  Every request must finish, the
@@ -152,8 +154,8 @@ def device_phase() -> Dict:
 
 # ---------------------------------------------------------------- 2. build
 def ptxas_usage(log: str) -> List[Dict]:
-    """Registers and spills of each kernel instantiation, from the
-    ``-Xptxas -v`` lines of the build log."""
+    """Registers, static shared memory and spills of each kernel
+    instantiation, from the ``-Xptxas -v`` lines of the build log."""
     out: List[Dict] = []
     cur: Dict = {}
     for ln in log.splitlines():
@@ -163,9 +165,22 @@ def ptxas_usage(log: str) -> List[Dict]:
                             r"loads", ln):
             cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
         elif (m := re.search(r"Used (\d+) registers", ln)) and cur:
-            out.append({**cur, "registers": int(m[1])})
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append({**cur, "registers": int(m[1]),
+                        "static_smem": int(smem[1]) if smem else 0})
             cur = {}
     return out
+
+
+def decode_instance(function: str) -> Optional[Dict]:
+    """(kernel, dtype, hd, GP) of a split-KV decode instantiation's mangled
+    name, or None for any other kernel."""
+    m = re.search(r"(ring|paged)_decode_part_kernelI(13__nv_bfloat16|f)"
+                  r"Li(\d+)ELi(\d+)E", function)
+    if m is None:
+        return None
+    return {"kernel": f"{m[1]}_decode", "dtype": "bfloat16" if m[2] != "f"
+            else "float32", "hd": int(m[3]), "G": int(m[4])}
 
 
 def build_phase() -> Dict:
@@ -185,21 +200,44 @@ def build_phase() -> Dict:
             print(f"ptxas {u['function']}: {u['registers']} registers, "
                   f"spill stores {u.get('spill_stores')} B, spill loads "
                   f"{u.get('spill_loads')} B")
+    # the split-KV decode steps: also their shared memory, the dynamic
+    # part at the wrappers' partition and G query heads per kv head
+    from repro_torch.kernels.decode_attention.ops import PARTITION
+    lib = cuda_lib.library()
+    for u in usage:
+        d = decode_instance(u["function"])
+        if d is None:
+            continue
+        u["decode"] = d
+        u["dynamic_smem"] = lib.decode_smem_bytes(
+            d["hd"], cuda_lib.DTYPE_CODES[getattr(torch, d["dtype"])],
+            PARTITION, d["G"])
+        print(f"ptxas {d['kernel']} {d['dtype']} hd {d['hd']} G<={d['G']}: "
+              f"{u['registers']} registers, static smem "
+              f"{u['static_smem']} B, dynamic smem {u['dynamic_smem']} B "
+              f"at {PARTITION} slots x G {d['G']}, spill stores "
+              f"{u.get('spill_stores')} B, spill loads "
+              f"{u.get('spill_loads')} B")
     print(f"phase 2 ok ({time.perf_counter() - t0:.1f} s)")
     return {"seconds": info.seconds, "fresh": info.built, "ptxas": usage}
 
 
 # -------------------------------------------------------------- 3. kernels
 def device_ms(fn: Callable[[], object], iters: int,
-              flush: torch.Tensor) -> float:
+              flush: torch.Tensor, read_flush: bool = False) -> float:
     """Median device time (ms) of one ``fn()``.  Each timed call runs with
     the L2 cache flushed and behind a device sleep long enough for the host
-    to enqueue it, so the two events bracket device work only."""
+    to enqueue it, so the two events bracket device work only.  The flush
+    writes ``flush``, which leaves the L2 full of dirty lines, or with
+    ``read_flush`` reads it, which leaves clean ones."""
     for _ in range(2):
         fn()
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        if read_flush:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -258,10 +296,14 @@ def sgmv_case(gen, dtype, R: int) -> Dict:
                 2 * valid * r * (D + O), dtype))
 
 
-def decode_case(gen, dtype) -> Dict:
+def decode_case(gen, dtype, K: int = 32, G: int = 1,
+                window: Optional[int] = None) -> Dict:
+    """Runtime decode: one token for each of ``num_slots`` rows over its
+    paged history, at Llama-2-7B head widths (``H = K * G`` query
+    heads)."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    B, K, G, hd = SERVE["num_slots"], 32, 1, 128
+    B, hd = SERVE["num_slots"], 128
     NB, bs, MB = SERVE["num_blocks"], SERVE["block_size"], \
         SERVE["max_blocks_per_slot"]
     H = K * G
@@ -276,6 +318,8 @@ def decode_case(gen, dtype) -> Dict:
     tbl[1, 2] = -1                         # a hole inside a live row
     t = torch.arange(MB * bs, device="cuda")
     ok = (t[None] <= pos[:, None]) & (tbl[:, t // bs] >= 0)
+    if window is not None:
+        ok = ok & (t[None] > pos[:, None] - window)
     live = int(ok.sum())
     es = q.element_size()
     # library yardstick: SDPA over K/V already gathered contiguous
@@ -284,18 +328,21 @@ def decode_case(gen, dtype) -> Dict:
     phys = tbl[:, :nblk].clamp(min=0).long()
     kc = kp[:, phys].permute(1, 0, 2, 3, 4).reshape(B, K, nblk * bs, hd)
     vc = vp[:, phys].permute(1, 0, 2, 3, 4).reshape(B, K, nblk * bs, hd)
-    kc, vc = kc[:, :, :L].contiguous(), vc[:, :, :L].contiguous()
+    kc = kc[:, :, :L].repeat_interleave(G, dim=1).contiguous()
+    vc = vc[:, :, :L].repeat_interleave(G, dim=1).contiguous()
     mask = ok[:, None, None, :L].contiguous()
     q4 = q[:, :, None, :].contiguous()
     return dict(
         shape=f"B={B} K={K} G={G} hd={hd} NB={NB} bs={bs} MB={MB} "
-              f"live_keys={live}",
-        kernel=lambda: paged_decode_gqa(q, kp, vp, tbl, pos),
-        plain=lambda: paged_attention_ref(q, kp, vp, tbl, pos),
+              f"window={window} live_keys={live}",
+        kernel=lambda: paged_decode_gqa(q, kp, vp, tbl, pos, window=window),
+        plain=lambda: paged_attention_ref(q, kp, vp, tbl, pos,
+                                          window=window),
         library=lambda: F.scaled_dot_product_attention(q4, kc, vc,
                                                        attn_mask=mask),
         library_label="scaled_dot_product_attention over K/V already "
-                      "gathered contiguous",
+                      "gathered contiguous"
+                      + (", repeated per head" if G > 1 else ""),
         zero_rows=[B - 1],
         **bound(es * (2 * live * K * hd + 2 * B * H * hd)
                 + 4 * (B * MB + B), 4 * hd * H * live, dtype))
@@ -480,7 +527,9 @@ def kernels_phase() -> Dict[str, Dict]:
          lambda: ring_decode_case(gen, bf, Bl, S, 32, 1, 2 * S + 17,
                                   window=128)),
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, K=8, G=4)),
-        ("paged_prefill", bf, lambda: prefill_case(gen, bf, window=128))]
+        ("paged_prefill", bf, lambda: prefill_case(gen, bf, window=128)),
+        ("paged_attention", bf, lambda: decode_case(gen, bf, K=8, G=4)),
+        ("paged_attention", bf, lambda: decode_case(gen, bf, window=128))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for name, dtype, make in makers:
@@ -518,9 +567,53 @@ def kernels_phase() -> Dict[str, Dict]:
         summary.setdefault(name, row)
         del c, got, want
     torch.cuda.empty_cache()
-    print(f"phase 3 ok: {len(results)} cases within tolerance "
+    refused = alignment_cases(gen)
+    print(f"phase 3 ok: {len(results)} cases within tolerance, "
+          f"{refused} wrappers refuse a misaligned q "
           f"({time.perf_counter() - t0:.1f} s)")
     return {"summary": summary, "cases": results}
+
+
+def alignment_cases(gen) -> int:
+    """Each attention wrapper stages q, K and V with 16-byte copies and
+    must refuse (ValueError) a ``q`` one element off a 16-byte boundary
+    rather than launch: its kernel has no unaligned path."""
+    from repro_torch.kernels.decode_attention.ops import decode_gqa
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
+    from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
+    bf, B, K, hd, S, bs = torch.bfloat16, 2, 4, 128, 64, 16
+
+    def off_by_one(shape):
+        buf = _randn(gen, math.prod(shape) + 1, dtype=bf)
+        return buf[1:].view(shape)
+
+    cache = _randn(gen, B, S, K, hd, dtype=bf)
+    pool = _randn(gen, K, 8, bs, hd, dtype=bf)
+    tbl = torch.arange(1, 5, device="cuda", dtype=torch.int32).repeat(B, 1)
+    pos = torch.full((B,), S - 1, device="cuda", dtype=torch.int32)
+    slot_pos = torch.arange(S, device="cuda", dtype=torch.int32)
+    q_pos = torch.arange(bs, device="cuda", dtype=torch.int32).repeat(B, 1)
+    calls = {
+        "decode_attention": lambda: decode_gqa(
+            off_by_one((B, K, hd)), cache, cache, slot_pos, S - 1),
+        "paged_attention": lambda: paged_decode_gqa(
+            off_by_one((B, K, hd)), pool, pool, tbl, pos),
+        "flash_attention": lambda: flash_mha(
+            off_by_one((B, S, K, hd)), cache, cache, causal=True),
+        "paged_prefill": lambda: paged_prefill_gqa(
+            off_by_one((B, bs, K, hd)), pool, pool, tbl, q_pos),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            print(f"{name}: q one element off a 16-byte boundary refused: "
+                  f"{e}")
+        else:
+            fail(f"{name}: a q one element off a 16-byte boundary was "
+                 f"launched")
+    return len(calls)
 
 
 # ---------------------------------------------------------------- 4. serve

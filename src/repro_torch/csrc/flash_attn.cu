@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   tc::stage_q<HD>(Qs, q, b, Tq, H, h, G, r0, r_end);
-  tc::cp_async_commit();
+  rt::cp_async_commit();
 
   // the warp's rows: query range [qw_lo, qw_hi] and each lane's two rows
   const int w0 = r0 + 16 * warp;
@@ -186,8 +186,8 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
       const bool ok = t <= t_hi;
       const size_t off =
           ok ? ((static_cast<size_t>(b) * Tk + t) * K + h) * HD + ch * 8 : 0;
-      tc::cp_async16(Kb + kk * LD + ch * 8, k + off, ok);
-      tc::cp_async16(Vb + kk * LD + ch * 8, v + off, ok);
+      rt::cp_async16(Kb + kk * LD + ch * 8, k + off, ok);
+      rt::cp_async16(Vb + kk * LD + ch * 8, v + off, ok);
     }
   };
   auto stage = [&](int s, int buf) {
@@ -222,7 +222,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   if (dtype == rt::DTYPE_BF16) {
     const size_t smem = rt::tile::tc::smem_bytes<HD, kStagesBf16>();
     static const cudaError_t attr =
-        rt::tile::allow_smem(flash_kernel_bf16<HD>, smem);
+        rt::allow_smem(flash_kernel_bf16<HD>, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     flash_kernel_bf16<HD><<<grid, rt::tile::tc::kThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -232,7 +232,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   }
   const size_t smem = rt::tile::smem_floats<HD>() * sizeof(float);
   static const cudaError_t attr =
-      rt::tile::allow_smem(flash_kernel_f32<HD>, smem);
+      rt::allow_smem(flash_kernel_f32<HD>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   flash_kernel_f32<HD><<<grid, rt::tile::kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

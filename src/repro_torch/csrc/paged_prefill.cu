@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads) paged_prefill_bf16(
   for (int c = r0 / G + tid; c <= (r_end - 1) / G; c += tc::kThreads)
     assert(q_pos[static_cast<size_t>(b) * C + c] == st0 + c);
   tc::stage_q<HD>(Qs, q, b, C, H, h, G, r0, r_end);
-  tc::cp_async_commit();
+  rt::cp_async_commit();
 
   // the warp's rows: absolute query range [qw_lo, qw_hi] and each lane's
   // two rows
@@ -246,8 +246,8 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads) paged_prefill_bf16(
           ok ? ((static_cast<size_t>(h) * NB + phys[i]) * bs + t % bs) * HD +
                    ch * 8
              : 0;
-      tc::cp_async16(Kb + kk * LD + ch * 8, kp + off, ok);
-      tc::cp_async16(Vb + kk * LD + ch * 8, vp + off, ok);
+      rt::cp_async16(Kb + kk * LD + ch * 8, kp + off, ok);
+      rt::cp_async16(Vb + kk * LD + ch * 8, vp + off, ok);
       if (ch == 0) kpos[buf * kKT + kk] = ok ? t : -1;
     }
     lookup(s + 1);
@@ -288,7 +288,7 @@ int launch(int dtype, const void* q, const void* kp, const void* vp,
   if (dtype == rt::DTYPE_BF16) {
     const size_t smem = smem_bytes_bf16<HD>();
     static const cudaError_t attr =
-        rt::tile::allow_smem(paged_prefill_bf16<HD>, smem);
+        rt::allow_smem(paged_prefill_bf16<HD>, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     paged_prefill_bf16<HD><<<grid, rt::tile::tc::kThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
@@ -300,7 +300,7 @@ int launch(int dtype, const void* q, const void* kp, const void* vp,
   }
   const size_t smem = smem_bytes_f32<HD>();
   static const cudaError_t attr =
-      rt::tile::allow_smem(paged_prefill_f32<HD>, smem);
+      rt::allow_smem(paged_prefill_f32<HD>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   paged_prefill_f32<HD><<<grid, rt::tile::kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(kp),

@@ -57,16 +57,6 @@ namespace tile {
 constexpr int kM = 64;   // query rows per CTA
 constexpr int kKT = 64;  // keys per staged sub-tile
 
-// Raise the dynamic shared-memory limit of `kernel` to `bytes`.  The
-// launchers call it once per instantiation (the port drives one card per
-// process).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // ------------------------------------------- float32: CUDA-core tile step
 //
 // A CTA of 256 threads; Q, K and V staged as float32 rows padded to
@@ -229,30 +219,6 @@ static_assert(kM == kKT, "the Q tile fits one K buffer");
 template <int HD, int NS>
 __device__ __forceinline__ bf16* q_buffer(bf16* Ks) {
   return Ks + (NS - 1) * kKT * ld<HD>();
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; when !valid nothing is read and the
-// destination is filled with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sgmv.cu", "paged_attn.cu", "paged_prefill.cu",
            "flash_attn.cu", "decode_attn.cu")
-HEADERS = ("common.cuh", "prefill_tile.cuh")
+HEADERS = ("common.cuh", "prefill_tile.cuh", "decode_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,13 +43,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # name: argtypes (all return int = cudaError_t)
+    # name: argtypes (all return int: cudaError_t, or decode_smem_bytes's
+    # byte count)
     "sgmv_shrink": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgmv_expand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "paged_decode": [_P] * 9 + [_I] * 10 + [_P],
     "paged_prefill": [_P] * 7 + [_I] * 10 + [_P],
     "flash_attn": [_P] * 4 + [_I] * 9 + [_P],
     "ring_decode": [_P] * 9 + [_I] * 9 + [_P],
+    "decode_smem_bytes": [_I] * 4,
 }
 
 

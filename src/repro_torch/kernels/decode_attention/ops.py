@@ -2,8 +2,10 @@
 
 ``decode_gqa`` launches the split-KV CUDA kernel (``csrc/decode_attn.cu``:
 one CTA per (row, kv head, partition of ``PARTITION`` slots) testing each
-slot against ``slot_pos``, then a merge kernel) for CUDA tensors, and takes
-the plain version (``ref.decode_attention_ref``) only for CPU tensors.
+slot against ``slot_pos`` and staging the partition's K/V rows in shared
+memory with 16-byte ``cp.async`` copies, then a merge kernel) for CUDA
+tensors, and takes the plain version (``ref.decode_attention_ref``) only
+for CPU tensors.
 
 The kernel reads the engine's (B, S, K, hd) cache in place; the
 reference's wrapper copies it to (B, K, S, hd) on every step.  ``pos`` is
@@ -21,7 +23,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-PARTITION = 128          # slots per split-KV partition (kernel max 128)
+PARTITION = 64           # slots per split-KV partition (kernel max 128)
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8            # query heads per kv head
 
@@ -49,6 +51,7 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_int32(slot_pos, *extra)
     cuda_lib.require_contiguous(q=q, k=k, v=v, slot_pos=slot_pos)
+    cuda_lib.require_aligned(q=q, k=k, v=v)
     G = H // K
     if hd not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"ring decode kernel supports head_dim {HEAD_DIMS} "

@@ -2,9 +2,10 @@
 
 ``paged_decode_gqa`` launches the split-KV CUDA kernel
 (``csrc/paged_attn.cu``: one CTA per (row, kv head, partition of
-``PARTITION`` tokens) walking the block table in-kernel, then a merge
-kernel) for CUDA tensors, and takes the plain version
-(``ref.paged_attention_ref``) only for CPU tensors.
+``PARTITION`` tokens) resolving its tokens through the block table
+in-kernel and staging their K/V rows in shared memory with 16-byte
+``cp.async`` copies, then a merge kernel) for CUDA tensors, and takes the
+plain version (``ref.paged_attention_ref``) only for CPU tensors.
 
 ``paged_decode_gqa.launches`` counts calls that launched the kernel.
 """
@@ -17,7 +18,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-PARTITION = 128          # tokens per split-KV partition (kernel max 128)
+PARTITION = 64           # tokens per split-KV partition (kernel max 128)
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8            # query heads per kv head
 
@@ -42,6 +43,7 @@ def paged_decode_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     cuda_lib.require_int32(block_tbl, pos)
     cuda_lib.require_contiguous(q=q, kp=kp, vp=vp, block_tbl=block_tbl,
                                 pos=pos)
+    cuda_lib.require_aligned(q=q, kp=kp, vp=vp)
     G = H // K
     if hd not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"paged decode kernel supports head_dim "
