@@ -12,16 +12,18 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
 2. build: compile the kernels with nvcc for sm_90a; print ptxas's
    registers and spills of the tensor-core (bf16) prefill kernels, and
    the registers, static and dynamic shared memory and spills of the
-   split-KV decode instantiations;
+   split-KV decode instantiations and of the SGMV kernels;
 3. kernels: each of the five hand-written kernels against its plain
    PyTorch version at the shapes the two serving paths give it at the
    widths of Llama-2-7B, in bfloat16 and float32 (and bfloat16 GQA and
-   window cases of flash, ring decode, paged decode and paged prefill),
+   window cases of flash, ring decode, paged decode and paged prefill,
+   and SGMV at the row layouts of the two prefills),
    with its median device time, the plain version's, a library yardstick
    where one PyTorch call computes the same function, the least time the
    card could take for the work (``bound_ms``) and the share of it the
    kernel reaches (``bound_share`` = bound_ms / ms); then each attention
-   wrapper must refuse a ``q`` one element off a 16-byte boundary;
+   wrapper must refuse a ``q``, and SGMV an ``x``, one element off a
+   16-byte boundary;
 4. serve: ``ContinuousRuntime`` + ``replay_trace`` at the full width of
    Llama-2-7B (random weights from a seed, a 4-adapter LoRA bank, a
    shared-prefix multi-adapter trace).  Every request must finish, the
@@ -164,6 +166,8 @@ def ptxas_usage(log: str) -> List[Dict]:
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", ln):
             cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            if frame := re.search(r"(\d+) bytes stack frame", ln):
+                cur["stack_frame"] = int(frame[1])
         elif (m := re.search(r"Used (\d+) registers", ln)) and cur:
             smem = re.search(r"(\d+) bytes smem", ln)
             out.append({**cur, "registers": int(m[1]),
@@ -218,6 +222,15 @@ def build_phase() -> Dict:
               f"at {PARTITION} slots x G {d['G']}, spill stores "
               f"{u.get('spill_stores')} B, spill loads "
               f"{u.get('spill_loads')} B")
+    # SGMV: the bf16 row-tile kernels and the float32 CUDA-core ones (all
+    # static shared memory)
+    for u in usage:
+        if "sgmv_" in u["function"]:
+            print(f"ptxas {u['function']}: {u['registers']} registers, "
+                  f"static smem {u['static_smem']} B, stack frame "
+                  f"{u.get('stack_frame')} B, spill stores "
+                  f"{u.get('spill_stores')} B, spill loads "
+                  f"{u.get('spill_loads')} B")
     print(f"phase 2 ok ({time.perf_counter() - t0:.1f} s)")
     return {"seconds": info.seconds, "fresh": info.built, "ptxas": usage}
 
@@ -273,7 +286,12 @@ def paged_table(gen, B: int, MB: int, NB: int,
                        torch.full_like(tbl, -1)).contiguous()
 
 
-def sgmv_case(gen, dtype, R: int) -> Dict:
+def sgmv_case(gen, dtype, R: int, run: int = 1,
+              adapters: int = ADAPTERS) -> Dict:
+    """Rows in runs of ``run`` consecutive rows, run i carrying adapter
+    i % ``adapters`` of a bank of ADAPTERS (run 1: interleaved, the worst
+    case for the kernel's per-tile passes; the prefills send token-major
+    runs of a request's length), the last row out of range."""
     from repro_torch.kernels.sgmv.ops import sgmv_apply
     from repro_torch.kernels.sgmv.ref import sgmv_ref
     D = O = 4096
@@ -281,16 +299,25 @@ def sgmv_case(gen, dtype, R: int) -> Dict:
     x = _randn(gen, R, D, dtype=dtype)
     a = _randn(gen, N, D, r, dtype=dtype, scale=1 / math.sqrt(D))
     b = _randn(gen, N, r, O, dtype=dtype, scale=0.02)
-    idx = (torch.arange(R, device="cuda") % N).to(torch.int32)
+    idx = (torch.arange(R, device="cuda") // run % adapters).to(torch.int32)
     idx[-1] = N                            # out of range: an exact zero row
     es = x.element_size()
     valid = int((idx < N).sum())
     used = len(set(idx.tolist()) - {N})
+    library, label = None, "none"
+    if adapters == 1:
+        # one adapter: a chain of two products times the same work, but
+        # rounds xa to bf16 (a yardstick of time; its values are not
+        # compared)
+        library = lambda: torch.linalg.multi_dot(        # noqa: E731
+            (x, a[0], b[0]))
+        label = ("torch.linalg.multi_dot((x, a[0], b[0])): time yardstick "
+                 "only, rounds xa to the storage dtype")
     return dict(
-        shape=f"R={R} D={D} r={r} O={O} N={N}",
+        shape=f"R={R} D={D} r={r} O={O} N={N} run={run} adapters={used}",
         kernel=lambda: sgmv_apply(x, a, b, idx, scaling=2.0),
         plain=lambda: sgmv_ref(x, a, b, idx, scaling=2.0),
-        library=None, library_label="none",
+        library=library, library_label=label,
         zero_rows=[R - 1],
         **bound(es * (R * D + used * r * (D + O) + R * O) + 4 * R,
                 2 * valid * r * (D + O), dtype))
@@ -529,7 +556,15 @@ def kernels_phase() -> Dict[str, Dict]:
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, K=8, G=4)),
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, window=128)),
         ("paged_attention", bf, lambda: decode_case(gen, bf, K=8, G=4)),
-        ("paged_attention", bf, lambda: decode_case(gen, bf, window=128))]
+        ("paged_attention", bf, lambda: decode_case(gen, bf, window=128)),
+        # SGMV at the prefills' row layouts: the runtime's 4 rows x 64
+        # tokens of 4 adapters, the launcher's 3 x 500 of one adapter
+        ("sgmv", bf, lambda: sgmv_case(
+            gen, bf, SERVE["prefill_rows"] * SERVE["prefill_chunk"],
+            run=SERVE["prefill_chunk"])),
+        ("sgmv", bf, lambda: sgmv_case(
+            gen, bf, LAUNCH_BATCH * LAUNCH["prompt_len"],
+            run=LAUNCH["prompt_len"], adapters=1))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for name, dtype, make in makers:
@@ -569,7 +604,7 @@ def kernels_phase() -> Dict[str, Dict]:
     torch.cuda.empty_cache()
     refused = alignment_cases(gen)
     print(f"phase 3 ok: {len(results)} cases within tolerance, "
-          f"{refused} wrappers refuse a misaligned q "
+          f"{refused} wrappers refuse a misaligned operand "
           f"({time.perf_counter() - t0:.1f} s)")
     return {"summary": summary, "cases": results}
 
@@ -577,11 +612,13 @@ def kernels_phase() -> Dict[str, Dict]:
 def alignment_cases(gen) -> int:
     """Each attention wrapper stages q, K and V with 16-byte copies and
     must refuse (ValueError) a ``q`` one element off a 16-byte boundary
-    rather than launch: its kernel has no unaligned path."""
+    rather than launch: its kernel has no unaligned path.  So must SGMV in
+    bf16 an ``x``."""
     from repro_torch.kernels.decode_attention.ops import decode_gqa
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
     from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
+    from repro_torch.kernels.sgmv.ops import sgmv_apply
     bf, B, K, hd, S, bs = torch.bfloat16, 2, 4, 128, 64, 16
 
     def off_by_one(shape):
@@ -603,16 +640,20 @@ def alignment_cases(gen) -> int:
             off_by_one((B, S, K, hd)), cache, cache, causal=True),
         "paged_prefill": lambda: paged_prefill_gqa(
             off_by_one((B, bs, K, hd)), pool, pool, tbl, q_pos),
+        "sgmv": lambda: sgmv_apply(
+            off_by_one((B, K * hd)), _randn(gen, 2, K * hd, 16, dtype=bf),
+            _randn(gen, 2, 16, K * hd, dtype=bf),
+            torch.zeros(B, device="cuda", dtype=torch.int32)),
     }
     for name, call in calls.items():
         try:
             call()
         except ValueError as e:
-            print(f"{name}: q one element off a 16-byte boundary refused: "
-                  f"{e}")
+            print(f"{name}: {'x' if name == 'sgmv' else 'q'} one element "
+                  f"off a 16-byte boundary refused: {e}")
         else:
-            fail(f"{name}: a q one element off a 16-byte boundary was "
-                 f"launched")
+            fail(f"{name}: an operand one element off a 16-byte boundary "
+                 f"was launched")
     return len(calls)
 
 
@@ -781,7 +822,9 @@ def serve_phase(cfg, params) -> Dict:
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    for key, kind in (("sgmv", "sgmv"), ("paged_decode", "paged_attention"),
+    for key, kind in (("sgmv_shrink", "sgmv_shrink"),
+                      ("sgmv_expand", "sgmv_expand"),
+                      ("paged_decode", "paged_attention"),
                       ("paged_prefill", "paged_prefill"),
                       ("flash_kernel", "flash_attention"),
                       ("ring_decode", "decode_attention"),
@@ -794,30 +837,8 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def profiled(fn: Callable[[], object]) -> Dict:
-    """Run ``fn`` once under ``torch.profiler``: the union of device
-    activity and device time by kind (the profiler's host wall time is
-    kept too; it is inflated by the tracing itself)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_kind = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        kind = _kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
-    if not spans:
-        return {"profiled_wall_ms": host_ms, "device_busy_ms": None,
-                "device_ms_by_kind": None,
-                "note": "the profiler saw no device events: not measured"}
+def _union_ms(spans: List) -> float:
+    """Length (ms) of the union of (start, end) intervals in µs."""
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in sorted(spans):
         if cur_e is None or s > cur_e:
@@ -826,9 +847,40 @@ def profiled(fn: Callable[[], object]) -> Dict:
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
-    return {"profiled_wall_ms": host_ms,
-            "device_busy_ms": (busy + cur_e - cur_s) / 1e3,
-            "device_ms_by_kind": dict(sorted(by_kind.items()))}
+    return (busy + cur_e - cur_s) / 1e3 if spans else 0.0
+
+
+def profiled(fn: Callable[[], object]) -> Dict:
+    """Run ``fn`` once under ``torch.profiler``: the union of device
+    activity and device time by kind (the profiler's host wall time is
+    kept too; it is inflated by the tracing itself).  SGMV's expand is
+    resident while its shrink runs, so the two kinds overlap:
+    ``sgmv_union_ms`` counts their time once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spans, sgmv, by_kind = [], [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        kind = _kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
+        if kind.startswith("sgmv"):
+            sgmv.append((start, end))
+    if not spans:
+        return {"profiled_wall_ms": host_ms, "device_busy_ms": None,
+                "device_ms_by_kind": None,
+                "note": "the profiler saw no device events: not measured"}
+    return {"profiled_wall_ms": host_ms, "device_busy_ms": _union_ms(spans),
+            "device_ms_by_kind": dict(sorted(by_kind.items())),
+            "sgmv_union_ms": _union_ms(sgmv)}
 
 
 def wall_ms(fn: Callable[[], object]) -> float:

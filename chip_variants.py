@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Time patched variants of the bf16 attention kernels on one Hopper card.
+"""Time patched variants of the bf16 kernels on one Hopper card.
 
     python3 chip_variants.py [SET]
 
 Run it from the root of a checkout, on the machine with the card.  Each
 variant of a set is a copy of ``src/repro_torch/csrc`` with a few source
 lines replaced, and may also set the split-KV decode wrappers'
-``PARTITION`` (a ``("PARTITION", n)`` entry); it is built with the port's
+``PARTITION`` (a ``("PARTITION", n)`` entry) or names of SGMV's wrapper
+module ``sgmv/ops.py`` (a ``("SGMV", {name: value})`` entry: its rules and
+the constants they read); it is built with the port's
 own build (``cuda_lib.build``) into ``build/variants/<name>/`` (variants
 with the same sources share one build) and loaded beside the others.  Then
 each case of ``chip_smoke.py``'s phase 3 that the set names (bf16, at the
 serving shapes) is timed with every variant in turns (v0 first and last),
 L2 flushed before each call, and printed as one JSON line: median µs per
-variant, its error against the plain version, SDPA's time and the bound.
+variant, its error against the plain version, the library yardstick's
+time (SDPA for attention) and the bound.
 
 Sets:
   1  prefill: what bounds the step: copies only (no compute), compute only
@@ -24,9 +27,22 @@ Sets:
      no branch, the shared-memory carveout at its maximum, and paged
      decode reading its table beside ``pos``; v0 and SDPA are also timed
      with an L2 flush that reads instead of writes (``clean_flush_us``),
-     and v0's kernels one by one under the profiler (``v0_kernels_us``).
-The "copies only", "compute only" and "no merge" variants give wrong
-outputs by design; their errors are printed, not checked.
+     and v0's kernels one by one under the profiler (``v0_kernels_us``);
+  4  SGMV (bf16) at the phase-3 row layouts and the warm-function decode
+     batch: v0 is the first version's CUDA-core kernels (one CTA per row
+     and 128-feature slice, then one thread per output column) against
+     this version's row tiles, plus the new shrink only, the new expand
+     only, the expand launched without programmatic dependence, the
+     expand at four CTAs an SM instead of two, the slice
+     rule at one shrink CTA an SM instead of four, a shrink ring of two
+     stages, the expand without its L2 prefetch of B, the expand at 64
+     rows a CTA whatever R, and where the new time goes: the shrink
+     without its copies or without its cluster sum, the expand without its
+     partials or without its FMAs; both versions' kernels one by one
+     under the profiler (``kernels_us``).
+The "copies only", "compute only", "no merge", "shrink only", "expand
+only", "no copy", "no cluster sum", "no partials" and "no FMA" variants
+give wrong outputs by design; their errors are printed, not checked.
 """
 from __future__ import annotations
 
@@ -34,7 +50,6 @@ import json
 import shutil
 import statistics
 import sys
-from typing import Optional
 
 import torch
 
@@ -115,12 +130,54 @@ SETS = {
         const float ms = m[row * S + s];
         const float w = ms == neg_inf() ? 0.f : expf(ms - mx);""")],
     }),
+    "4": ("sgmv", {
+        "v0": [("sgmv.cu", "    return launch_tc(x, a, b, idx, part, y, R, D, "
+                "r, O, N, dslice, erows,\n                     scaling, st);",
+                "    launch_cuda_core<bf16>(x, a, b, idx, part, y, R, D, r, "
+                "O, N, dslice, scaling, st);\n    return rt::launch_status();"),
+               # the first version's slices of 128 and partials per slice
+               ("SGMV", {"d_slice": lambda R, D: 128, "CLUSTER": 1})],
+        "new": [],
+        "shrink-only": [("sgmv.cu", "  cfg.numAttrs = 1;\n",
+                         "  cfg.numAttrs = 1;\n  if (cfg.numAttrs) return "
+                         "cudaSuccess;\n")],
+        "expand-only": [("sgmv.cu", "  sgmv_shrink_tc_kernel<<<",
+                         "  if (false) sgmv_shrink_tc_kernel<<<")],
+        "no-pdl": [("sgmv.cu", "  cfg.numAttrs = 1;\n",
+                    "  cfg.numAttrs = 0;\n")],
+        "expand-rows-4-per-sm": [("SGMV", {"EXPAND_CTAS_PER_SM": 4})],
+        "ctas-per-sm-1": [("SGMV", {"CTAS_PER_SM": 1})],
+        "ring-2": [("sgmv.cu", "constexpr int kStages = 4;",
+                    "constexpr int kStages = 2;")],
+        "no-b-prefetch": [("sgmv.cu", "  if (first_ad >= 0 && col_ok)\n",
+                           "  if (false)\n")],
+        "shrink-no-copy": [
+            ("sgmv.cu", "    if (j < n) issue(j, j);\n", ""),
+            ("sgmv.cu", "      issue(j + kStages - 1, (j + kStages - 1) % "
+             "kStages);\n", "      ;\n")],
+        "shrink-no-cluster-sum": [
+            ("sgmv.cu", "  cluster.sync();\n  {", "  {"),
+            ("sgmv.cu", "    if (k < r && ids[row] >= 0) {",
+             "    if (false) {"),
+            ("sgmv.cu", "  cluster.sync();  // no CTA leaves while another "
+             "reads its `red`\n", "")],
+        "expand-no-partials": [
+            ("sgmv.cu", "  for (int i = tid; i < nq; i += kThreads)\n"
+             "    cp_async16(pt + 4 * i, src + 4 * i, true);\n", ""),
+            ("sgmv.cu", "    for (int q = 0; q < sp; ++q) v += pt[(row * sp "
+             "+ q) * RK + k];\n", "")],
+        "expand-rows-64": [("SGMV", {"EXPAND_CTAS_PER_SM": 0})],
+        "expand-no-fma": [("sgmv.cu", "          acc[c] = fmaf(xv[kk], bv[4 "
+                           "* k4 + kk][c], acc[c]);",
+                           "          acc[c] = bv[4 * k4 + kk][c];")],
+    }),
 }
 
 
-def partition(patches) -> Optional[int]:
-    """The decode wrappers' PARTITION a variant sets, if any."""
-    return next((p[1] for p in patches if p[0] == "PARTITION"), None)
+def setting(patches, key: str):
+    """The value a variant gives ``key`` ("PARTITION", "SGMV"), if
+    any."""
+    return next((p[1] for p in patches if p[0] == key), None)
 
 
 def kernel_split(fn, flush: torch.Tensor, runs: int = 5) -> dict:
@@ -168,7 +225,7 @@ def build_variants(variants):
             for u in cs.ptxas_usage(info.log):
                 if ("_bf16ILi128" in u["function"] or
                         "_decode_part_kernelI13__nv_bfloat16Li128ELi1E"
-                        in u["function"]):
+                        in u["function"] or "sgmv_" in u["function"]):
                     print(f"{name}: {u['function'][:60]}... "
                           f"{u['registers']} registers, spill stores "
                           f"{u.get('spill_stores')} B", flush=True)
@@ -185,6 +242,7 @@ def main() -> int:
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.decode_attention import ops as ring_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.sgmv import ops as sgmv_ops
     libs = build_variants(variants)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -210,9 +268,30 @@ def main() -> int:
             "paged": lambda: cs.decode_case(gen, bf),
             "paged GQA": lambda: cs.decode_case(gen, bf, K=8, G=4),
         },
+        "sgmv": {
+            "R=8 interleaved": lambda: cs.sgmv_case(gen, bf, 8),
+            "R=256 interleaved": lambda: cs.sgmv_case(gen, bf, 256),
+            "R=256 runs of 64": lambda: cs.sgmv_case(gen, bf, 256, run=64),
+            "R=1500 one adapter": lambda: cs.sgmv_case(
+                gen, bf, 1500, run=500, adapters=1),
+            "R=3 one adapter": lambda: cs.sgmv_case(gen, bf, 3, run=3,
+                                                    adapters=1),
+        },
     }[kind]
     order = list(variants) + list(reversed(variants))
     real, part = cuda_lib.library, ring_ops.PARTITION
+    sgmv_names = {name: getattr(sgmv_ops, name)
+                  for v in variants.values()
+                  for name in (setting(v, "SGMV") or {})}
+
+    def use(n: str) -> None:
+        cuda_lib.library = lambda: libs[n]
+        ring_ops.PARTITION = paged_ops.PARTITION = \
+            setting(variants[n], "PARTITION") or part
+        for name, value in {**sgmv_names,
+                            **(setting(variants[n], "SGMV") or {})}.items():
+            setattr(sgmv_ops, name, value)
+
     try:
         for cname, make in cases.items():
             c = make()
@@ -220,30 +299,36 @@ def main() -> int:
             us = {n: [] for n in variants}
             err = {}
             for n in order:
-                cuda_lib.library = lambda n=n: libs[n]
-                ring_ops.PARTITION = paged_ops.PARTITION = \
-                    partition(variants[n]) or part
+                use(n)
                 got = c["kernel"]()
                 torch.cuda.synchronize()
                 err[n] = float((got.float() - want.float()).abs().max())
                 us[n].append(cs.device_ms(c["kernel"], 30, flush) * 1e3)
             line = {"case": cname, "shape": c["shape"],
                     "bound_us": c["bound_ms"] * 1e3,
-                    "sdpa_us": cs.device_ms(c["library"], 30, flush) * 1e3,
+                    "library_us": (cs.device_ms(c["library"], 30, flush) *
+                                   1e3 if c["library"] is not None
+                                   else None),
                     "us": us, "err": err}
             if kind == "decode":
-                cuda_lib.library = lambda: libs["v0"]
-                ring_ops.PARTITION = paged_ops.PARTITION = part
+                use("v0")
                 line["clean_flush_us"] = {
                     "v0": cs.device_ms(c["kernel"], 30, flush,
                                        read_flush=True) * 1e3,
                     "sdpa": cs.device_ms(c["library"], 30, flush,
                                          read_flush=True) * 1e3}
                 line["v0_kernels_us"] = kernel_split(c["kernel"], flush)
+            if kind == "sgmv":
+                line["kernels_us"] = {}
+                for n in ("v0", "new"):
+                    use(n)
+                    line["kernels_us"][n] = kernel_split(c["kernel"], flush)
             print(json.dumps(line), flush=True)
     finally:
         cuda_lib.library = real
         ring_ops.PARTITION = paged_ops.PARTITION = part
+        for name, value in sgmv_names.items():
+            setattr(sgmv_ops, name, value)
     return 0
 
 

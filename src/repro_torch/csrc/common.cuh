@@ -1,8 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel reads float32 or bfloat16 storage and accumulates in
-// float32 (the bf16 prefill kernels multiply bf16 operands on the tensor
-// cores, prefill_tile.cuh).
+// float32 (the bf16 prefill kernels and the bf16 SGMV shrink multiply bf16
+// operands on the tensor cores, with the fragment helpers below).
 // The C entry points take a dtype code (DTYPE_F32 / DTYPE_BF16, mirrored
 // in kernels/cuda_lib.py), launch on the caller's stream and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -119,6 +119,51 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------ tensor-core fragments (sm_80+)
+//
+// The bf16 products of the prefill tile step (prefill_tile.cuh) and of the
+// SGMV shrink (sgmv.cu) are mma.sync.m16n8k16 with operands loaded from
+// shared memory by ldmatrix.
+
+// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same, each matrix transposed (B fragments of a row-major (k, n)
+// operand).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to a bf16 pair; lo takes the low half (the smaller
+// column of a fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Raise the dynamic shared-memory limit of `kernel` to `bytes`.  The

@@ -45,8 +45,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: cudaError_t, or decode_smem_bytes's
     # byte count)
-    "sgmv_shrink": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "sgmv_expand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sgmv": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "paged_decode": [_P] * 9 + [_I] * 10 + [_P],
     "paged_prefill": [_P] * 7 + [_I] * 10 + [_P],
     "flash_attn": [_P] * 4 + [_I] * 9 + [_P],
