@@ -7,8 +7,9 @@ Run it from the root of a checkout.  It builds the port's CUDA kernels
 from ``src/repro_torch/csrc`` and drives ``src/repro_torch``; it imports
 neither JAX nor the JAX package.  Phases, each fatal on failure:
 
-1. device: ``torch.cuda.get_device_name(0)`` and the card's
-   ``nvidia-smi --query-gpu=name,power.limit`` line;
+1. device: ``torch.cuda.get_device_name(0)``, the card's
+   ``nvidia-smi --query-gpu=name,power.limit`` line, the driver's version
+   and nvcc's release;
 2. build: compile the kernels with nvcc for sm_90a; print ptxas's
    registers and spills of the tensor-core (bf16) prefill kernels, and
    the registers, static and dynamic shared memory and spills of the
@@ -25,37 +26,55 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    wrapper must refuse a ``q``, and SGMV an ``x``, one element off a
    16-byte boundary;
 4. serve: ``ContinuousRuntime`` + ``replay_trace`` at the full width of
-   Llama-2-7B (random weights from a seed, a 4-adapter LoRA bank, a
-   shared-prefix multi-adapter trace).  Every request must finish, the
-   books must balance, no logit or pool entry may be non-finite, and every
-   kernel's launch count must equal layers x dispatches x sites.  A
-   breakdown follows: one prefill admission and four decode chunks timed
-   on the host clock, then the same round again, from the same state on
-   fresh prompts of the same lengths, under ``torch.profiler`` for the
-   device's busy time by kind (hence its idle share);
+   Llama-2-7B (random weights from a seed, a 4-adapter LoRA bank preloaded
+   into an ``AdapterRegistry`` as fn0-fn3, a shared-prefix multi-adapter
+   trace that names them), with both dispatches captured once as CUDA
+   graphs, under ``CompileGuard({decode: 1, prefill: 1})``.  Every request
+   must finish, the books must balance, no logit or pool entry may be
+   non-finite, and every kernel's launch count must equal layers x
+   dispatches x sites (replays counted).  Then adapter churn inside the
+   guard: fn3 unloaded, fn3b (drawn from seed 1) loaded into its slot,
+   four requests on fn3b and two on fn0 replayed; their tokens must equal
+   those of a second runtime over the same backbone whose bank held fn3b
+   from the start, and no LoRA leaf may move (``data_ptr``).  The first
+   round's trace then runs again on a runtime whose dispatches run eagerly
+   (``GraphedDispatch.eager``): equal greedy tokens, and a decode step's
+   logits, captured and eager, within a stated tolerance.  A breakdown
+   follows: one prefill admission and four decode chunks timed on the host
+   clock, then the same round again, from the same state on fresh prompts
+   of the same lengths, under ``torch.profiler`` for the device's busy
+   time by kind (hence its idle share), with the profiler's kernel counts
+   held against the wrappers' launch counts;
 5. warm functions: the launcher ``repro_torch.launch.serve`` on the same
    weights (``BackboneStore`` + one ``FunctionInstance`` per adapter, the
    adaptive ``BatchingScheduler``, ``InferenceEngine.generate`` over ring
-   caches): 32 requests of 500 prompt tokens and 32 new tokens.  Every
-   request must be served, no logit may be non-finite, the four handles
-   must read the very backbone tensors, and the launch counts must equal
-   layers x (prefill calls | decode steps) x sites.  Then one batch's
-   prefill and decode steps are timed on the host clock and, from the same
-   state, under ``torch.profiler`` (device busy, hence idle share);
+   caches, its decode step captured once per batch size): 32 requests of
+   500 prompt tokens and 32 new tokens.  Every request must be served, no
+   logit may be non-finite, the four handles must read the very backbone
+   tensors, and the launch counts must equal layers x (prefill calls |
+   decode steps) x sites.  One batch's captured tokens must equal an eager
+   loop's.  Then its prefill and decode steps are timed on the host clock
+   and, from the same state, under ``torch.profiler`` (device busy, hence
+   idle share);
 6. parity: the SMOKE config in float32, replayed through the serving
    runtime on the card (kernels) and on the CPU (plain versions), must emit
-   the same tokens, greedy and sampled; and ``InferenceEngine.generate``
-   on the two devices must emit the same greedy tokens.
+   the same tokens, greedy and sampled (temperature, top-k, top-p), and
+   the sampled rows' Philox uniforms must be equal bit for bit on the two
+   devices; and ``InferenceEngine.generate`` on the two devices must emit
+   the same greedy tokens.
 
 ``--report`` writes every number to a JSON file.  The model of phases 4
-and 5 runs at its full depth.  The last two lines of output are a
-``{"kernels": [...]}`` object and ``{"ok": true, "device": {...}}``.
+and 5 runs at its full depth.  Each capture of a dispatch is preceded by one
+eager run of it (``serving/graphs.py``), whose launches count.  The last
+two lines of output are a ``{"kernels": [...]}`` object and ``{"ok":
+true, "device": {...}}``.
 Without a CUDA card, or outside a checkout, the script exits nonzero and
 prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -149,9 +168,21 @@ def device_phase() -> Dict:
           f"{torch.cuda.device_count()} card(s) visible; device 0: {name}")
     for ln in lines:
         print(ln)
+    from repro_torch.kernels import cuda_lib
+    drv = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=False)
+    nvcc = subprocess.run([cuda_lib.nvcc_path(), "--version"],
+                          capture_output=True, text=True, timeout=60,
+                          check=False)
+    release = [ln.strip() for ln in nvcc.stdout.splitlines()
+               if "release" in ln]
+    print(f"driver {drv.stdout.strip()}; nvcc: "
+          f"{release[0] if release else nvcc.stdout.strip()}")
     print(f"phase 1 ok ({time.perf_counter() - t0:.1f} s)")
     return {"kind": name, "count": torch.cuda.device_count(),
-            "nvidia_smi": lines}
+            "nvidia_smi": lines, "driver": drv.stdout.strip(),
+            "nvcc": release}
 
 
 # ---------------------------------------------------------------- 2. build
@@ -703,15 +734,20 @@ def model_params():
 
 class FiniteLogits:
     """Within the block, every LM-head output is checked for non-finite
-    values (the flags stay on the device until ``ok`` is read)."""
+    values: it is ANDed in place into one persistent device flag, so a
+    CUDA graph captured in the block checks every replay too (the flag
+    lives as long as this object; keep it alive while such graphs
+    replay)."""
 
     def __enter__(self):
         from repro_torch.models import transformer as tf
-        self.tf, self.plain, self.flags = tf, tf._logits, []
+        self.tf, self.plain, self.calls = tf, tf._logits, 0
+        self.flag = torch.ones((), dtype=torch.bool, device="cuda")
 
         def checked(p, c, x):
             out = self.plain(p, c, x)
-            self.flags.append(torch.isfinite(out).all())
+            self.flag.logical_and_(torch.isfinite(out).all())
+            self.calls += 1
             return out
 
         tf._logits = checked
@@ -721,23 +757,71 @@ class FiniteLogits:
         self.tf._logits = self.plain
 
     def ok(self) -> bool:
-        return bool(self.flags) and bool(torch.stack(self.flags).all())
+        return self.calls > 0 and bool(self.flag)
 
 
-def serve_phase(cfg, params) -> Dict:
+class EagerDispatch:
+    """A runtime dispatch driven through ``GraphedDispatch.eager``: the
+    same function, uncaptured (the graphs' comparison)."""
+
+    def __init__(self, dispatch):
+        self.dispatch = dispatch
+
+    def __call__(self, *args):
+        return self.dispatch.eager(*args)
+
+    def _cache_size(self) -> int:
+        return 0
+
+
+def _smi(device: Dict) -> str:
+    return f"{device['kind']} [{'; '.join(device['nvidia_smi'])}]"
+
+
+def bank_ptrs(params) -> List[int]:
+    from repro_torch.core.lora import partition_lora, tree_leaves
+    return [t.data_ptr() for t in tree_leaves(partition_lora(params)[1])]
+
+
+def churn_adapter(cfg, params, seed: int):
+    """A single-adapter tree for the registry (the bank's structure, one
+    adapter's (D, r) / (r, O) leaves), random from ``seed`` at the init
+    scales of ``init_params``: A ~ N(0, 1/D), B ~ N(0, 0.02)."""
+    from repro_torch.core.lora import partition_lora, take_adapter
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(x):
+        rows, cols = x.shape
+        scale = 1 / math.sqrt(rows) if cols == cfg.lora.rank else 0.02
+        return _randn(gen, rows, cols, dtype=x.dtype, scale=scale)
+
+    return _tree_map(draw, take_adapter(partition_lora(params)[1], 0))
+
+
+def serve_phase(cfg, params, device: Dict) -> Dict:
     from repro_torch import kernels
-    from repro_torch.serving import (ContinuousRuntime, ServingConfig,
-                                     replay_trace, terminal_state)
+    from repro_torch.core.lora import (combine_lora, partition_lora,
+                                       take_adapter)
+    from repro_torch.serving import (AdapterRegistry, CompileGuard,
+                                     ContinuousRuntime, GraphedDispatch,
+                                     ServingConfig, replay_trace,
+                                     terminal_state)
 
     t0 = phase("phase 4: serve Llama-2-7B on the card")
     layers = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     scfg = ServingConfig(**SERVE)
     rt = ContinuousRuntime(cfg, params, scfg)
-    print(f"serving: {SERVE}")
-    work, prompts, fn_adapter = shared_prefix_trace(
+    names = [f"fn{i}" for i in range(ADAPTERS)]
+    reg = AdapterRegistry(rt, names=names)
+    ptrs = bank_ptrs(params)
+    print(f"serving: {SERVE}; registry {reg.names()} over a bank of "
+          f"{rt.bank_slots}")
+    work, prompts, slots = shared_prefix_trace(
         REQUESTS, ADAPTERS, SYSTEM_PROMPT, MAX_PROMPT, OUTPUT_TOKENS,
         cfg.vocab_size, seed=0)
+    fn_adapter = {fn: fn for fn in slots}           # fn_id -> registry name
     print(f"trace: {len(work)} greedy requests, {ADAPTERS} adapters, "
           f"prompts {min(w['prompt_len'] for w in work)}-"
           f"{max(w['prompt_len'] for w in work)} tokens "
@@ -745,48 +829,96 @@ def serve_phase(cfg, params) -> Dict:
           f"{OUTPUT_TOKENS} output tokens")
 
     sink: Dict[int, List[int]] = {}
-    with FiniteLogits() as finite:
+    churn_sink: Dict[int, List[int]] = {}
+    with FiniteLogits() as finite, CompileGuard(
+            {"decode": 1, "prefill": 1}, runtime=rt) as guard:
         kernels.reset_launches()
         t_run = time.perf_counter()
         res, _ = replay_trace(rt, work, fn_adapter, prompts=prompts,
                               prefill_group=SERVE["prefill_rows"],
                               token_sink=sink)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t_run
-    launches = kernels.launch_counts()
+        wall = time.perf_counter() - t_run
+        launches = kernels.launch_counts()
+        dispatched = (rt.stats["prefill_chunks"], rt.stats["decode_chunks"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        round1 = rt.check_invariants(res.requests)
+        # adapter churn while serving goes on: fn3 out, fn3b into its slot
+        saved = _map_clone(take_adapter(partition_lora(params)[1],
+                                        reg.slot_of("fn3")))
+        reg.unload("fn3")
+        slot3 = reg.load("fn3b", churn_adapter(cfg, params, seed=1))
+        churn_work, churn_prompts = churn_trace(cfg, REQUESTS)
+        churn_res, _ = replay_trace(
+            rt, churn_work, {"fn3b": "fn3b", "fn0": "fn0"},
+            prompts=churn_prompts, prefill_group=SERVE["prefill_rows"],
+            token_sink=churn_sink)
+        torch.cuda.synchronize()
+    report = guard.report()
+    print(f"CompileGuard: {json.dumps(report)}")
+    if report["decode_compiles"] != 1 or report["prefill_compiles"] != 1:
+        fail(f"dispatches captured more than once: {report}")
 
     for r in res.requests:
-        print(f"req {r.req_id:2d} fn{fn_adapter[r.fn_id]} prompt "
+        print(f"req {r.req_id:2d} {r.fn_id} prompt "
               f"{r.prompt_len:3d}: {terminal_state(r)}, "
               f"{len(sink.get(r.req_id, []))} tokens, ttft "
               f"{r.first_token - r.arrival:.4f} s, done at {r.done:.4f} s")
-    states = [terminal_state(r) for r in res.requests]
-    if states != ["finished"] * len(work):
+    states = [terminal_state(r) for r in res.requests + churn_res.requests]
+    if states != ["finished"] * len(states):
         fail(f"not every request finished: {states}")
     if any(len(sink[w["req_id"]]) != OUTPUT_TOKENS for w in work):
         fail("a request emitted the wrong number of tokens")
-    report = rt.check_invariants(res.requests)
-    if report["pool"]["live"] != 0 or report["slots_active"] != 0:
-        fail(f"blocks or slots still held after the drain: {report}")
+    if round1["pool"]["live"] != 0 or round1["slots_active"] != 0:
+        fail(f"blocks or slots still held after the drain: {round1}")
     if not finite.ok():
-        fail("non-finite logits during the replay")
+        fail("non-finite logits during the replays")
     for layer in rt.cache:
         for pool in layer.values():
             if not bool(torch.isfinite(pool).all()):
                 fail("non-finite entries in a KV pool")
 
-    prefills = rt.stats["prefill_chunks"] + 2          # + warmup's two
-    steps = (rt.stats["decode_chunks"] + 2) * scfg.decode_chunk
+    # each capture runs its dispatch eagerly once before it (graphs.py)
+    prefills = dispatched[0] + 2 + 1             # + warmup's two, capture's
+    steps = (dispatched[1] + 2 + 1) * scfg.decode_chunk
     sites = len(cfg.lora.targets)
     expected = {"sgmv": sites * layers * (prefills + steps),
                 "paged_attention": layers * steps,
                 "paged_prefill": layers * prefills,
                 "flash_attention": 0, "decode_attention": 0}
     print(f"launches {launches}, expected {expected} ({prefills} prefill "
-          f"dispatches, {steps} decode steps incl. warmup, {layers} "
-          f"layers, {sites} LoRA sites)")
+          f"dispatches, {steps} decode steps incl. warmup and the eager run "
+          f"before each capture, {layers} layers, {sites} LoRA sites)")
     if launches != expected:
         fail("launch counts differ from layers x dispatches x sites")
+
+    # the churned adapter against a bank that held fn3b from the start
+    if bank_ptrs(params) != ptrs:
+        fail("a LoRA bank leaf moved during the adapter churn")
+    backbone, bank = partition_lora(params)
+    rt2 = ContinuousRuntime(cfg, combine_lora(backbone, _map_clone(bank)),
+                            scfg)
+    oracle_sink: Dict[int, List[int]] = {}
+    replay_trace(rt2, churn_work, {"fn3b": slot3, "fn0": 0},
+                 prompts=churn_prompts, prefill_group=SERVE["prefill_rows"],
+                 token_sink=oracle_sink)
+    del rt2
+    if churn_sink != oracle_sink:
+        fail(f"churned adapter's tokens differ from a fresh bank's: "
+             f"{[k for k in churn_sink if churn_sink[k] != oracle_sink.get(k)]}")
+    print(f"churn: fn3 unloaded, fn3b loaded into slot {slot3}; "
+          f"{len(churn_sink)} requests ({sum(map(len, churn_sink.values()))}"
+          f" tokens) equal to a runtime whose bank held fn3b from the "
+          f"start; {len(ptrs)} LoRA leaves kept their data_ptr; counters "
+          f"loads {rt.stats['adapter_loads']} unloads "
+          f"{rt.stats['adapter_unloads']}")
+    reg.unload("fn3b")
+    if reg.load("fn3", saved) != slot3 or bank_ptrs(params) != ptrs:
+        fail("restoring fn3 moved it or the bank")
+
+    eager = eager_compare(cfg, params, scfg, names, work, prompts,
+                          fn_adapter, sink)
 
     m = rt.metrics.histogram
     ttft, tpot = m("ttft_s").summary(), m("tpot_s").summary()
@@ -801,8 +933,10 @@ def serve_phase(cfg, params) -> Dict:
         "prefill_dispatches": prefills, "decode_steps": steps,
         "shared_block_maps": rt.stats["shared_block_maps"],
         "recomputed_tokens": rt.stats["recomputed_tokens"],
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches,
+        "peak_memory_gb": peak, "peak_reserved_gb": reserved,
+        "launches": launches, "compile_guard": report,
+        "captures_process_wide": GraphedDispatch.captures,
+        "churn_requests": len(churn_sink), "eager": eager,
         "launches_per_prefill_dispatch": {
             "sgmv": sites * layers, "paged_prefill": layers},
         "launches_per_decode_step": {
@@ -811,13 +945,96 @@ def serve_phase(cfg, params) -> Dict:
     print(f"TTFT p50 {out['ttft_p50_s']:.4f} s, TPOT p50 "
           f"{out['tpot_p50_s']:.4f} s, {out['tokens_per_s']:.1f} tokens/s "
           f"(replay clock), replay wall {wall:.1f} s, peak memory "
-          f"{out['peak_memory_gb']:.2f} GB, shared block maps "
+          f"{peak:.2f} GB allocated, {reserved:.2f} GB reserved (graphs "
+          f"captured) on {_smi(device)}; shared block maps "
           f"{out['shared_block_maps']}")
-    out["breakdown"] = breakdown(rt, cfg)
-    del rt
+    out["breakdown"] = breakdown(rt, cfg, device)
+    if not finite.ok():
+        fail("non-finite logits during the breakdown's replays")
+    # the runtime, its registry and its dispatches refer to each other (and
+    # the guard to them): collect the cycle, so that phase 5's peak memory
+    # does not hold this runtime's pools
+    del rt, reg, guard
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 4 ok ({time.perf_counter() - t0:.1f} s)")
     return out
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a nested dict/list; None stays."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def _map_clone(tree):
+    return _tree_map(torch.Tensor.clone, tree)
+
+
+def churn_trace(cfg, first_id: int):
+    """Four requests on fn3b and two on fn0 (fn0's shared system prompt
+    differs from the first round's: new prompts from seed 5)."""
+    rng = np.random.default_rng(5)
+    work, prompts = [], {}
+    for i, fn in enumerate(["fn3b"] * 4 + ["fn0"] * 2):
+        rid = first_id + i
+        prompts[rid] = rng.integers(0, cfg.vocab_size, int(rng.integers(
+            SYSTEM_PROMPT, MAX_PROMPT // 2))).astype(np.int32)
+        work.append(dict(req_id=rid, fn_id=fn, arrival=0.02 * i,
+                         prompt_len=len(prompts[rid]),
+                         output_len=OUTPUT_TOKENS, slo_ttft=1e9))
+    return work, prompts
+
+
+def eager_compare(cfg, params, scfg, names, work, prompts, fn_adapter,
+                  sink) -> Dict:
+    """The first round's trace on a runtime whose two dispatches run
+    eagerly: its greedy tokens must equal the captured runtime's.  Then a
+    decode step's logits, as one captured graph and eagerly, on the same
+    inputs over this runtime's pools: within TOL[bf16] x max(1, max
+    |eager|), since both run the same kernels on the same inputs."""
+    from repro_torch.serving import (AdapterRegistry, ContinuousRuntime,
+                                     GraphedDispatch, replay_trace)
+    rt = ContinuousRuntime(cfg, params, scfg)
+    AdapterRegistry(rt, names=names)
+    rt._decode = EagerDispatch(rt._decode)
+    rt._prefill = EagerDispatch(rt._prefill)
+    eager_sink: Dict[int, List[int]] = {}
+    replay_trace(rt, work, fn_adapter, prompts=prompts,
+                 prefill_group=SERVE["prefill_rows"], token_sink=eager_sink)
+    if eager_sink != sink:
+        fail(f"eager and captured runtimes emit different tokens for "
+             f"{[k for k in sink if sink[k] != eager_sink.get(k)]}")
+
+    def step(tok, pos, tbl, ai):
+        return rt._serve(rt.params, tok, rt.cache, pos, adapter_idx=ai,
+                         block_tbl=tbl)[0]
+
+    rng = np.random.default_rng(3)
+    B, MB = scfg.num_slots, scfg.max_blocks_per_slot
+    pos = rng.integers(SYSTEM_PROMPT, MAX_PROMPT, B).astype(np.int32)
+    tbl = (rng.permutation(scfg.num_blocks - 1)[:B * MB] + 1).reshape(
+        B, MB).astype(np.int32)
+    args = (rng.integers(0, cfg.vocab_size, B).astype(np.int32), pos, tbl,
+            (np.arange(B) % ADAPTERS).astype(np.int32))
+    probe = GraphedDispatch(step, "cuda")
+    got = probe(*args)
+    want = probe.eager(*args)
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL[torch.bfloat16] * max(1.0, float(want.float().abs().max()))
+    print(f"eager runtime: {len(eager_sink)} requests, tokens equal to the "
+          f"captured runtime's; decode-step logits captured vs eager: max "
+          f"|diff| {err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        fail(f"captured and eager logits differ by {err:.3e} > {tol:.3e}")
+    del rt, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"requests": len(eager_sink), "logits_max_abs_err": err,
+            "logits_tol": tol}
 
 
 def _kernel_kind(name: str) -> str:
@@ -864,7 +1081,7 @@ def profiled(fn: Callable[[], object]) -> Dict:
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    spans, sgmv, by_kind = [], [], {}
+    spans, sgmv, by_kind, count = [], [], {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -872,6 +1089,7 @@ def profiled(fn: Callable[[], object]) -> Dict:
         spans.append((start, end))
         kind = _kernel_kind(e.name)
         by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
+        count[kind] = count.get(kind, 0) + 1
         if kind.startswith("sgmv"):
             sgmv.append((start, end))
     if not spans:
@@ -880,7 +1098,39 @@ def profiled(fn: Callable[[], object]) -> Dict:
                 "note": "the profiler saw no device events: not measured"}
     return {"profiled_wall_ms": host_ms, "device_busy_ms": _union_ms(spans),
             "device_ms_by_kind": dict(sorted(by_kind.items())),
+            "kernels_by_kind": dict(sorted(count.items())),
             "sgmv_union_ms": _union_ms(sgmv)}
+
+
+# kernels the profiler shows for one launch of each wrapper (SGMV and the
+# split-KV decode wrappers launch two)
+PROFILED_KINDS = {"sgmv": ("sgmv_shrink", "sgmv_expand"),
+                  "paged_attention": ("paged_attention", "decode_merge"),
+                  "paged_prefill": ("paged_prefill",),
+                  "flash_attention": ("flash_attention",),
+                  "decode_attention": ("decode_attention", "decode_merge")}
+
+
+def cross_check(label: str, launches: Dict[str, int], prof: Dict) -> Dict:
+    """The wrappers' launch counts over a profiled round (replays included)
+    against the kernels the profiler reported by name: each launch must
+    show up once under each of its kinds.  A profiler that reports a
+    graph's kernels one by one gives equal counts; one that does not
+    reports fewer, which is printed and not failed on (then it is the
+    profiler, not the port, that cannot see inside the graph)."""
+    want: Dict[str, int] = {}
+    for name, n in launches.items():
+        for kind in PROFILED_KINDS[name]:
+            want[kind] = want.get(kind, 0) + n
+    seen = prof.get("kernels_by_kind") or {}
+    got = {k: seen.get(k, 0) for k in want}
+    match = got == want
+    print(f"{label} launch cross-check: wrappers {want}, profiler {got}: "
+          + ("equal" if match else "NOT equal"))
+    if not match and all(v > 0 for v in got.values()):
+        fail(f"{label}: the profiler sees the kernels but not as many as "
+             f"the wrappers launched")
+    return {"wrappers": want, "profiler": got, "equal": match}
 
 
 def wall_ms(fn: Callable[[], object]) -> float:
@@ -890,7 +1140,7 @@ def wall_ms(fn: Callable[[], object]) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def breakdown(rt, cfg) -> Dict:
+def breakdown(rt, cfg, device: Dict) -> Dict:
     """Where the time of the two dispatches goes, at full width.  A round
     admits two groups of ``prefill_rows`` fresh 512-token prompts (8 prefill
     dispatches each), which fills the slots, runs 4 decode chunks with
@@ -929,21 +1179,51 @@ def breakdown(rt, cfg) -> Dict:
         if report["pool"]["live"] != 0 or report["slots_active"] != 0:
             fail(f"breakdown: blocks or slots still held: {report}")
 
+    from repro_torch import kernels
+
+    def counted(fn) -> Callable[[], object]:
+        def run():
+            before = kernels.launch_counts()
+            fn()
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after
+                           if after[k] > before[k]})
+        return run
+
     drain()
     reqs = fresh()
     pre_wall = wall_ms(lambda: admit(reqs))
     dec_wall = wall_ms(decode4)
     drain()
     reqs = fresh()
-    pre = profiled(lambda: admit(reqs))
-    dec = profiled(decode4)
+    counts: List[Dict[str, int]] = []
+    pre = profiled(counted(lambda: admit(reqs)))
+    dec = profiled(counted(decode4))
     drain()
     per_group = -(-512 // scfg.prefill_chunk)
+    steps = 4 * scfg.decode_chunk
     res = {"prefill_admission": {"dispatches": 2 * per_group,
                                  "wall_ms": pre_wall, **pre},
-           "decode_4_chunks": {"steps": 4 * scfg.decode_chunk,
-                               "wall_ms": dec_wall, **dec}}
-    return report_rounds("breakdown", res)
+           "decode_4_chunks": {"steps": steps, "wall_ms": dec_wall, **dec}}
+    report_rounds("breakdown", res)
+    res["prefill_admission"]["cross_check"] = cross_check(
+        "breakdown prefill", counts[0], pre)
+    res["decode_4_chunks"]["cross_check"] = cross_check(
+        "breakdown decode", counts[1], dec)
+    per_step(f"decode step, {scfg.num_slots} rows (captured chunks of "
+             f"{scfg.decode_chunk})", dec_wall, dec, steps, device)
+    per_step("prefill dispatch, 4 rows x 64 tokens (captured)", pre_wall,
+             pre, 2 * per_group, device)
+    return res
+
+
+def per_step(label: str, wall: float, prof: Dict, n: int,
+             device: Dict) -> None:
+    busy = prof["device_busy_ms"]
+    print(f"{label}: host wall {wall / n:.2f} ms against device busy "
+          + (f"{busy / n:.2f} ms, idle share {1 - busy / wall:.3f}"
+             if busy is not None else "not measured")
+          + f" on {_smi(device)}")
 
 
 def report_rounds(label: str, res: Dict[str, Dict]) -> Dict[str, Dict]:
@@ -1001,13 +1281,21 @@ def launcher_phase(cfg, params, device: Dict) -> Dict:
         fail(f"phase 3 timed {LAUNCH_BATCH} rows; the launcher's largest "
              f"batch was {max(sizes)}")
     L, sites, calls = cfg.num_layers, len(cfg.lora.targets), len(sizes)
-    steps = calls * (new - 1)
+    captures = res["captures"]
+    print(f"decode-step captures per (batch, context) key: "
+          f"{ {str(k): n for k, n in captures.items()} }")
+    if sorted(captures) != sorted((b, LAUNCH_CONTEXT) for b in set(sizes)) \
+            or set(captures.values()) != {1}:
+        fail(f"expected one capture per batch size {sorted(set(sizes))}")
+    # each capture runs the step eagerly once before it (graphs.py)
+    steps = calls * (new - 1) + len(captures)
     expected = {"flash_attention": L * calls,
                 "decode_attention": L * steps,
                 "sgmv": sites * L * (calls + steps),
                 "paged_attention": 0, "paged_prefill": 0}
     print(f"launches {launches}, expected {expected} ({calls} prefill "
-          f"calls, {steps} decode steps, {L} layers, {sites} LoRA sites)")
+          f"calls, {steps} decode steps incl. the eager run before each of "
+          f"{len(captures)} captures, {L} layers, {sites} LoRA sites)")
     if launches != expected or res["launches"] != expected:
         fail("launch counts differ from layers x calls x sites")
     tokens_per_s = res["tokens"] / res["wall_s"]
@@ -1018,7 +1306,9 @@ def launcher_phase(cfg, params, device: Dict) -> Dict:
            "tokens": res["tokens"], "wall_s": res["wall_s"],
            "tokens_per_s": tokens_per_s, "prefill_calls": calls,
            "decode_steps": steps, "launches": launches,
+           "captures": {str(k): n for k, n in captures.items()},
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"peak memory {out['peak_memory_gb']:.2f} GB on {_smi(device)}")
     out["breakdown"] = engine_breakdown(cfg, params, device)
     torch.cuda.empty_cache()
     print(f"phase 5 ok ({time.perf_counter() - t0:.1f} s)")
@@ -1026,11 +1316,14 @@ def launcher_phase(cfg, params, device: Dict) -> Dict:
 
 
 def engine_breakdown(cfg, params, device: Dict, steps: int = 16) -> Dict:
-    """Where one warm batch's time goes: a prefill of LAUNCH_BATCH fresh
-    prompts and ``steps`` greedy decode steps, first on the host clock
-    alone, then again from the same state (a fresh cache, the same prompts)
+    """One warm batch: first its captured ``generate`` against an eager
+    loop of ``decode_one`` over a fresh ring (equal tokens), then where
+    its time goes: a prefill of LAUNCH_BATCH fresh prompts and ``steps``
+    replays of the captured decode step, first on the host clock alone,
+    then again from the same state (the ring emptied, the same prompts)
     under the profiler for device busy.  Idle share = 1 - device busy /
     unprofiled host wall; a busy time above that wall fails."""
+    from repro_torch import kernels
     from repro_torch.core.engine import InferenceEngine
     eng = InferenceEngine(cfg, params, max_context=LAUNCH_CONTEXT)
     gen = torch.Generator(device="cuda")
@@ -1039,30 +1332,58 @@ def engine_breakdown(cfg, params, device: Dict, steps: int = 16) -> Dict:
     prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
                             device="cuda", dtype=torch.int32)
     ai = (torch.arange(B, device="cuda") % ADAPTERS).to(torch.int32)
+
+    new = LAUNCH["max_new"]
+    got, _ = eng.generate(prompts, new, ai)
+    logits, cache = eng.prefill(prompts, ai)          # a fresh ring
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    want = [tok]
+    for i in range(new - 1):
+        logits, cache = eng.decode_one(tok, cache, T + i, ai)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        want.append(tok)
+    if not torch.equal(got, torch.stack(want, dim=1)):
+        fail("captured generate and an eager decode loop emit different "
+             "tokens")
+    print(f"engine: {B} rows x {new} tokens of the captured generate equal "
+          f"to an eager decode_one loop's; captures "
+          f"{ {str(k): n for k, n in eng.captures().items()} }")
+
     state: Dict = {}
 
     def prefill() -> None:
-        logits, state["cache"] = eng.prefill(prompts, ai)
+        cache, state["step"] = eng.ring(B)
+        logits, _ = eng.prefill(prompts, ai, cache=cache)
         state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
 
     def decode() -> None:
-        tok, cache = state["tok"], state["cache"]
-        for i in range(steps):
-            logits, cache = eng.decode_one(tok, cache, T + i, ai)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step = state["step"]
+        step(state["tok"], torch.full((), T, dtype=torch.int32,
+                                      device="cuda"), ai)
+        for _ in range(steps - 1):
+            step.replay()
+
+    counts: List[Dict[str, int]] = []
+
+    def counted(fn):
+        def run():
+            before = kernels.launch_counts()
+            fn()
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after
+                           if after[k] > before[k]})
+        return run
 
     res = {"prefill": {"rows": B, "tokens": T, "wall_ms": wall_ms(prefill)},
            "decode": {"rows": B, "steps": steps, "wall_ms": wall_ms(decode)}}
     res["prefill"].update(profiled(prefill))
-    res["decode"].update(profiled(decode))
+    res["decode"].update(profiled(counted(decode)))
     report_rounds("engine breakdown", res)
-    d = res["decode"]
-    busy = d["device_busy_ms"]
-    print(f"decode step, {B} rows at positions {T}-{T + steps - 1}: host "
-          f"wall {d['wall_ms'] / steps:.2f} ms against device busy "
-          + (f"{busy / steps:.2f} ms" if busy is not None
-             else "not measured")
-          + f" on {device['kind']} [{'; '.join(device['nvidia_smi'])}]")
+    res["decode"]["cross_check"] = cross_check("engine decode", counts[0],
+                                               res["decode"])
+    per_step(f"decode step, {B} rows at positions {T}-{T + steps - 1} "
+             f"(captured)", res["decode"]["wall_ms"], res["decode"], steps,
+             device)
     return res
 
 
@@ -1119,11 +1440,14 @@ def parity_phase() -> Dict:
                 max_blocks_per_slot=6, prefill_chunk=16, decode_chunk=4)
     work, prompts, fn_adapter = shared_prefix_trace(
         9, 3, 16, 30, 8, cfg.vocab_size, seed=7)
-    # two sampled requests take the sort/top-k/top-p/Philox path; the rest
-    # stay greedy
+    # five sampled requests (temperature alone, top-k, top-p, both) take
+    # the sort/top-k/top-p/Philox path; the rest stay greedy
     sampling = {1: SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
                                   seed=5),
-                4: SamplingParams(temperature=1.0, seed=11)}
+                4: SamplingParams(temperature=1.0, seed=11),
+                5: SamplingParams(temperature=0.6, top_k=7),
+                6: SamplingParams(temperature=1.3, top_p=0.75, seed=2 ** 31 - 1),
+                8: SamplingParams(temperature=0.9, top_k=3, top_p=0.5)}
     sinks, results = {}, {}
     for device in ("cuda", "cpu"):
         rt = ContinuousRuntime(cfg, _to(params, device),
@@ -1139,9 +1463,21 @@ def parity_phase() -> Dict:
                                if r.first_token >= 0),
             "stall_steps": rt.stats["stall_steps"],
             "sampled_tokens": rt.stats["sampled_tokens"]}
-    if results["cuda"]["sampled_tokens"] != 2 * 8:
-        fail(f"expected 16 sampled tokens, the card drew "
+    if results["cuda"]["sampled_tokens"] != len(sampling) * 8:
+        fail(f"expected {len(sampling) * 8} sampled tokens, the card drew "
              f"{results['cuda']['sampled_tokens']}")
+    # the sampled rows' uniforms: counter 0 (prefill) .. 7, card vs CPU
+    from repro_torch.core.sampling import philox_uniform_torch
+    seeds = torch.tensor([sp.resolve_seed(rid) for rid, sp in
+                          sorted(sampling.items())], dtype=torch.int32)
+    ctr = torch.arange(8, dtype=torch.int32)
+    sd, ct = seeds[:, None].expand(-1, 8), ctr[None].expand(len(seeds), -1)
+    u_card = philox_uniform_torch(sd.cuda(), ct.cuda()).cpu()
+    u_cpu = philox_uniform_torch(sd, ct)
+    if not torch.equal(u_card.view(torch.int32), u_cpu.view(torch.int32)):
+        fail("Philox uniforms differ between the card and the CPU")
+    print(f"Philox: {u_cpu.numel()} uniforms of the sampled rows equal bit "
+          f"for bit on card and CPU")
     runtime_kernels = ("sgmv", "paged_attention", "paged_prefill")
     card = results["cuda"]["launches"]
     if min(card[k] for k in runtime_kernels) <= 0 or \
@@ -1176,10 +1512,11 @@ def parity_phase() -> Dict:
                                   B, dtype=torch.int32, device=device))
         engine[device] = {"tokens": out.cpu().tolist(),
                           "launches": kernels.launch_counts()}
+    # the decode step is captured once, after one eager run (graphs.py)
     L = cfg.num_layers
-    want = {"flash_attention": L, "decode_attention": L * (new - 1),
-            "sgmv": len(cfg.lora.targets) * L * new, "paged_attention": 0,
-            "paged_prefill": 0}
+    want = {"flash_attention": L, "decode_attention": L * new,
+            "sgmv": len(cfg.lora.targets) * L * (new + 1),
+            "paged_attention": 0, "paged_prefill": 0}
     if engine["cuda"]["launches"] != want or \
             max(engine["cpu"]["launches"].values()) != 0:
         fail(f"engine launches: card {engine['cuda']['launches']} "
@@ -1204,7 +1541,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     build = build_phase()
     kern = kernels_phase()
     cfg, params = model_params()
-    serve = serve_phase(cfg, params)
+    serve = serve_phase(cfg, params, device)
     launch = launcher_phase(cfg, params, device)
     del params
     torch.cuda.empty_cache()

@@ -3,17 +3,18 @@ attention-stack subset of ``repro/core/engine.py``): the warm-function
 ``InferenceEngine`` over ring caches, and the serving steps over the paged
 pools.
 
-The reference builds pure functions that it jits; PyTorch runs eagerly, so
-the factories here return plain functions that update the caches in place
-(the stand-in for the reference's donated cache).
+The reference builds pure functions that it jits; the factories here
+return plain functions that update the caches in place (the stand-in for
+the reference's donated cache).  The serving runtime and the engine's
+decode loop capture them as CUDA graphs (``serving.graphs``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.sampling import sample_tokens
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
@@ -71,23 +72,6 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
-def make_sampled_serve_step(cfg: ModelConfig):
-    """``make_serve_step`` + the sampling epilogue: takes the per-row
-    temperature/top_k/top_p/seed/counter vectors as data and returns the
-    next tokens; ``temperature <= 0`` rows emit argmax of the raw
-    logits."""
-    serve = make_serve_step(cfg)
-
-    def sampled_serve_step(params, token, cache, pos, *, temperature,
-                           top_k, top_p, seed, counter, **kw):
-        logits, cache = serve(params, token, cache, pos, **kw)
-        nxt = sample_tokens(logits, temperature, top_k, top_p, seed,
-                            counter)
-        return nxt, cache
-
-    return sampled_serve_step
-
-
 class InferenceEngine:
     """Warm-function inference over a shared backbone, on ring caches.
 
@@ -96,6 +80,11 @@ class InferenceEngine:
     Prefill attention runs the flash kernel, decode attention the
     ring-decode kernel, every LoRA site SGMV (on the card; the plain
     versions for ``device="cpu"``).
+
+    ``generate`` keeps one ring per (batch, context length) and one decode
+    step for it, captured once as a CUDA graph on the card (the reference
+    jits its decode scan per batch shape) and replayed for every token;
+    prefill stays eager, since its prompt length varies.
     """
 
     def __init__(self, cfg: ModelConfig, params: Params, *,
@@ -106,6 +95,11 @@ class InferenceEngine:
         self.device = torch.device(device)
         self._prefill = make_prefill_step(cfg)
         self._decode = make_serve_step(cfg)
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        # (batch, context length) -> (ring, its GraphedDispatch step)
+        self._rings: Dict[Tuple[int, int], Tuple[List[Dict[str, Any]],
+                                                 Any]] = {}
 
     def new_cache(self, batch: int,
                   context_len: Optional[int] = None) -> List[Dict[str, Any]]:
@@ -123,23 +117,69 @@ class InferenceEngine:
         return self._prefill(self.params, tokens, cache,
                              adapter_idx=adapter_idx)
 
+    @torch.no_grad()
+    def _ring_step(self, cache: List[Dict[str, Any]], tok: torch.Tensor,
+                   pos: torch.Tensor,
+                   adapter_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        """One greedy decode step that advances its own inputs in place:
+        the next tokens into ``tok``, ``pos + 1`` into the 0-d ``pos``."""
+        logits, _ = self._decode(self.params, tok, cache, pos,
+                                 adapter_idx=adapter_idx)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok.copy_(nxt)
+        pos.add_(1)
+        return nxt
+
+    def ring(self, batch: int) -> Tuple[List[Dict[str, Any]], Any]:
+        """The ring of this batch size, emptied to a fresh cache (idx 0,
+        every slot -1, K/V zero), and its decode step: a
+        ``GraphedDispatch`` called as ``step(tok, pos, adapter_idx)`` and
+        then ``step.replay()``, each call returning the next (B,) tokens
+        and advancing ``tok`` and the 0-d ``pos`` in place."""
+        # imported here: the serving package imports this module
+        from repro_torch.serving.graphs import GraphedDispatch
+        key = (batch, self.max_context)
+        if key not in self._rings:
+            cache = self.new_cache(batch)
+            self._rings[key] = (cache, GraphedDispatch(
+                functools.partial(self._ring_step, cache), self.device,
+                pool=self._pool))
+            return self._rings[key]
+        cache, step = self._rings[key]
+        for layer in cache:
+            layer["k"].zero_()
+            layer["v"].zero_()
+            layer["slot_pos"].fill_(-1)
+            layer["idx"] = 0
+        return cache, step
+
+    def captures(self) -> Dict[Tuple[int, int], int]:
+        """Decode-step captures per (batch, context length) key."""
+        return {k: step._cache_size() for k, (_, step) in self._rings.items()}
+
     def generate(self, tokens: torch.Tensor, max_new_tokens: int,
                  adapter_idx: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-        """Greedy generation.  Returns ((B, max_new_tokens) int32, cache).
+        """Greedy generation.  Returns ((B, max_new_tokens) int32, cache);
+        the cache is the engine's ring for this batch size, valid until the
+        next ``generate`` of that size.
 
-        The reference's ``lax.scan`` becomes a loop of ``max_new_tokens -
-        1`` decode steps; each feeds back the argmax on the device, and the
-        position stays a host int, so the loop never waits on the card."""
-        T = tokens.shape[1]
-        logits, cache = self.prefill(tokens, adapter_idx)
+        The reference's ``lax.scan`` becomes ``max_new_tokens - 1`` calls
+        of one decode step at a 0-d device position: the first stages its
+        inputs (capturing the step on the card the first time), the rest
+        replay it on the tokens and position it advanced itself, so the
+        loop never waits on the card."""
+        B, T = tokens.shape
+        cache, step = self.ring(B)
+        logits, cache = self.prefill(tokens, adapter_idx, cache=cache)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok]
-        for i in range(max_new_tokens - 1):
-            logits, cache = self._decode(self.params, tok, cache, T + i,
-                                         adapter_idx=adapter_idx)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(tok)
+        if max_new_tokens > 1:
+            pos = torch.full((), T, dtype=torch.int32, device=self.device)
+            out.append(step(tok, pos, adapter_idx))
+            out += [step.replay() for _ in range(max_new_tokens - 2)]
+        for layer in cache:        # a replay runs no Python: count here
+            layer["idx"] = T + max_new_tokens - 1
         return torch.stack(out, dim=1), cache
 
     def decode_one(self, token: torch.Tensor, cache: List[Dict[str, Any]],

@@ -14,9 +14,13 @@ batch mixing greedy and sampled rows runs through the same step.
   ``keep_mask`` and ``sampling_distribution`` are what is held against
   it.
 
-The per-row vectors are host numpy arrays (the runtime's slot mirrors):
-an all-greedy batch then skips the sampling work without reading anything
-back from the device, and the Philox draw runs on the host.
+Everything is data: the per-row vectors are tensors on the logits'
+device, every row computes both its greedy and its sampled token and
+``torch.where`` picks one, and the Philox draw runs as torch ops on int64
+tensors.  So one captured graph serves any mix of modes, with no host
+branch and no host copy inside the step.  ``philox_uniform`` (numpy) is
+the draw's plain version, which the tests hold ``philox_uniform_torch``
+to bit for bit.
 """
 from __future__ import annotations
 
@@ -79,6 +83,7 @@ GREEDY = SamplingParams()
 _M0, _M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
 _W0, _W1 = np.uint64(0x9E3779B9), np.uint64(0xBB67AE85)
 _LO = np.uint64(0xFFFFFFFF)
+_MASK32 = 0xFFFFFFFF
 
 
 def philox_uniform(seed, counter) -> np.ndarray:
@@ -105,16 +110,43 @@ def philox_uniform(seed, counter) -> np.ndarray:
             * np.float32(2.0 ** -24))
 
 
-def keep_mask(sorted_scaled: torch.Tensor, top_k, top_p) -> torch.Tensor:
+def _mulhilo(a: torch.Tensor, m: int):
+    """(high, low) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2^32)
+    and a 32-bit constant ``m``.  int64 cannot hold a full 64-bit product,
+    so ``m`` is split into 16-bit limbs: no partial product exceeds 2^48."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox_uniform_torch(seed: torch.Tensor,
+                         counter: torch.Tensor) -> torch.Tensor:
+    """``philox_uniform`` as torch ops on the inputs' device: seeds and
+    counters of one shape (int32 or int64, read as 32-bit words) -> float32
+    uniforms in [0, 1) of that shape, bit for bit the numpy draw."""
+    k0 = seed.long() & _MASK32
+    c0 = counter.long() & _MASK32
+    c1 = c2 = c3 = torch.zeros_like(c0)
+    k1 = 0
+    for i in range(10):
+        if i:
+            k0 = (k0 + int(_W0)) & _MASK32
+            k1 = (k1 + int(_W1)) & _MASK32
+        hi0, lo0 = _mulhilo(c0, int(_M0))
+        hi1, lo1 = _mulhilo(c2, int(_M1))
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return (c0 >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def keep_mask(sorted_scaled: torch.Tensor, top_k: torch.Tensor,
+              top_p: torch.Tensor) -> torch.Tensor:
     """Boolean keep-mask over descending-sorted (temperature-scaled)
     logits: rank < k_eff AND cumulative mass *before* the rank < p_eff.
     ``top_k <= 0`` / ``top_p >= 1`` disable their filter; rank 0 always
     survives both, so the mask is never empty."""
-    dev = sorted_scaled.device
     V = sorted_scaled.shape[-1]
-    top_k = torch.as_tensor(top_k, device=dev)
-    top_p = torch.as_tensor(top_p, device=dev)
-    ranks = torch.arange(V, device=dev, dtype=torch.int32)
+    ranks = torch.arange(V, device=sorted_scaled.device, dtype=torch.int32)
     k_eff = torch.where(top_k <= 0, V, torch.clamp(top_k, max=V))
     mask_k = ranks[None, :] < k_eff[:, None]
     probs = torch.softmax(sorted_scaled, dim=-1)
@@ -124,52 +156,55 @@ def keep_mask(sorted_scaled: torch.Tensor, top_k, top_p) -> torch.Tensor:
     return mask_k & mask_p
 
 
-def _sorted_masked(logits: torch.Tensor, temperature: np.ndarray, top_k,
+def _sorted_masked(logits: torch.Tensor, temperature: torch.Tensor, top_k,
                    top_p):
     """Temperature-scaled logits sorted descending (stable), with the
-    keep-mask applied: returns (order, masked sorted logits, keep)."""
-    t_safe = np.where(temperature > 0.0, temperature, 1.0).astype(np.float32)
-    scaled = logits.float() / torch.as_tensor(t_safe,
-                                              device=logits.device)[:, None]
+    keep-mask applied: returns (order, masked sorted logits, keep).  Greedy
+    rows divide by 1."""
+    t_safe = torch.where(temperature > 0.0, temperature, 1.0).to(
+        torch.float32)
+    scaled = logits.float() / t_safe[:, None]
     order = torch.argsort(-scaled, dim=-1, stable=True)
     sorted_scaled = torch.gather(scaled, -1, order)
     keep = keep_mask(sorted_scaled, top_k, top_p)
     return order, sorted_scaled.masked_fill(~keep, float("-inf")), keep
 
 
-def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p, seed,
-                  counter) -> torch.Tensor:
-    """(B, V) logits + per-row host sampling vectors -> (B,) int32 tokens.
-
-    Rows with ``temperature <= 0`` emit ``argmax`` of the RAW logits;
-    sampled rows draw from the masked distribution with the row's
-    ``(seed, counter)`` uniform."""
-    temperature = np.asarray(temperature, np.float32)
+def sample_with_uniform(logits: torch.Tensor, temperature: torch.Tensor,
+                        top_k: torch.Tensor, top_p: torch.Tensor,
+                        u: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits + per-row sampling tensors + (B,) uniforms -> (B,)
+    int32 tokens.  Every row computes both tokens: ``temperature <= 0``
+    rows keep ``argmax`` of the RAW logits, sampled rows the inverse-CDF
+    draw of ``u`` over their masked distribution."""
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    hot = temperature > 0.0
-    if not hot.any():
-        return greedy_tok
-    dev = logits.device
     order, masked, keep = _sorted_masked(logits, temperature, top_k, top_p)
     cdf = torch.cumsum(torch.softmax(masked, dim=-1), dim=-1)
-    u = torch.as_tensor(philox_uniform(seed, counter), device=dev)
     pos = torch.searchsorted(cdf, u[:, None], right=True)[:, 0]
     # rounding can leave the last cdf entry a hair below u: stay inside
     # the kept prefix
     pos = torch.minimum(pos, keep.sum(dim=-1) - 1)
     sampled = torch.gather(order, -1, pos[:, None])[:, 0].to(torch.int32)
-    return torch.where(torch.as_tensor(hot, device=dev), sampled, greedy_tok)
+    return torch.where(temperature > 0.0, sampled, greedy_tok)
 
 
-def sampling_distribution(logits: torch.Tensor, temperature, top_k,
-                          top_p) -> torch.Tensor:
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  seed: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits + per-row sampling tensors -> (B,) int32 tokens; the
+    uniform of a sampled row is its ``(seed, counter)`` Philox draw."""
+    return sample_with_uniform(logits, temperature, top_k, top_p,
+                               philox_uniform_torch(seed, counter))
+
+
+def sampling_distribution(logits: torch.Tensor, temperature: torch.Tensor,
+                          top_k: torch.Tensor,
+                          top_p: torch.Tensor) -> torch.Tensor:
     """The exact per-row categorical distribution ``sample_tokens`` draws
     from, in ORIGINAL vocab order (greedy rows: one-hot at argmax)."""
-    temperature = np.asarray(temperature, np.float32)
     order, masked, _ = _sorted_masked(logits, temperature, top_k, top_p)
     probs_sorted = torch.softmax(masked, dim=-1)
     probs = torch.zeros_like(probs_sorted).scatter_(-1, order, probs_sorted)
     onehot = torch.nn.functional.one_hot(
         torch.argmax(logits, dim=-1), logits.shape[-1]).to(probs.dtype)
-    hot = torch.as_tensor(temperature > 0.0, device=logits.device)
-    return torch.where(hot[:, None], probs, onehot)
+    return torch.where((temperature > 0.0)[:, None], probs, onehot)

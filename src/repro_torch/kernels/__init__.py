@@ -40,3 +40,11 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: get_kernel(name).launches for name in KERNEL_REGISTRY}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (name -> launches) to the wrappers' counts: a replayed
+    CUDA graph launches what its capture recorded without running the
+    wrappers' Python (``serving/graphs.py``)."""
+    for name, n in counts.items():
+        get_kernel(name).launches += n

@@ -120,7 +120,7 @@ def sgmv_tokens(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     expands it once per dispatch rather than at every LoRA site)."""
     B, T, D = x.shape
     if T > 1 and idx.shape == (B,):
-        idx = idx.repeat_interleave(T)
+        idx = idx[:, None].expand(B, T).contiguous().view(B * T)
     elif idx.shape != (B * T,):
         raise ValueError(f"sgmv_tokens: idx {tuple(idx.shape)} for x "
                          f"{tuple(x.shape)}")

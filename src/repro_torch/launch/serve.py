@@ -59,6 +59,7 @@ def serve(cfg: ModelConfig, params: Dict[str, Any],
 
     Returns the per-batch ``schedule`` of (fn_id, batch size), the output
     shapes, ``tokens``, ``wall_s``, the kernel ``launches`` made here, the
+    engine's decode-step ``captures`` per (batch, context length), the
     store's open handles and, per function, the ``data_ptr``s of the
     backbone tensors its handle reads."""
     device = torch.device(args.device)
@@ -136,6 +137,7 @@ def serve(cfg: ModelConfig, params: Dict[str, Any],
     return {"schedule": schedule, "shapes": shapes, "served": served,
             "tokens": gen_tokens, "wall_s": wall,
             "launches": {k: after[k] - before[k] for k in after},
+            "captures": engine.captures(),
             "open_handles": open_handles, "backbone_ptrs": backbone_ptrs}
 
 

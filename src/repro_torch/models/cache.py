@@ -95,12 +95,20 @@ def paging_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     The reference also serves hybrid REC/SSD stacks through per-slot state
     rows; the port does not carry those rows yet, so such stacks are
     refused here with that reason, as are encoder/cross-attention models
-    (refused by the reference too)."""
+    (refused by the reference too).  Sliding-window configs are refused
+    as well: the reference frees the blocks that slide out of the window
+    after every decode chunk, and without that reclamation the port would
+    hold more blocks than the reference and admit, stall and evict
+    differently on a tight pool."""
     if cfg.cross_attention or cfg.encoder_layers:
         return "paged serving does not support encoder/cross-attention models"
     if has_slot_state(cfg):
         return ("REC/SSD slot-state serving is not ported to the PyTorch "
                 "runtime yet")
+    if cfg.sliding_window is not None:
+        return (f"sliding-window configs (window {cfg.sliding_window}) need "
+                f"window reclamation, which is not ported to the PyTorch "
+                f"runtime yet (ROADMAP item 12)")
     return None
 
 

@@ -121,8 +121,10 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
     ring is causal attention over the T new keys: the flash kernel.  A
     prompt longer than the ring (T > S) attends over all T keys and keeps
     the last S (the reference's ring overflow, transformer.py:193-224).
-    T == 1 is decode: write at slot ``idx % S``, then attend over the ring
-    by ``slot_pos`` with the ring-decode kernel.  ``idx`` advances by T."""
+    T == 1 is decode: write at slot ``idx % S`` — computed on the device
+    as ``position % S``, since the decode position equals ``idx``
+    (``transformer.decode_step``) — then attend over the ring by
+    ``slot_pos`` with the ring-decode kernel.  ``idx`` advances by T."""
     B, T = q.shape[:2]
     S = cache["k"].shape[1]
     idx = cache["idx"]
@@ -135,17 +137,19 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
         cache["k"].copy_(k[:, -S:])
         cache["v"].copy_(v[:, -S:])
         cache["slot_pos"].copy_(positions[0, -S:])
+    elif T > 1:
+        cache["k"][:, :T] = k.to(cache["k"].dtype)
+        cache["v"][:, :T] = v.to(cache["v"].dtype)
+        cache["slot_pos"][:T] = positions[0]
+        out = flash_mha(q, k, v, causal=True, window=window)
     else:
-        slot = idx % S
-        cache["k"][:, slot:slot + T] = k.to(cache["k"].dtype)
-        cache["v"][:, slot:slot + T] = v.to(cache["v"].dtype)
-        cache["slot_pos"][slot:slot + T] = positions[0]
-        if T > 1:
-            out = flash_mha(q, k, v, causal=True, window=window)
-        else:
-            out = decode_gqa(q[:, 0], cache["k"], cache["v"],
-                             cache["slot_pos"], positions[0, 0],
-                             window=window)[:, None]
+        slot = torch.remainder(positions[0], S).long()           # (1,)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        cache["slot_pos"].index_copy_(0, slot, positions[0])
+        out = decode_gqa(q[:, 0], cache["k"], cache["v"],
+                         cache["slot_pos"], positions[0, 0],
+                         window=window)[:, None]
     cache["idx"] = idx + T
     return out
 

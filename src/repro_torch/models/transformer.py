@@ -108,10 +108,12 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                block_tbl: Optional[torch.Tensor] = None,
                chunk_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Residual blocks in stack order; the caches update in place."""
-    T = x.shape[1]
+    B, T = x.shape[:2]
     if adapter_idx is not None and T > 1:
         # per-token adapter ids, once per dispatch for all 4 x layers sites
-        adapter_idx = adapter_idx.repeat_interleave(T)
+        # (an expand: repeat_interleave may read its size back to the host)
+        adapter_idx = adapter_idx[:, None].expand(B, T).contiguous().view(
+            B * T)
     for lp, layer_cache in zip(params["layers"], cache):
         h = apply_norm(x, lp["norm1"], cfg.norm_type)
         x = x + apply_attention(
@@ -183,10 +185,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """ONE decode step.  token: (B,) int.  On a ring cache ``pos`` is the
     scalar absolute position of every row (an int, or a 0-d tensor),
-    broadcast to (B, 1); on the paged pools it is (B,) int32 per-row
-    positions and block_tbl (B, MB) int32.  Returns ((B, V) logits, cache
-    updated in place)."""
+    broadcast to (B, 1), and must equal the ring's ``idx`` (the tokens it
+    has seen): the token is written at slot ``pos % S``, computed on the
+    device so that a captured step can replay at any position.  On the
+    paged pools it is (B,) int32 per-row positions and block_tbl (B, MB)
+    int32.  Returns ((B, V) logits, cache updated in place)."""
     B = token.shape[0]
+    if _is_ring(cache) and (not isinstance(pos, torch.Tensor)
+                            or pos.device.type == "cpu"):
+        if int(pos) != cache[0]["idx"]:
+            raise ValueError(f"ring decode at position {int(pos)} of a ring "
+                             f"that has seen {cache[0]['idx']} tokens")
     x = _embed(params, token[:, None])                     # (B, 1, D)
     if not isinstance(pos, torch.Tensor):
         positions = torch.full((B, 1), pos, dtype=torch.int32,

@@ -168,6 +168,20 @@ class BlockPool:
             else:
                 self._free.append(b)
 
+    def drop_cached(self, ids: Sequence[int]) -> List[int]:
+        """Return specific CACHED blocks straight to the free list, without
+        firing ``evict_hook`` (the caller already dropped the index — this
+        is the pool half of ``AdapterRegistry``'s prefix purge).  Ids that
+        are not cached (already free, or live under some slot) are
+        skipped; returns the ids actually moved."""
+        moved: List[int] = []
+        for b in ids:
+            if b in self._cached:
+                del self._cached[b]
+                self._free.append(b)
+                moved.append(b)
+        return moved
+
     def reset(self) -> None:
         """Reinitialize to all-free.  Live (refcount >= 1) blocks mean some
         slot still maps them — resetting underneath it would hand the same

@@ -123,6 +123,30 @@ class PrefixCache:
             node = child
         return new
 
+    def forget_adapter(self, adapter: int) -> List[int]:
+        """Drop EVERY entry indexed under this adapter — the whole root
+        subtree — and return the physical block ids that were mapped.
+
+        Called by ``AdapterRegistry.unload``/``swap``: the trie is
+        adapter-keyed, so once a bank slot may hold DIFFERENT weights any
+        surviving entry for it would be a stale hit — K/V produced under
+        the old weights served to a request running the new ones.  The
+        caller moves the returned blocks out of the pool's cached LRU
+        (``BlockPool.drop_cached``)."""
+        dropped: List[int] = []
+        stack = [n for key, n in list(self._roots.items())
+                 if key[0] == adapter]
+        for n in stack:
+            del self._roots[n.edge]
+        while stack:
+            node = stack.pop()
+            if self._by_phys.get(node.phys) is node:
+                del self._by_phys[node.phys]
+                dropped.append(node.phys)
+            stack.extend(node.children.values())
+            node.children.clear()
+        return dropped
+
     def forget_block(self, phys: int) -> None:
         """Drop the node for an evicted/rolled-back physical block
         (``BlockPool.evict_hook``).  Descendants become unreachable and are

@@ -19,16 +19,23 @@ allocated blocks are identical to what the resume writes, writes past the
 table land in the garbage block — but its outputs are discarded.  If every
 slot stalls, the stalled slot closest to completion is force-evicted.
 
-The kernels update the KV pools IN PLACE; that is the port's stand-in for
-the reference's ``donate_argnums`` on the two jitted dispatches.  Every
-measurement uses the injectable ``timer`` with the reference's exact
+The two dispatches are ``serving.graphs.GraphedDispatch``es — the port's
+form of the reference's ``jax.jit``: on the card each is captured once as
+a CUDA graph (the decode chunk with all its steps and sampling epilogues,
+the prefill slice with its epilogue) and replayed, its inputs copied in
+from the numpy mirrors through pinned buffers; ``decode_compiles()`` /
+``prefill_compiles()`` count the captures, which ``CompileGuard`` holds to
+one each.  The kernels update the KV pools IN PLACE and the adapter
+registry writes the bank in place; that is the port's stand-in for the
+reference's ``donate_argnums``, and it keeps the graphs' addresses valid.
+Every measurement uses the injectable ``timer`` with the reference's exact
 sequence of timer readings, so a replay under a deterministic fake clock
 takes the same scheduling decisions as the reference's.
 
-Not ported yet (see ROADMAP.md): the ``AdapterRegistry`` (adapters here
-are raw bank slots), preemption, ``abort``, deadline shedding, fault
-plans, sliding-window reclamation, compile guards and CUDA-graph capture
-of the two dispatches, and REC/SSD slot state.
+Adapters are registry names (``serving.adapters.AdapterRegistry``) or raw
+bank slots.  Not ported yet (see ROADMAP.md): preemption, ``abort``,
+deadline shedding, fault plans, sliding-window reclamation (windowed
+configs are refused) and REC/SSD slot state.
 """
 from __future__ import annotations
 
@@ -40,14 +47,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (make_chunked_prefill_step,
-                                     make_sampled_serve_step)
+                                     make_serve_step)
 from repro_torch.core.lora import partition_lora, tree_leaves
 from repro_torch.core.sampling import (GREEDY, MODES, SamplingParams,
-                                       sample_tokens)
+                                       philox_uniform_torch,
+                                       sample_tokens, sample_with_uniform)
 from repro_torch.models.cache import (GARBAGE_BLOCK, init_paged_cache,
                                       paging_unsupported_reason)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serverless.batching import Request
+from repro_torch.serving.graphs import GraphedDispatch
 from repro_torch.serving.kv_pool import BlockPool, blocks_for_tokens
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.prefix import PrefixCache
@@ -69,6 +78,25 @@ class DecodeConfig:
     eos_id: Optional[int] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class RobustConfig:
+    """Artifact-retry policy (the part of the reference's ``RobustConfig``
+    the adapter registry reads)."""
+    artifact_retries: int = 2        # AdapterRegistry.load/swap retries on
+    #   transient artifact-load failures (faults.retry_with_backoff)
+    artifact_backoff_s: float = 0.0  # host-clock sleep base between
+    #   artifact retries (0 = immediate; tests inject fake sleeps)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterConfig:
+    """Multi-LoRA serving: the stacked adapter bank."""
+    max_live: Optional[int] = None   # AdapterRegistry capacity (bank slots);
+    #   None = size the registry to the bank already in ``params``
+    lora_rank: Optional[int] = None  # bank rank; adapters loaded with a
+    #   smaller rank are zero-padded up to it (None = whatever the bank has)
+
+
 @dataclasses.dataclass(frozen=True, init=False)
 class ServingConfig:
     """Runtime shape + policy knobs.  Construct with nested groups
@@ -82,21 +110,31 @@ class ServingConfig:
     #   earlier same-adapter requests (refcounted) and skip their compute
     prefill: PrefillConfig = PrefillConfig()
     decode: DecodeConfig = DecodeConfig()
+    adapters: AdapterConfig = AdapterConfig()
+    robust: RobustConfig = RobustConfig()
 
     _FLAT = {
         "prefill_chunk": ("prefill", "chunk"),
         "prefill_rows": ("prefill", "rows"),
         "decode_chunk": ("decode", "chunk"),
         "eos_id": ("decode", "eos_id"),
+        "max_live_adapters": ("adapters", "max_live"),
+        "lora_rank": ("adapters", "lora_rank"),
+        "artifact_retries": ("robust", "artifact_retries"),
+        "artifact_backoff_s": ("robust", "artifact_backoff_s"),
     }
-    _GROUPS = {"prefill": PrefillConfig, "decode": DecodeConfig}
+    _GROUPS = {"prefill": PrefillConfig, "decode": DecodeConfig,
+               "adapters": AdapterConfig, "robust": RobustConfig}
 
     def __init__(self, num_slots: int = 8, block_size: int = 16,
                  num_blocks: int = 64, max_blocks_per_slot: int = 8,
                  prefix_sharing: bool = True,
                  prefill: Optional[PrefillConfig] = None,
-                 decode: Optional[DecodeConfig] = None, **flat: Any):
-        groups: Dict[str, Any] = {"prefill": prefill, "decode": decode}
+                 decode: Optional[DecodeConfig] = None,
+                 adapters: Optional[AdapterConfig] = None,
+                 robust: Optional[RobustConfig] = None, **flat: Any):
+        groups: Dict[str, Any] = {"prefill": prefill, "decode": decode,
+                                  "adapters": adapters, "robust": robust}
         over: Dict[str, Dict[str, Any]] = {g: {} for g in self._GROUPS}
         for k, v in flat.items():
             if k not in self._FLAT:
@@ -116,7 +154,9 @@ class ServingConfig:
                           ("max_blocks_per_slot", max_blocks_per_slot),
                           ("prefix_sharing", prefix_sharing),
                           ("prefill", groups["prefill"]),
-                          ("decode", groups["decode"])):
+                          ("decode", groups["decode"]),
+                          ("adapters", groups["adapters"]),
+                          ("robust", groups["robust"])):
             object.__setattr__(self, name, val)
 
     @property
@@ -138,9 +178,10 @@ class ServingConfig:
 
 @dataclasses.dataclass
 class ServeRequest:
-    """One admission-ready request.  ``adapter`` is a raw bank slot
-    (``None`` means slot 0); ``request`` carries the trace record when the
-    caller has one, else a fresh ``Request`` is synthesized."""
+    """One admission-ready request.  ``adapter`` is a registry name (needs
+    an attached ``AdapterRegistry``), a raw bank slot, or ``None`` (slot
+    0); ``request`` carries the trace record when the caller has one, else
+    a fresh ``Request`` is synthesized."""
     prompt: Any                      # (L,) int token ids (np/list)
     adapter: Optional[Any] = None
     arrival: float = 0.0
@@ -251,11 +292,15 @@ class ContinuousRuntime:
             ("rejected_too_long", "requests dropped: prompt + output "
              "exceed slot KV capacity"),
             ("rejected_unknown_adapter", "requests dropped at admission: "
-             "bank slot out of range"),
+             "adapter name not in the registry / bank slot out of range "
+             "(the decode path would compute a zero delta, but serving an "
+             "unloaded adapter silently is a correctness bug)"),
             ("admit_syncs", "deliberate device reads during admission"),
             ("aborted", "in-flight requests force-evicted"),
             ("abandoned", "requests dropped after their TTFT SLO lapsed"),
             ("sampled_tokens", "accepted tokens drawn with temperature > 0"),
+            ("artifact_retries", "adapter load attempts retried after a "
+             "transient artifact failure"),
         ):
             self.metrics.counter(name, help_)
         for m in MODES:
@@ -267,45 +312,64 @@ class ContinuousRuntime:
         leaves = tree_leaves(partition_lora(params)[1])
         self.bank_slots: Optional[int] = (
             int(leaves[0].shape[-3]) if leaves else None)
+        self.adapters = None         # Optional[AdapterRegistry]
+        # fault injection is not ported: artifact loaders see no plan,
+        # as the reference's do without one
+        self.faults = None
         self._dispatch_windows: List[Tuple[float, float]] = []
-        self._serve = make_sampled_serve_step(cfg)
+        self._serve = make_serve_step(cfg)
         self._chunk_step = make_chunked_prefill_step(cfg)
+        # the two dispatches, each captured once on the card; their graphs
+        # share one memory pool
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        self._decode = GraphedDispatch(self._decode_chunk, self.device,
+                                       pool=pool)
+        self._prefill = GraphedDispatch(self._prefill_chunk, self.device,
+                                        pool=pool)
 
     # ------------------------------------------------------------ dispatches
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
-
     @torch.no_grad()
-    def _decode(self, tok, pos, tbl, ai, temp, top_k, top_p, seed,
-                counter) -> torch.Tensor:
+    def _decode_chunk(self, tok, pos, tbl, ai, temp, top_k, top_p, seed,
+                      counter) -> torch.Tensor:
         """The fixed-shape decode loop: ``decode_chunk`` steps, each with
-        the sampling epilogue; the RNG counter advances by one per emitted
-        token.  Sampling vectors are host arrays.  Returns (B, chunk)
-        tokens on the device."""
-        tok, pos, tbl, ai = (self._dev(tok), self._dev(pos), self._dev(tbl),
-                             self._dev(ai))
+        the sampling epilogue; step i runs at positions ``pos + i`` with
+        RNG counters ``counter + i`` and feeds its tokens to step i + 1.
+        Every input is a device tensor; the uniforms of all steps are drawn
+        up front.  Returns (B, chunk) int32 tokens."""
+        steps = self.scfg.decode_chunk
+        offs = torch.arange(steps, device=tok.device)
+        u = philox_uniform_torch(seed[None], counter.long()[None]
+                                 + offs[:, None])          # (steps, B)
         out = []
-        for i in range(self.scfg.decode_chunk):
-            tok, self.cache = self._serve(
-                self.params, tok, self.cache, pos + i, adapter_idx=ai,
-                block_tbl=tbl, temperature=temp, top_k=top_k, top_p=top_p,
-                seed=seed, counter=counter + i)
+        for i in range(steps):
+            logits, _ = self._serve(self.params, tok, self.cache, pos + i,
+                                    adapter_idx=ai, block_tbl=tbl)
+            tok = sample_with_uniform(logits, temp, top_k, top_p, u[i])
             out.append(tok)
         return torch.stack(out, dim=1)
 
     @torch.no_grad()
-    def _prefill(self, tokens, start, last_idx, ai, chunk_ids, tbl, temp,
-                 top_k, top_p, seed) -> torch.Tensor:
+    def _prefill_chunk(self, tokens, start, last_idx, ai, chunk_ids, tbl,
+                       temp, top_k, top_p, seed) -> torch.Tensor:
         """ONE slice of the join path: write this chunk's K/V into pool
         blocks and sample the first output token from the logit at
-        ``last_idx`` with RNG counter 0.  Returns (G,) tokens on the
-        device."""
-        logits, self.cache = self._chunk_step(
-            self.params, self._dev(tokens), self._dev(start),
-            self._dev(last_idx), self.cache, self._dev(chunk_ids),
-            self._dev(tbl), adapter_idx=self._dev(ai))
+        ``last_idx`` with RNG counter 0.  Returns (G,) int32 tokens."""
+        logits, _ = self._chunk_step(self.params, tokens, start, last_idx,
+                                     self.cache, chunk_ids, tbl,
+                                     adapter_idx=ai)
         return sample_tokens(logits, temp, top_k, top_p, seed,
-                             np.zeros_like(seed))
+                             torch.zeros_like(seed))
+
+    def decode_compiles(self) -> int:
+        """Capture count of the decode dispatch (must be 1 after warmup;
+        a recapture mid-serving would blow every TPOT SLO)."""
+        return self._decode._cache_size()
+
+    def prefill_compiles(self) -> int:
+        """Capture count of the chunked prefill dispatch (must be 1 after
+        warmup across EVERY prompt length)."""
+        return self._prefill._cache_size()
 
     # ------------------------------------------------------------ capacity
     def max_output_for(self, prompt_len: int) -> int:
@@ -335,19 +399,24 @@ class ContinuousRuntime:
         req.breakdown["rejected_unknown_adapter"] = 1.0
 
     def _resolve_adapter(self, adapter) -> Optional[int]:
-        """Raw bank slot -> validated slot, or None if it cannot be
-        served.  Adapter names need the AdapterRegistry (not ported)."""
+        """Registry name / bank slot -> validated bank slot, or None if the
+        id cannot be served.  Pure host work — admission planning calls
+        this per item with no device interaction."""
         if adapter is None:
             adapter = 0
         if isinstance(adapter, str):
-            raise ValueError(
-                f"adapter name {adapter!r} needs an AdapterRegistry, which "
-                f"the PyTorch runtime does not have yet; pass a bank slot")
+            if self.adapters is None:
+                raise ValueError(
+                    f"adapter name {adapter!r} needs an AdapterRegistry "
+                    f"attached to the runtime (serving.adapters)")
+            return self.adapters.resolve(adapter)   # None when unknown
         slot = int(adapter)
         if self.bank_slots is None:
-            return slot if slot == 0 else None
+            return slot if slot == 0 else None      # backbone-only params
         if not 0 <= slot < self.bank_slots:
             return None
+        if self.adapters is not None and not self.adapters.slot_loaded(slot):
+            return None                             # unloaded/free slot
         return slot
 
     def _coerce_admit_items(self, items: Sequence[ServeRequest]) -> Tuple[
@@ -573,6 +642,11 @@ class ContinuousRuntime:
             else:
                 slot_ids.append(sid)
                 self.slots.bind(st, first)
+                if self.adapters is not None:
+                    # in-flight requests pin their adapter: unload/swap of
+                    # a bank slot some live decode row still reads would
+                    # change that request's results mid-stream
+                    self.adapters.pin(adapter)
         self._sample_gauges()
         return AdmitResult(slot_ids, first_tokens, finished, total_dt,
                            shared_blocks=[len(p[0]) for p in plans],
@@ -581,8 +655,15 @@ class ContinuousRuntime:
     # -------------------------------------------------------------- decode
     def _release_slot(self, st: SlotState) -> None:
         """The exit path for every way a bound slot dies (finish,
-        force-evict): release the held blocks."""
+        force-evict): release the held blocks and the adapter pin."""
         self.pool.free(self.slots.release(st.sid))
+        self._unpin(st)
+
+    def _unpin(self, st: SlotState) -> None:
+        """Release a finished/aborted slot's adapter pin (no-op without a
+        registry — raw-slot runtimes have nothing to pin)."""
+        if self.adapters is not None:
+            self.adapters.unpin(st.adapter)
 
     def _ensure_blocks(self) -> Tuple[List[int], List[SlotState]]:
         """On-demand allocation for this chunk's writes; stall on
@@ -704,6 +785,15 @@ class ContinuousRuntime:
                 problems.append(
                     f"block {b} parked in the cached LRU while a bound "
                     f"slot still maps it")
+        if self.adapters is not None:
+            want: Dict[int, int] = {}
+            for s in self.slots.active():
+                want[s.adapter] = want.get(s.adapter, 0) + 1
+            got = self.adapters.pin_counts()
+            if got != want:
+                problems.append(
+                    f"adapter pins {got} != active-slot holders {want} "
+                    f"(pin leak/double-unpin on some exit path)")
         terminal = {"finished": 0, "rejected": 0, "aborted": 0,
                     "abandoned": 0, "unresolved": 0}
         if requests is not None:
@@ -736,7 +826,8 @@ class ContinuousRuntime:
         """Run each dispatch twice on garbage rows (pool and slots stay
         untouched: warmup writes only the garbage block) and record the
         second run's wall time — the admission scheduler's Eq. 2 seed.
-        On the card the first run also builds and loads the kernels."""
+        On the card the first run builds and loads the kernels and
+        captures the dispatch; the second is a timed replay."""
         scfg, timings = self.scfg, {}
         C, G = scfg.prefill_chunk, scfg.prefill_rows
         ids = np.full((G, C // scfg.block_size), GARBAGE_BLOCK, np.int32)
@@ -783,6 +874,10 @@ class ContinuousRuntime:
             g("prefix_trie_blocks",
               "physical blocks indexed by the prefix trie").set(
                 len(self.prefix))
+        g("decode_compiles", "decode-chunk capture count (must be "
+          "1)").set(self.decode_compiles())
+        g("prefill_compiles", "chunked-prefill capture count (must be "
+          "1)").set(self.prefill_compiles())
 
     def host_bubble_fraction(self) -> float:
         """Share of the wall interval between the first and last dispatch

@@ -172,3 +172,43 @@ def test_decode_one_matches_reference(models):
                            torch.from_numpy(ADAPTERS))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
     _assert_caches_match(ct, cj)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_prefill_adapter_ids_reach_sgmv_contiguous(models, B, monkeypatch):
+    """The CUDA SGMV takes contiguous ids only, so the per-token ids a
+    prefill expands from (B,) must be contiguous at every batch size (the
+    expand of a single row is a stride-0 view until it is copied)."""
+    from repro_torch.kernels.sgmv import ops
+    seen, real = [], ops.sgmv_apply
+
+    def spy(x, a, b, idx, **kw):
+        seen.append(idx.is_contiguous())
+        return real(x, a, b, idx, **kw)
+
+    monkeypatch.setattr(ops, "sgmv_apply", spy)
+    _, _, cfg_t, pt = models["llama"]
+    eng = InferenceEngine(cfg_t, pt, max_context=16, device="cpu")
+    out, _ = eng.generate(torch.from_numpy(_prompts(96, B=B)), 3,
+                          torch.from_numpy(ADAPTERS[:B]))
+    assert out.shape == (B, 3)
+    assert seen and all(seen)
+
+
+def test_ring_decode_refuses_a_position_off_the_ring_index(models):
+    """Ring decode writes at slot ``pos % S`` (computed on the device so a
+    captured step serves every position); the reference writes at
+    ``idx % S``.  The two agree because decode runs at position ``idx``,
+    and a host position that is not the ring's ``idx`` is refused."""
+    _, _, cfg_t, pt = models["llama"]
+    eng = InferenceEngine(cfg_t, pt, max_context=16, device="cpu")
+    toks = torch.from_numpy(_prompts(96))
+    ai = torch.from_numpy(ADAPTERS)
+    _, cache = eng.prefill(toks, ai)
+    nxt = torch.tensor([5, 17, 90], dtype=torch.int32)
+    for pos in (7, 9, torch.tensor(9, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="has seen 8 tokens"):
+            eng.decode_one(nxt, cache, pos, ai)
+    assert cache[0]["idx"] == 8
+    eng.decode_one(nxt, cache, 8, ai)
+    assert cache[0]["idx"] == 9

@@ -126,8 +126,8 @@ def test_keep_mask_and_distribution_match_reference():
         np.asarray(js.keep_mask(jnp.asarray(srt), jnp.asarray(top_k),
                                 jnp.asarray(top_p))))
     np.testing.assert_allclose(
-        ts.sampling_distribution(torch.from_numpy(logits), temp, top_k,
-                                 top_p).numpy(),
+        ts.sampling_distribution(*map(torch.from_numpy,
+                                      (logits, temp, top_k, top_p))).numpy(),
         np.asarray(js.sampling_distribution(
             jnp.asarray(logits), jnp.asarray(temp), jnp.asarray(top_k),
             jnp.asarray(top_p))), atol=1e-6, rtol=1e-5)
@@ -135,22 +135,21 @@ def test_keep_mask_and_distribution_match_reference():
 
 def test_greedy_is_exact_first_index_argmax():
     logits = torch.tensor([[1.0, 3.0, 3.0, -1.0], [7.0, 7.0, 7.0, 7.0]])
-    zeros = np.zeros(2, np.float32)
-    got = ts.sample_tokens(logits, zeros, np.zeros(2, np.int32),
-                           np.ones(2, np.float32), np.zeros(2, np.int32),
-                           np.zeros(2, np.int32))
+    zeros = torch.zeros(2)
+    got = ts.sample_tokens(logits, zeros, torch.zeros(2, dtype=torch.int32),
+                           torch.ones(2), torch.zeros(2, dtype=torch.int32),
+                           torch.zeros(2, dtype=torch.int32))
     assert got.tolist() == [1, 0] and got.dtype == torch.int32
 
 
 def test_sampled_rows_are_counter_keyed_and_stay_in_the_kept_set():
-    logits, temp, top_k, top_p = _sampling_case()
-    lt = torch.from_numpy(logits)
-    seed = np.arange(5, dtype=np.int32) + 11
+    lt, temp, top_k, top_p = map(torch.from_numpy, _sampling_case())
+    seed = torch.arange(5, dtype=torch.int32) + 11
     draws = [ts.sample_tokens(lt, temp, top_k, top_p, seed,
-                              np.full(5, c, np.int32)).numpy()
+                              torch.full((5,), c, dtype=torch.int32)).numpy()
              for c in range(40)]
     again = ts.sample_tokens(lt, temp, top_k, top_p, seed,
-                             np.full(5, 7, np.int32)).numpy()
+                             torch.full((5,), 7, dtype=torch.int32)).numpy()
     np.testing.assert_array_equal(again, draws[7])   # pure in (seed, ctr)
     dist = ts.sampling_distribution(lt, temp, top_k, top_p).numpy()
     for d in draws:
