@@ -10,7 +10,8 @@ Layout (each module the counterpart of ``repro/serving/<name>.py``):
                     graph (the port's form of ``jax.jit``).
   * ``compile_guard`` — capture budgets over a block of serving code.
   * ``adapters``  — live LoRA adapter registry over the runtime's bank.
-  * ``faults``    — artifact-load errors and the retry primitive.
+  * ``faults``    — deterministic fault plans (artifact faults, pool
+                    squeezes, dispatch slowdowns) and the retry primitive.
   * ``replay``    — feeds arrival traces through the runtime.
   * ``metrics`` / ``telemetry`` — counters, gauges, histograms, spans.
 """
@@ -18,7 +19,9 @@ from repro_torch.core.sampling import SamplingParams
 from repro_torch.serving.adapters import AdapterRegistry
 from repro_torch.serving.compile_guard import (CompileBudgetExceeded,
                                                CompileGuard)
-from repro_torch.serving.faults import ArtifactLoadError, retry_with_backoff
+from repro_torch.serving.faults import (ArtifactFault, ArtifactLoadError,
+                                        DispatchSlowdown, FaultPlan,
+                                        PoolSqueeze, retry_with_backoff)
 from repro_torch.serving.graphs import GraphedDispatch
 from repro_torch.serving.kv_pool import BlockPool, blocks_for_tokens
 from repro_torch.serving.metrics import MetricsRegistry
@@ -33,10 +36,11 @@ from repro_torch.serving.telemetry import Telemetry
 
 __all__ = [
     "AdapterConfig", "AdapterRegistry", "AdmissionScheduler",
-    "ArtifactLoadError", "BlockPool", "CompileBudgetExceeded",
-    "CompileGuard", "ContinuousRuntime", "DecodeConfig", "GraphedDispatch",
-    "MetricsRegistry", "PrefillConfig", "PrefixCache", "RobustConfig",
-    "SamplingParams", "ServeRequest", "ServingConfig", "SlotTable",
-    "Telemetry", "blocks_for_tokens", "replay_requests", "replay_trace",
-    "retry_with_backoff", "terminal_state",
+    "ArtifactFault", "ArtifactLoadError", "BlockPool",
+    "CompileBudgetExceeded", "CompileGuard", "ContinuousRuntime",
+    "DecodeConfig", "DispatchSlowdown", "FaultPlan", "GraphedDispatch",
+    "MetricsRegistry", "PoolSqueeze", "PrefillConfig", "PrefixCache",
+    "RobustConfig", "SamplingParams", "ServeRequest", "ServingConfig",
+    "SlotTable", "Telemetry", "blocks_for_tokens", "replay_requests",
+    "replay_trace", "retry_with_backoff", "terminal_state",
 ]

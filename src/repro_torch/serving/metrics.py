@@ -106,6 +106,13 @@ class Histogram:
         if len(self.samples) > self.max_samples:
             del self.samples[: len(self.samples) // 2]
 
+    def min_observed(self) -> Optional[float]:
+        """Smallest observation, or None when empty — the OPTIMISTIC
+        per-dispatch estimate deadline shedding uses: a request is shed
+        only when even the best-case dispatch time cannot meet its
+        deadline, so measurement noise can never over-shed."""
+        return min(self.samples) if self.samples else None
+
     def summary(self) -> Dict[str, float]:
         if not self.samples:
             return {"count": 0, "mean": 0.0, "min": 0.0, "max": 0.0,

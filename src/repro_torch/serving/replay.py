@@ -1,15 +1,18 @@
 """Trace replay: arrival streams -> continuous-batching runtime -> the same
 ``Request`` / TTFT / TPOT records the reference emits (port of
-``repro/serving/replay.py`` without fault plans, preemption requeues or
-deadline shedding, which are not ported yet).
+``repro/serving/replay.py``, with its robustness hooks: deadline shedding,
+deadline-driven preemption, the preempted requests' requeue heap with
+exponential backoff and a retry budget, and ``FaultPlan`` injection).
 
 Clock model: a *virtual* clock starts at 0 and advances by the measured
 wall time of every dispatch (prefill group / decode chunk); when the
-runtime is idle it jumps to the next arrival or batching timer.
+runtime is idle it jumps to the next arrival, batching timer, retry
+backoff expiry or fault-plan window edge.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -18,6 +21,7 @@ from repro_torch.core.sampling import SamplingParams
 from repro_torch.serverless.batching import Request
 from repro_torch.serverless.simulator import SimResult
 from repro_torch.serving import telemetry as tm
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.runtime import ContinuousRuntime, ServeRequest
 from repro_torch.serving.slots import AdmissionScheduler, SlotState
 
@@ -25,7 +29,8 @@ from repro_torch.serving.slots import AdmissionScheduler, SlotState
 @dataclasses.dataclass
 class ReplayEvent:
     t: float
-    kind: str        # admit | finish | abandon | abort | stall | reject
+    kind: str        # admit | finish | abandon | abort | stall | reject |
+    #   preempt | resume
     req_id: int
     slot: int = -1
     detail: str = ""
@@ -48,16 +53,41 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
                  collect_events: bool = False,
                  prompts: Optional[Dict[int, np.ndarray]] = None,
                  telemetry: Optional[tm.Telemetry] = None,
+                 faults: Optional[FaultPlan] = None,
                  token_sink: Optional[Dict[int, List[int]]] = None,
                  sampling: Optional[Dict[int, SamplingParams]] = None
                  ) -> Tuple[SimResult, List[ReplayEvent]]:
     """Feed a ``serverless.traces.make_workload`` stream through the
-    runtime.  ``fn_adapter`` maps fn_id -> adapter bank slot; ``prompts``
-    maps req_id -> token array (default: synthesized from the trace
-    lengths); ``token_sink`` collects every survivor's accepted tokens
-    (prefill token first); ``sampling`` maps req_id -> SamplingParams
-    (default greedy).  Oversized requests and out-of-range adapters are
-    rejected gracefully.  Ends with ``runtime.check_invariants(requests)``.
+    runtime.  ``fn_adapter`` maps fn_id -> adapter (registry name or bank
+    slot); ``prompts`` maps req_id -> token array (default: synthesized
+    from the trace lengths); ``token_sink`` collects every survivor's
+    accepted tokens (prefill token first); ``sampling`` maps req_id ->
+    SamplingParams (default greedy); ``telemetry`` attaches a span
+    recorder (recording never changes replay results).  Oversized
+    requests and unknown adapters are rejected gracefully.
+
+    Robustness hooks, as the reference's:
+
+    * Trace items may carry ``slo_class`` / ``deadline_ttft`` /
+      ``deadline_e2e`` — finite deadlines turn on admission-time shedding
+      (``rejected_deadline``) and, with ``robust.preemption`` enabled,
+      deadline-driven preemption of lower-class slots.
+    * Preempted requests (deadline-driven, or the all-stall victim under
+      pool exhaustion) have their completed KV demoted to the cached LRU
+      and re-enter the queue after exponential backoff
+      (``robust.backoff_s * 2**(n-1)``); the resume recomputes only what
+      the prefix cache no longer covers.  After ``robust.retry_budget``
+      preemptions the request goes terminal ``abandoned``
+      (``breakdown["abandoned_retries"]``).  A requeued request's recorded
+      tokens are dropped: its greedy (or seeded) decode re-emits them.
+    * ``faults`` attaches a deterministic ``FaultPlan`` (to
+      ``runtime.faults`` for the replay, restored afterwards): pool
+      squeezes open/close on the virtual clock, dispatch slowdowns scale
+      measured dt (virtual clock only — tokens are untouched), artifact
+      faults reach the adapter registry.  An EMPTY plan is a no-op.
+    * Ends with ``runtime.check_invariants(requests)``: pool refcounts,
+      adapter pins, and every request in exactly one terminal state.
+
     Returns (SimResult, events)."""
     scfg = runtime.scfg
     group = prefill_group or 2
@@ -91,6 +121,15 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
     token_times: Dict[int, List[float]] = {}
     live: Dict[int, Request] = {}            # sid -> request
     now, ai = 0.0, 0
+    rcfg = scfg.robust
+    prev_faults = runtime.faults
+    if faults is not None:
+        runtime.faults = faults      # artifact loaders consult this
+    # preempted requests waiting out their backoff: (ready_t, seq, Request).
+    # seq breaks ready-time ties deterministically (heapq would otherwise
+    # compare Request objects)
+    retryq: List[Tuple[float, int, Request]] = []
+    retry_seq = 0
 
     def log(kind: str, req_id: int, slot: int = -1, detail: str = "") -> None:
         if collect_events:
@@ -109,25 +148,89 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
                             max_new_tokens=r.output_len, request=r,
                             sampling=sp_of(r.req_id))
 
+    def requeue_preempted(st: SlotState, emit_evt: bool) -> None:
+        """Preempted slot -> backoff heap (or terminal ``abandoned`` when
+        the retry budget is spent).  The runtime already demoted the
+        slot's completed KV to the cached LRU and released everything;
+        here the REQUEST restarts: first_token/dispatch reset (the resume
+        re-earns them), recorded tokens dropped (greedy decode re-emits
+        them bitwise on resume)."""
+        nonlocal retry_seq
+        r = st.req
+        live.pop(st.sid, None)
+        n = int(r.breakdown.get("preempted", 0.0))
+        if emit_evt and tel is not None:
+            tel.instant(tm.EVT_PREEMPT, f"slot{st.sid}", now,
+                        req_id=r.req_id, attempt=n)
+        r.breakdown["preempt_t"] = now
+        r.first_token = -1
+        r.dispatch = -1.0
+        token_times.pop(r.req_id, None)
+        if token_sink is not None:
+            token_sink.pop(r.req_id, None)
+        if n > rcfg.retry_budget:
+            r.breakdown["abandoned_retries"] = float(n)
+            runtime.stats["abandoned"] += 1
+            if tel is not None:
+                tel.instant(tm.EVT_ABANDON, tm.TRACK_QUEUE, now,
+                            req_id=r.req_id, retries=n)
+            log("abandon", r.req_id, st.sid,
+                f"retry budget {rcfg.retry_budget} exhausted "
+                f"after {n} preemptions")
+            return
+        backoff = rcfg.backoff_s * (2.0 ** max(n - 1, 0))
+        retry_seq += 1
+        heapq.heappush(retryq, (now + backoff, retry_seq, r))
+        runtime.stats["retries"] += 1
+        log("preempt", r.req_id, st.sid,
+            f"requeued (attempt {n}), backoff {backoff:.4f}s")
+
     def finish(st: SlotState, t_done: float) -> None:
         st.req.done = t_done
         live.pop(st.sid, None)
+        held = sum(1 for b in st.blocks if b >= 0)
         if tel is not None:
             tel.instant(tm.EVT_FINISH,
                         f"slot{st.sid}" if st.sid >= 0 else tm.TRACK_QUEUE,
                         t_done, req_id=st.req.req_id, tokens=st.produced)
-        log("finish", st.req.req_id, st.sid, f"{st.produced} tokens")
+        log("finish", st.req.req_id, st.sid,
+            f"{st.produced} tokens, {held} blocks released")
 
-    while ai < len(arrivals) or sched.pending or runtime.slots.num_active:
+    while ai < len(arrivals) or sched.pending or runtime.slots.num_active \
+            or retryq:
+        if faults is not None:
+            faults.advance(runtime, now)
         while ai < len(arrivals) and arrivals[ai].arrival <= now + 1e-12:
             sched.push(arrivals[ai])
             ai += 1
+        while retryq and retryq[0][0] <= now + 1e-12:
+            _, _, r = heapq.heappop(retryq)
+            sched.push(r)            # backoff served: back through admission
         for r in sched.abandon_expired(now):
             runtime.stats["abandoned"] += 1
             if tel is not None:
                 tel.instant(tm.EVT_ABANDON, tm.TRACK_QUEUE, now,
                             req_id=r.req_id, waited_s=now - r.arrival)
             log("abandon", r.req_id, detail=f"slo {r.slo_ttft}s lapsed")
+
+        # deadline-driven preemption: when the most-urgent queued request
+        # would provably miss its TTFT deadline waiting for a natural slot,
+        # evict one strictly-lower-SLO-class victim (its KV demotes to the
+        # cached LRU; it retries with backoff).  Gated on robust.preemption
+        # — the runtime method re-checks every precondition.
+        if rcfg.preemption and sched.pending \
+                and not runtime.slots.free_slots():
+            urgent, margin = None, float("inf")
+            for r in sched.pending_requests():
+                if r.deadline_ttft != float("inf"):
+                    m = r.deadline_ttft - (now - r.arrival)
+                    if m < margin:
+                        urgent, margin = r, m
+            if urgent is not None:
+                sid = runtime.deadline_preemption_victim(urgent, now)
+                if sid is not None:
+                    st = runtime.preempt(sid, now=now)  # emits EVT_PREEMPT
+                    requeue_preempted(st, emit_evt=False)
 
         # admission: fill-or-expire groups, deadline-margin priority; under
         # load wait for a FULL group of free slots before a prefill
@@ -155,12 +258,13 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
             batch = fit
             if not batch:
                 continue
-            res = runtime.try_admit([serve_request(r) for r in batch])
+            res = runtime.try_admit([serve_request(r) for r in batch],
+                                    now=now)
             if res is None and len(batch) > 1:
                 # group doesn't fit the remaining blocks — shrink to one
                 sched.requeue_front(batch[1:])
                 batch = batch[:1]
-                res = runtime.try_admit([serve_request(batch[0])])
+                res = runtime.try_admit([serve_request(batch[0])], now=now)
             if res is None:                  # blocks short: requeue
                 sched.requeue_front(batch)
                 if runtime.slots.num_active == 0 and runtime.pool.in_use == 0:
@@ -170,18 +274,26 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
                         "prompt lengths")
                 break
             if res.rejected:
+                # admission-side rejections (unknown/unloaded adapter or a
+                # provably-unmeetable deadline — fits() was pre-filtered
+                # above): the surviving per-item result lists align with
+                # the remaining batch order
                 rej = {id(r) for r in res.rejected}
                 for r in res.rejected:
+                    why = ("deadline unmeetable"
+                           if "rejected_deadline" in r.breakdown
+                           else f"adapter for {r.fn_id} not loaded")
                     if tel is not None:
                         tel.instant(tm.EVT_REJECT, tm.TRACK_QUEUE, now,
                                     req_id=r.req_id, fn_id=r.fn_id)
-                    log("reject", r.req_id,
-                        detail=f"adapter for {r.fn_id} not in the bank")
+                    log("reject", r.req_id, detail=why)
                 batch = [r for r in batch if id(r) not in rej]
                 if not batch:
                     continue
             t_disp = now
-            now += res.dt
+            pdt = (res.dt if faults is None
+                   else faults.dispatch_dt("prefill", t_disp, res.dt))
+            now += pdt
             if tel is not None:
                 tel.span("dispatch:prefill", tm.TRACK_HOST, t_disp, now,
                          requests=len(batch))
@@ -189,20 +301,33 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
                 r.dispatch = max(t_disp, r.arrival)
                 r.first_token = now
                 r.breakdown["queue_wait"] = r.dispatch - r.arrival
-                r.breakdown["prefill"] = res.dt
+                r.breakdown["prefill"] = pdt
                 token_times[r.req_id] = [now]
                 if token_sink is not None:
                     token_sink[r.req_id] = [int(res.first_tokens[i])]
                 shared = res.shared_blocks[i] if res.shared_blocks else 0
+                resumed = "preempt_t" in r.breakdown
                 if tel is not None:
                     track = (f"slot{res.slot_ids[i]}"
                              if res.slot_ids[i] >= 0 else tm.TRACK_QUEUE)
                     tel.span(tm.SPAN_QUEUED, tm.TRACK_QUEUE, r.arrival,
                              r.dispatch, req_id=r.req_id)
+                    if resumed:
+                        # the preempt -> re-admission arc: backoff + queue
+                        # wait on the queue track, then a resume marker on
+                        # the slot that picked the request back up
+                        tel.span(tm.SPAN_REQUEUED, tm.TRACK_QUEUE,
+                                 r.breakdown["preempt_t"], r.dispatch,
+                                 req_id=r.req_id)
+                        tel.instant(tm.EVT_RESUME, track, now,
+                                    req_id=r.req_id, shared_blocks=shared)
                     tel.span(tm.SPAN_PREFILL, track, r.dispatch, now,
                              req_id=r.req_id, prompt_len=r.prompt_len,
                              shared_blocks=shared,
                              **{tm.ARG_SAMPLING_MODE: mode_of(r.req_id)})
+                if resumed:
+                    log("resume", r.req_id, res.slot_ids[i],
+                        f"{shared} prefix blocks recovered from cache")
                 log("admit", r.req_id, res.slot_ids[i],
                     f"adapter {fn_adapter[r.fn_id]}, prompt {r.prompt_len}"
                     + (f", {shared} prefix blocks shared" if shared else ""))
@@ -214,19 +339,28 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
 
         dres = runtime.decode()
         if dres is None:
-            # idle: jump to the next arrival / batching timer
+            # idle: jump to the next arrival / batching timer / retry-
+            # backoff expiry / fault-plan window edge (a squeeze must
+            # open and CLOSE even while the runtime is idle)
             nxt = []
             if ai < len(arrivals):
                 nxt.append(arrivals[ai].arrival)
             t = sched.next_timer(now)
             if t is not None:
                 nxt.append(t)
+            if retryq:
+                nxt.append(retryq[0][0])
+            if faults is not None:
+                t = faults.next_event(now)
+                if t is not None:
+                    nxt.append(t)
             if not nxt:
                 break
             now = max(now, min(nxt))
             continue
         chunk_t0 = now
-        ddt = dres.dt
+        ddt = (dres.dt if faults is None
+               else faults.dispatch_dt("decode", chunk_t0, dres.dt))
         now += ddt
         if tel is not None:
             tel.span("dispatch:decode", tm.TRACK_HOST, chunk_t0, now,
@@ -272,7 +406,15 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
                 tel.instant(tm.EVT_ABORT, f"slot{st.sid}", now,
                             req_id=st.req.req_id)
             log("abort", st.req.req_id, st.sid, "evicted: pool exhausted")
+        for st in dres.preempted:
+            # force-evict under exhaustion with robust.preemption on:
+            # instead of a terminal abort the victim's KV was demoted to
+            # the cached LRU and the request retries with backoff
+            requeue_preempted(st, emit_evt=True)
 
+    if faults is not None:
+        faults.finish(runtime)       # windows past trace end: release all
+        runtime.faults = prev_faults
     for r in requests:
         if r.first_token >= 0 and r.done >= 0:
             r.breakdown.setdefault(
@@ -303,9 +445,11 @@ def replay_requests(runtime: ContinuousRuntime,
                     slo_abandon: bool = True,
                     collect_events: bool = False,
                     telemetry: Optional[tm.Telemetry] = None,
+                    faults: Optional[FaultPlan] = None,
                     token_sink: Optional[Dict[int, List[int]]] = None
                     ) -> Tuple[SimResult, List[ReplayEvent]]:
-    """Typed replay entry: a list of ``ServeRequest`` objects; req_ids are
+    """Typed replay entry: a list of ``ServeRequest`` objects (each with
+    its own prompt, adapter, SLO class and deadlines); req_ids are
     positional."""
     workload: List[Dict] = []
     prompts: Dict[int, np.ndarray] = {}
@@ -319,7 +463,9 @@ def replay_requests(runtime: ContinuousRuntime,
             req_id=i, fn_id=fn, arrival=float(sr.arrival),
             prompt_len=len(prompt),
             output_len=max(int(sr.max_new_tokens), 1),
-            slo_ttft=float("inf"), slo_class=int(sr.slo_class)))
+            slo_ttft=float("inf"), slo_class=int(sr.slo_class),
+            deadline_ttft=float(sr.deadline_ttft),
+            deadline_e2e=float(sr.deadline_e2e)))
         prompts[i] = prompt
         if sr.sampling is not None:
             sampling[i] = sr.sampling
@@ -328,4 +474,5 @@ def replay_requests(runtime: ContinuousRuntime,
                         slo_abandon=slo_abandon,
                         collect_events=collect_events,
                         prompts=prompts, telemetry=telemetry,
-                        token_sink=token_sink, sampling=sampling or None)
+                        faults=faults, token_sink=token_sink,
+                        sampling=sampling or None)

@@ -17,7 +17,21 @@ holder actually frees.  If the pool runs dry mid-flight a slot *stalls*:
 it still runs the chunk from its current (token, pos) — writes into
 allocated blocks are identical to what the resume writes, writes past the
 table land in the garbage block — but its outputs are discarded.  If every
-slot stalls, the stalled slot closest to completion is force-evicted.
+slot stalls, one slot dies so the system makes progress: with
+``RobustConfig.preemption`` the victim is preempted (the caller requeues
+it), otherwise force-evicted (``aborted_oom``).  Either way its completed
+blocks are demoted into the prefix cache's cached-LRU tier, so a
+re-admission of the same request pays only the tail.
+
+Overload robustness (as the reference's): ``try_admit(..., now=)`` sheds
+requests whose finite TTFT/e2e deadline is provably unmeetable
+(``deadline_floors``, built on the minimum observed dispatch times);
+``preempt`` and ``abort`` release a bound slot between chunks with full
+accounting; ``check_invariants`` audits pins, blocks and that every
+request ends in exactly one terminal state.  All of it is host work: a
+release resets the slot's numpy mirrors, and the next dispatch stages the
+mirrors after every release of its planning step, so a captured graph
+never reads a dead slot's block table.
 
 The two dispatches are ``serving.graphs.GraphedDispatch``es — the port's
 form of the reference's ``jax.jit``: on the card each is captured once as
@@ -33,13 +47,14 @@ sequence of timer readings, so a replay under a deterministic fake clock
 takes the same scheduling decisions as the reference's.
 
 Adapters are registry names (``serving.adapters.AdapterRegistry``) or raw
-bank slots.  Not ported yet (see ROADMAP.md): preemption, ``abort``,
-deadline shedding, fault plans, sliding-window reclamation (windowed
-configs are refused) and REC/SSD slot state.
+bank slots.  Not ported yet (see ROADMAP.md): sliding-window reclamation
+(windowed configs are refused), REC/SSD slot state, and checkpoint
+artifacts (so a ``FaultPlan``'s checkpoint faults have no loader to reach).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -61,7 +76,8 @@ from repro_torch.serving.kv_pool import BlockPool, blocks_for_tokens
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.slots import SlotState, SlotTable
-from repro_torch.serving.telemetry import Telemetry, host_bubble_fraction
+from repro_torch.serving.telemetry import (EVT_ABORT, EVT_PREEMPT,
+                                           Telemetry, host_bubble_fraction)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +96,16 @@ class DecodeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RobustConfig:
-    """Artifact-retry policy (the part of the reference's ``RobustConfig``
-    the adapter registry reads)."""
+    """Overload robustness: preemption, requeue, and artifact-retry
+    policy."""
+    preemption: bool = False     # pool exhaustion with EVERY slot stalled:
+    #   True = preempt the lowest-priority slot to the cached-LRU tier so
+    #   the caller can requeue it (cheap resume through the prefix cache);
+    #   False (default) = the terminal force-evict (aborted_oom)
+    retry_budget: int = 3        # preemptions one request may absorb before
+    #   the replay declares it terminally abandoned (abandoned_retries)
+    backoff_s: float = 0.05      # virtual-clock requeue delay base; doubles
+    #   with every further preemption of the same request
     artifact_retries: int = 2        # AdapterRegistry.load/swap retries on
     #   transient artifact-load failures (faults.retry_with_backoff)
     artifact_backoff_s: float = 0.0  # host-clock sleep base between
@@ -120,6 +144,9 @@ class ServingConfig:
         "eos_id": ("decode", "eos_id"),
         "max_live_adapters": ("adapters", "max_live"),
         "lora_rank": ("adapters", "lora_rank"),
+        "preemption": ("robust", "preemption"),
+        "retry_budget": ("robust", "retry_budget"),
+        "retry_backoff_s": ("robust", "backoff_s"),
         "artifact_retries": ("robust", "artifact_retries"),
         "artifact_backoff_s": ("robust", "artifact_backoff_s"),
     }
@@ -187,7 +214,11 @@ class ServeRequest:
     arrival: float = 0.0
     max_new_tokens: int = 1
     request: Optional[Request] = None
-    slo_class: int = 0
+    slo_class: int = 0               # preemption priority: HIGHER classes
+    #   may preempt lower ones when they would provably miss a deadline
+    deadline_ttft: float = float("inf")  # hard first-token budget from
+    #   arrival; inf (default) disables deadline shedding for this request
+    deadline_e2e: float = float("inf")   # hard end-to-end budget
     sampling: Optional[SamplingParams] = None  # None = greedy
 
     _auto_id = 0
@@ -199,7 +230,9 @@ class ServeRequest:
                 req_id=-ServeRequest._auto_id, fn_id=str(self.adapter),
                 arrival=self.arrival, prompt_len=len(self.prompt),
                 output_len=max(int(self.max_new_tokens), 1),
-                slo_ttft=float("inf"), slo_class=int(self.slo_class))
+                slo_ttft=float("inf"), slo_class=int(self.slo_class),
+                deadline_ttft=float(self.deadline_ttft),
+                deadline_e2e=float(self.deadline_e2e))
         return self.request
 
 
@@ -221,17 +254,29 @@ class DecodeResult:
     aborted: List[SlotState]         # force-evicted on pool exhaustion
     stalled: List[int]
     dt: float
+    preempted: List[SlotState] = dataclasses.field(default_factory=list)
+    #   released with completed KV demoted to the cached-LRU tier
+    #   (``RobustConfig.preemption``); the CALLER owns requeue policy —
+    #   replay_trace re-enters them with exponential backoff + retry budget
 
 
-_REJECT_FLAGS = ("rejected_too_long", "rejected_unknown_adapter")
-_ABORT_FLAGS = ("aborted_oom",)
-_ABANDON_FLAGS = ("abandoned",)
+# terminal-state taxonomy: which breakdown flags put a request in which
+# terminal class.  Every request ends in EXACTLY one class (or none while
+# still in flight) — the conservation invariant check_invariants() audits.
+_REJECT_FLAGS = ("rejected_too_long", "rejected_unknown_adapter",
+                 "rejected_deadline")
+_ABORT_FLAGS = ("aborted", "aborted_oom")
+_ABANDON_FLAGS = ("abandoned", "abandoned_retries")
 
 
 def terminal_state(req: Request) -> Optional[str]:
     """Terminal class of a request record — ``"finished"`` /
     ``"rejected"`` / ``"aborted"`` / ``"abandoned"`` — or None while
-    unresolved; raises ValueError if the flags put it in several."""
+    unresolved.  ``"preempted"`` is deliberately NOT terminal: a
+    preempted request is still in flight (requeued) until it finishes,
+    exhausts its retry budget (``abandoned_retries``), or is aborted.
+    Raises ValueError if the flags put the request in more than one
+    class at once."""
     rejected = any(f in req.breakdown for f in _REJECT_FLAGS)
     aborted = any(f in req.breakdown for f in _ABORT_FLAGS)
     abandoned = any(f in req.breakdown for f in _ABANDON_FLAGS)
@@ -296,11 +341,29 @@ class ContinuousRuntime:
              "(the decode path would compute a zero delta, but serving an "
              "unloaded adapter silently is a correctness bug)"),
             ("admit_syncs", "deliberate device reads during admission"),
-            ("aborted", "in-flight requests force-evicted"),
-            ("abandoned", "requests dropped after their TTFT SLO lapsed"),
+            # terminal-state + preemption counters: every request ends in
+            # exactly ONE of finished / rejected_* / aborted / abandoned —
+            # check_invariants() audits the books
+            ("rejected_deadline", "requests shed at admission: even the "
+             "optimistic lower bound on remaining work misses their "
+             "TTFT/e2e deadline"),
+            ("aborted", "in-flight requests cancelled (runtime.abort, "
+             "force-evict on pool exhaustion)"),
+            ("abandoned", "requests terminally dropped after admission "
+             "was attempted (SLO lapse in queue, retry budget exhausted)"),
+            ("preemptions", "slots released mid-flight with completed KV "
+             "demoted to the cached-LRU tier for cheap resume"),
+            ("retries", "preempted requests re-entered into the admission "
+             "queue (backoff requeues, not artifact retries)"),
+            ("resume_prefix_hits", "re-admissions of preempted requests "
+             "that recovered demoted blocks through the prefix cache"),
+            ("demoted_blocks", "completed blocks re-indexed into the "
+             "prefix trie at preempt/abort so they park cached, not free"),
             ("sampled_tokens", "accepted tokens drawn with temperature > 0"),
             ("artifact_retries", "adapter load attempts retried after a "
              "transient artifact failure"),
+            ("injected_pool_squeezes", "FaultPlan pool-squeeze windows "
+             "that actually captured blocks"),
         ):
             self.metrics.counter(name, help_)
         for m in MODES:
@@ -313,9 +376,11 @@ class ContinuousRuntime:
         self.bank_slots: Optional[int] = (
             int(leaves[0].shape[-3]) if leaves else None)
         self.adapters = None         # Optional[AdapterRegistry]
-        # fault injection is not ported: artifact loaders see no plan,
-        # as the reference's do without one
-        self.faults = None
+        # deterministic fault injection (serving.faults.FaultPlan):
+        # replay_trace attaches the active plan here so the adapter
+        # registry can consult it; None (the default) costs one attribute
+        # test per load
+        self.faults = None           # Optional[faults.FaultPlan]
         self._dispatch_windows: List[Tuple[float, float]] = []
         self._serve = make_serve_step(cfg)
         self._chunk_step = make_chunked_prefill_step(cfg)
@@ -397,6 +462,60 @@ class ContinuousRuntime:
         if "rejected_unknown_adapter" not in req.breakdown:
             self.stats["rejected_unknown_adapter"] += 1
         req.breakdown["rejected_unknown_adapter"] = 1.0
+
+    def reject_deadline(self, req: Request) -> None:
+        """Count a deadline shed once per request.  Shed requests were
+        PROVABLY going to miss: even the optimistic lower bound on their
+        remaining work exceeds the deadline."""
+        if "rejected_deadline" not in req.breakdown:
+            self.stats["rejected_deadline"] += 1
+        req.breakdown["rejected_deadline"] = 1.0
+
+    # ------------------------------------------------- deadline estimation
+    def _dispatch_floor(self, kind: str) -> Optional[float]:
+        """Optimistic seconds per ``kind`` dispatch: the MINIMUM observed
+        dispatch time (falling back to the warmup gauge before traffic
+        exists), so every deadline bound built on it is a true lower
+        bound — noise can delay real dispatches, never speed them up.
+        None when no timing data exists yet (shedding then stands down).
+        On the card the first dispatch of each kind also captures its
+        graph; it is slow, and only the minimum is read."""
+        h = self.metrics.histograms.get(f"{kind}_dispatch_s")
+        if h is not None:
+            v = h.min_observed()
+            if v is not None:
+                return v
+        g = self.metrics.gauges.get(f"warmup_{kind}_chunk_s")
+        if g is not None and g.count:
+            return g.last
+        return None
+
+    def _prefill_rounds(self, prompt_len: int, covered_tokens: int) -> int:
+        """Chunk-loop dispatch rounds a prompt needs — the exact loop
+        bound ``_chunk_prefill`` runs (prefix-covered tokens skip
+        rounds)."""
+        bs, C = self.scfg.block_size, self.scfg.prefill_chunk
+        start = min((covered_tokens // bs) * bs, ((prompt_len - 1) // bs) * bs)
+        return max(-(-(prompt_len - start) // C), 1)
+
+    def deadline_floors(self, prompt_len: int, output_len: int,
+                        covered_tokens: int = 0
+                        ) -> Optional[Tuple[float, float]]:
+        """(TTFT floor, e2e floor): optimistic additional seconds to first
+        token / last token if the request dispatched right now.  None when
+        no prefill timing data exists.  The decode term is omitted when
+        decode has no floor yet — the bound gets weaker, never wrong."""
+        tp = self._dispatch_floor("prefill")
+        if tp is None:
+            return None
+        ttft = self._prefill_rounds(prompt_len, covered_tokens) * tp
+        e2e = ttft
+        if output_len > 1:
+            td = self._dispatch_floor("decode")
+            if td is not None:
+                k = max(self.scfg.decode_chunk, 1)
+                e2e += -(-(output_len - 1) // k) * td
+        return ttft, e2e
 
     def _resolve_adapter(self, adapter) -> Optional[int]:
         """Registry name / bank slot -> validated bank slot, or None if the
@@ -540,13 +659,21 @@ class ContinuousRuntime:
             for r, t in toks_by_round.items()}
         return [int(synced[len(starts[i]) - 1][i]) for i in range(len(items))]
 
-    def try_admit(self, items: Sequence[ServeRequest]
-                  ) -> Optional[AdmitResult]:
+    def try_admit(self, items: Sequence[ServeRequest], *,
+                  now: Optional[float] = None) -> Optional[AdmitResult]:
         """Join ``ServeRequest`` items into free slots.
+
+        ``now`` (virtual-clock seconds) arms deadline shedding: items
+        whose finite ``deadline_ttft``/``deadline_e2e`` provably cannot be
+        met — queue wait so far plus the OPTIMISTIC lower bound on their
+        remaining work (``deadline_floors``) already exceeds the budget —
+        are dropped (``stats["rejected_deadline"]``).  Without ``now``, or
+        for requests with the default infinite deadlines, nothing is shed.
 
         Unserveable items are dropped, flagged and reported in
         ``AdmitResult.rejected`` (oversized prompts, out-of-range bank
-        slots); the per-item result lists align with the surviving items.
+        slots, provable deadline misses); the per-item result lists align
+        with the surviving items.
         All-or-nothing for the survivors: returns None (no state change
         beyond rejection counts and prefix-cache eviction) if slots or
         blocks are short.  Prefix sharing maps each item's longest chain of
@@ -563,6 +690,33 @@ class ContinuousRuntime:
             else:
                 self.reject_too_long(req)
                 rejected.append(req)
+        if now is not None and kept:
+            # deadline shedding — only requests that OPTED IN by setting a
+            # finite deadline are ever considered, and only a provable
+            # miss sheds (lower-bound estimates; no data -> no shedding)
+            shed_checked: List[Tuple[Request, np.ndarray, int,
+                                     SamplingParams, int]] = []
+            for it in kept:
+                req, prompt, adapter = it[0], it[1], it[2]
+                d_ttft, d_e2e = req.deadline_ttft, req.deadline_e2e
+                if not (math.isfinite(d_ttft) or math.isfinite(d_e2e)):
+                    shed_checked.append(it)
+                    continue
+                cov = (self.prefix.covered_tokens(adapter, prompt)
+                       if self.prefix is not None else 0)
+                floors = self.deadline_floors(
+                    len(prompt), max(req.output_len, 1), cov)
+                if floors is None:
+                    shed_checked.append(it)
+                    continue
+                waited = now - req.arrival
+                if waited + floors[0] > d_ttft \
+                        or waited + floors[1] > d_e2e:
+                    self.reject_deadline(req)
+                    rejected.append(req)
+                else:
+                    shed_checked.append(it)
+            kept = shed_checked
         if not kept:
             return AdmitResult([], [], [], 0.0, rejected=rejected)
         scfg = self.scfg
@@ -626,11 +780,22 @@ class ContinuousRuntime:
             self.stats["shared_tokens"] += cov
             self.stats["prefill_tokens"] += L - cov
             self.stats["shared_block_maps"] += len(shared)
+            if req.breakdown.get("preempted"):
+                # resume accounting: a preempted request re-admitting —
+                # shared coverage here IS the cheap-resume payoff (its
+                # demoted blocks survived in the cached-LRU tier)
+                if shared:
+                    self.stats["resume_prefix_hits"] += 1
+                req.breakdown["resumed_covered_tokens"] = float(cov)
+                start_tok = min(cov, ((L - 1) // bs) * bs)
+                req.breakdown["resume_recomputed_tokens"] = \
+                    float(L - start_tok)
             sid = sids[i]
             st = SlotState(sid=sid, req=req, adapter=adapter, prompt_len=L,
                            budget=max(req.output_len, 1), pos=L,
                            blocks=shared + fresh, last_token=first,
-                           shared=len(shared), sampling=sp, seed=sd)
+                           shared=len(shared), prompt_tokens=prompt,
+                           history=[first], sampling=sp, seed=sd)
             first_tokens.append(first)
             done = st.budget == 1 or (scfg.eos_id is not None
                                       and first == scfg.eos_id)
@@ -653,24 +818,146 @@ class ContinuousRuntime:
                            rejected=rejected)
 
     # -------------------------------------------------------------- decode
-    def _release_slot(self, st: SlotState) -> None:
-        """The exit path for every way a bound slot dies (finish,
-        force-evict): release the held blocks and the adapter pin."""
-        self.pool.free(self.slots.release(st.sid))
-        self._unpin(st)
-
     def _unpin(self, st: SlotState) -> None:
         """Release a finished/aborted slot's adapter pin (no-op without a
         registry — raw-slot runtimes have nothing to pin)."""
         if self.adapters is not None:
             self.adapters.unpin(st.adapter)
 
-    def _ensure_blocks(self) -> Tuple[List[int], List[SlotState]]:
+    def _demote_blocks(self, st: SlotState) -> int:
+        """Re-index a dying slot's COMPLETED full blocks in the prefix
+        trie, so the ``pool.free`` that follows parks them in the
+        cached-LRU tier instead of the free list: a re-admission of the
+        same request (preempt-resume, resubmitted force-evict victim)
+        recovers the computed prefix through the normal ``prefix.match``
+        and pays only the tail.
+
+        A block is completed when every position in its [j*bs, (j+1)*bs)
+        range was written (j < pos // bs).  Token content comes from the
+        slot's own record: prompt_tokens for positions [0, L), history for
+        [L, pos).  Returns the number of newly indexed blocks."""
+        if self.prefix is None or st.prompt_tokens is None:
+            return 0
+        bs = self.scfg.block_size
+        n_full = min(st.pos // bs, len(st.blocks))
+        if n_full <= 0:
+            return 0
+        stream = [int(t) for t in st.prompt_tokens]
+        stream += st.history[: max(st.pos - st.prompt_len, 0)]
+        tokens = stream[: n_full * bs]
+        covered, node = self.prefix.match(st.adapter, tokens)
+        new = self.prefix.register(st.adapter, tokens, st.blocks,
+                                   len(covered), node)
+        self.stats["demoted_blocks"] += len(new)
+        return len(new)
+
+    def _release_slot(self, st: SlotState, *, demote: bool = False) -> None:
+        """THE exit path for every way a bound slot dies — finish, abort,
+        preempt, force-evict: optionally demote completed blocks to the
+        cached-LRU tier, release the held blocks (the slot's mirrors reset
+        with them), release the adapter pin."""
+        if demote:
+            self._demote_blocks(st)
+        self.pool.free(self.slots.release(st.sid))
+        self._unpin(st)
+
+    def _preempt_slot(self, st: SlotState) -> None:
+        """Release a slot preserving its computed prefix (demote-to-
+        cached) and count the preemption.  The request record stays
+        re-admittable: the caller requeues (or abandons) it."""
+        st.req.breakdown["preempted"] = \
+            st.req.breakdown.get("preempted", 0.0) + 1.0
+        self._release_slot(st, demote=True)
+        self.stats["preemptions"] += 1
+
+    def preempt(self, sid: int, *, now: Optional[float] = None
+                ) -> SlotState:
+        """Public preemption of bound slot ``sid`` (deadline-driven
+        scheduling), between decode chunks: completed KV demotes to the
+        cached-LRU tier, blocks and adapter pin release, telemetry gets
+        the preempt instant.  Requeue policy belongs to the caller.
+        Returns the released ``SlotState``."""
+        st = self.slots.states[sid]
+        if st is None:
+            raise KeyError(f"slot {sid} is not bound")
+        self._preempt_slot(st)
+        t = now if now is not None else self._timer()
+        if self.telemetry is not None:
+            self.telemetry.instant(EVT_PREEMPT, f"slot{sid}", t,
+                                   req_id=st.req.req_id,
+                                   produced=st.produced)
+        self._sample_gauges()
+        return st
+
+    def abort(self, request_id: int, *, now: Optional[float] = None
+              ) -> bool:
+        """Cancel an in-flight request by id with full accounting:
+        completed blocks demote to the cached-LRU tier, remaining blocks
+        and the adapter pin release, the abort lands in the ``aborted``
+        counter, the breakdown flag, and a telemetry abort instant.
+        Returns False when no bound slot serves ``request_id`` (a queued
+        request belongs to the scheduler, not the runtime)."""
+        for st in self.slots.active():
+            if st.req.req_id == request_id:
+                self._release_slot(st, demote=True)
+                st.req.breakdown["aborted"] = 1.0
+                self.stats["aborted"] += 1
+                t = now if now is not None else self._timer()
+                if st.req.done < 0:
+                    st.req.done = t
+                if self.telemetry is not None:
+                    self.telemetry.instant(EVT_ABORT, f"slot{st.sid}", t,
+                                           req_id=request_id,
+                                           produced=st.produced)
+                self._sample_gauges()
+                return True
+        return False
+
+    def deadline_preemption_victim(self, req: Request,
+                                   now: float) -> Optional[int]:
+        """Slot id worth preempting so the queued ``req`` can still meet
+        its TTFT deadline, or None.  Conservative on both sides: fires
+        only when even the OPTIMISTIC bound on waiting for a natural slot
+        release (fastest-finishing slot's remaining decode rounds at the
+        decode floor) plus req's own prefill floor already misses the
+        deadline — and only a victim of STRICTLY lower SLO class (equal
+        classes never thrash each other)."""
+        if not self.scfg.robust.preemption:
+            return None
+        if not math.isfinite(req.deadline_ttft):
+            return None
+        if self.slots.free_slots():
+            return None              # a slot is free; plain admission wins
+        tp = self._dispatch_floor("prefill")
+        td = self._dispatch_floor("decode")
+        if tp is None or td is None:
+            return None              # nothing provable without timing data
+        k = max(self.scfg.decode_chunk, 1)
+        waits = [(-(-(s.budget - s.produced) // k)) * td
+                 for s in self.slots.active()]
+        wait_floor = min(waits) if waits else 0.0
+        ttft_floor = self._prefill_rounds(req.prompt_len, 0) * tp
+        if (now - req.arrival) + wait_floor + ttft_floor \
+                <= req.deadline_ttft:
+            return None              # could still make it by waiting
+        cands = [s for s in self.slots.active()
+                 if s.req.slo_class < req.slo_class]
+        if not cands:
+            return None
+        victim = min(cands, key=lambda s: (s.req.slo_class,
+                                           s.budget - s.produced))
+        return victim.sid
+
+    def _ensure_blocks(self) -> Tuple[List[int], List[SlotState],
+                                      List[SlotState]]:
         """On-demand allocation for this chunk's writes; stall on
-        shortage.  If every slot stalls, the lowest-class slot closest to
-        completion is force-evicted (``aborted_oom``) so the system makes
-        progress."""
-        scfg, aborted = self.scfg, []
+        shortage.  If *everyone* stalls, one slot must die for the system
+        to make progress: with ``RobustConfig.preemption`` the victim is
+        PREEMPTED (the caller requeues it), otherwise force-evicted
+        terminally (``aborted_oom``); either way its completed blocks park
+        cached.  Victim choice: lowest SLO class first, then closest to
+        completion (fewest remaining tokens = least wasted work)."""
+        scfg, aborted, preempted = self.scfg, [], []
         while True:
             stalled = []
             for s in self.slots.active():
@@ -689,12 +976,16 @@ class ContinuousRuntime:
                 victim = min(stalled,
                              key=lambda s: (s.req.slo_class,
                                             s.budget - s.produced))
-                victim.req.breakdown["aborted_oom"] = 1.0
-                self.stats["aborted"] += 1
-                self._release_slot(victim)
-                aborted.append(victim)
+                if scfg.robust.preemption:
+                    self._preempt_slot(victim)
+                    preempted.append(victim)
+                else:
+                    victim.req.breakdown["aborted_oom"] = 1.0
+                    self.stats["aborted"] += 1
+                    self._release_slot(victim, demote=True)
+                    aborted.append(victim)
                 continue
-            return [s.sid for s in stalled], aborted
+            return [s.sid for s in stalled], aborted, preempted
 
     def decode(self) -> Optional[DecodeResult]:
         """One fixed-shape decode chunk across every slot (inactive rows
@@ -703,10 +994,14 @@ class ContinuousRuntime:
             return None
         scfg = self.scfg
         t_plan0 = self._timer()
-        stalled, aborted = self._ensure_blocks()
+        # planning may release slots (preempt / force-evict): it runs to
+        # the end BEFORE the mirrors are staged, so the dispatch never
+        # sees a released slot's block table, position or adapter
+        stalled, aborted, preempted = self._ensure_blocks()
         self.stats["stall_steps"] += len(stalled)
-        if self.slots.num_active == 0:      # everything force-evicted
-            return DecodeResult({}, [], aborted, stalled, 0.0)
+        if self.slots.num_active == 0:      # everything aborted/preempted
+            return DecodeResult({}, [], aborted, stalled, 0.0,
+                                preempted=preempted)
 
         # stalled slots run the chunk unmodified from (pending token, pos):
         # every position they write is re-written by the resumed chunk
@@ -745,6 +1040,7 @@ class ContinuousRuntime:
                     accept = accept[: hits[0] + 1]
                     eos_hit = True
             emitted[s.sid] = [int(t) for t in accept]
+            s.history.extend(emitted[s.sid])
             s.produced += len(accept)
             mode = s.sampling.mode()
             self.stats[f"tokens_mode_{mode}"] += len(accept)
@@ -758,18 +1054,24 @@ class ContinuousRuntime:
                 s.last_token = int(accept[-1])
                 self.slots.pos[s.sid] = s.pos
                 self.slots.tokens[s.sid] = s.last_token
+                # RNG counter == tokens generated so far: a requeued
+                # request restarts at produced = 1, so its draws repeat
                 self.slots.rng_counter[s.sid] = s.produced
         self._sample_gauges()
-        return DecodeResult(emitted, finished, aborted, stalled, dt)
+        return DecodeResult(emitted, finished, aborted, stalled, dt,
+                            preempted=preempted)
 
     # -------------------------------------------------------------- meta
     def check_invariants(self, requests: Optional[Sequence[Request]] = None,
                          *, raise_on_error: bool = True) -> Dict[str, Any]:
-        """Audit the books: every block a bound slot maps is live with a
+        """Audit the books, whichever way each slot died (finish, abort,
+        preempt, force-evict): every block a bound slot maps is live with a
         refcount covering its holders and not parked in the cached LRU;
-        with ``requests``, every request ends in exactly one terminal
-        class.  Returns a report; raises AssertionError on any violation
-        unless ``raise_on_error=False``."""
+        adapter pin counts equal the live holders per bank slot; with
+        ``requests``, every request ends in exactly one terminal class
+        (per-request breakdown flags, so several replays may share one
+        runtime).  Returns a report; raises AssertionError on any
+        violation unless ``raise_on_error=False``."""
         problems: List[str] = []
         held: Dict[int, int] = {}
         for s in self.slots.active():
@@ -809,6 +1111,12 @@ class ContinuousRuntime:
                 problems.append(
                     f"{terminal['unresolved']} request(s) ended the "
                     f"replay in NO terminal state")
+            resolved = sum(v for k, v in terminal.items()
+                           if k != "unresolved")
+            if resolved + terminal["unresolved"] != len(requests):
+                problems.append(
+                    f"terminal classes sum to {resolved} != trace "
+                    f"length {len(requests)}")
         report = {
             "problems": problems,
             "terminal": terminal,

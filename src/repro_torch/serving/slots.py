@@ -38,10 +38,20 @@ class SlotState:
     stalled: bool = False
     shared: int = 0              # leading blocks mapped from the prefix
     #   cache at admit (refcount bumps, not fresh allocations)
+    prompt_tokens: Optional[np.ndarray] = None  # the admitted prompt ids —
+    #   kept so preempt/abort can re-index COMPLETED blocks (prompt AND
+    #   decoded tokens) into the prefix trie before release, demoting them
+    #   to the cached-LRU tier for cheap resume (host ints only; never
+    #   touches the device)
+    history: List[int] = dataclasses.field(default_factory=list)
+    #   accepted output tokens in order (history[0] = the prefill token);
+    #   token at absolute position prompt_len + i is history[i], which is
+    #   what lets demotion name the token content of decode-written blocks
     sampling: SamplingParams = GREEDY   # per-request sampling policy
     #   (dispatched as per-row data vectors, never a compiled shape)
     seed: int = 0                # resolved int32 PRNG seed; the RNG
-    #   counter itself is DERIVED (== produced)
+    #   counter itself is DERIVED (== produced), so preempt/resume
+    #   restores it for free with the slot's history
 
 
 class SlotTable:
@@ -179,3 +189,12 @@ class AdmissionScheduler:
                 batch = batch[:max_requests]
             return batch
         return []
+
+    def pending_requests(self) -> List[Request]:
+        """Every queued request (all functions, queue order) — the replay
+        scans these for the most-urgent finite deadline when deciding
+        whether deadline-driven preemption should fire."""
+        out: List[Request] = []
+        for q in self._sched.queues.values():
+            out.extend(q.pending)
+        return out

@@ -219,3 +219,42 @@ def test_windowed_config_refused_until_reclamation_is_ported(models):
         ContinuousRuntime(cfg, models[2], ServingConfig(
             num_slots=4, block_size=8, num_blocks=32, max_blocks_per_slot=6,
             prefill_chunk=16), device="cpu")
+
+
+def _pool_trail(rt):
+    """Record the pool's (cached, free) after every decode chunk."""
+    trail, decode = [], rt.decode
+
+    def recorded():
+        out = decode()
+        trail.append((rt.pool.num_cached, rt.pool.num_free))
+        return out
+
+    rt.decode = recorded
+    return trail
+
+
+@pytest.mark.parametrize("num_blocks", [5, 6])
+def test_force_evict_demotes_like_the_reference(models, num_blocks):
+    """A force-evicted victim's completed blocks park in the cached-LRU
+    tier (demoted into the prefix trie), as the reference's do: on a pool
+    tight enough to force-evict, the two runtimes hold the same
+    (cached, free) split after every decode chunk, count the same demoted
+    blocks and emit the same greedy tokens."""
+    cfg_j, pj, pt = models
+    work, prompts, fn_adapter = _trace()
+    sink_j, sink_t = {}, {}
+    rt_j = make_runtime(cfg_j, pj, num_blocks=num_blocks, timer=FakeTimer())
+    trail_j = _pool_trail(rt_j)
+    res_j, _ = jax_replay_trace(rt_j, work, fn_adapter, prompts=prompts,
+                                token_sink=sink_j)
+    rt_t = _port_runtime(pt, num_blocks=num_blocks)
+    trail_t = _pool_trail(rt_t)
+    res_t, _ = replay_trace(rt_t, work, fn_adapter, prompts=prompts,
+                            token_sink=sink_t)
+    assert rt_j.stats["aborted"] > 0, "the pool never forced an eviction"
+    assert trail_t == trail_j
+    assert rt_t.stats["demoted_blocks"] == rt_j.stats["demoted_blocks"]
+    assert sink_t == sink_j
+    assert [sorted(r.breakdown) for r in res_t.requests] == \
+        [sorted(r.breakdown) for r in res_j.requests]
