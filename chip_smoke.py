@@ -162,6 +162,20 @@ SQUEEZE = dict(t0=0.2, t1=3.0, blocks=32)
 SLOWDOWN = dict(t0=0.3, t1=3.0, factor=3.0, kind="decode")
 PROFILED_CHUNKS = range(24, 28)   # decode chunks of the replay profiled
 
+# Phase 8: Mixtral-8x22B at full width, depth cut from 56 to 8 layers (56
+# layers of bf16 weights are ~281 GB; 8 are 40.9 GB).  A pool block holds
+# 16 tokens x 8 kv heads x 128 x K and V: 64 KB per layer, so 2560 blocks
+# are 1.34 GB over 8 layers; 304 blocks per slot hold 4864 tokens.
+MIXTRAL = "mixtral_8x22b"
+MIXTRAL_LAYERS = 8
+MIXTRAL_SERVE = dict(num_slots=8, block_size=16, num_blocks=2560,
+                     max_blocks_per_slot=304, prefill_chunk=64,
+                     prefill_rows=4, decode_chunk=4)
+MIXTRAL_REQUESTS = 8         # 2 per adapter, arrivals 20 ms apart
+MIXTRAL_PROMPT = (4200, 4700)     # past the 4096-key window
+MIXTRAL_OUTPUT = 64          # every slot decodes across the window
+MIXTRAL_BREAKDOWN_PROMPT = 4160   # 65 chunks: history up to the window
+
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
              "src/repro/kernels/sgmv/sgmv.py:28"),
@@ -360,14 +374,15 @@ def paged_table(gen, B: int, MB: int, NB: int,
 
 
 def sgmv_case(gen, dtype, R: int, run: int = 1,
-              adapters: int = ADAPTERS) -> Dict:
+              adapters: int = ADAPTERS, D: int = 4096,
+              O: int = 4096) -> Dict:
     """Rows in runs of ``run`` consecutive rows, run i carrying adapter
     i % ``adapters`` of a bank of ADAPTERS (run 1: interleaved, the worst
     case for the kernel's per-tile passes; the prefills send token-major
-    runs of a request's length), the last row out of range."""
+    runs of a request's length), the last row out of range.  D x O is a
+    LoRA site's width: Llama-2-7B's 4096 x 4096 by default."""
     from repro_torch.kernels.sgmv.ops import sgmv_apply
     from repro_torch.kernels.sgmv.ref import sgmv_ref
-    D = O = 4096
     r, N = 16, ADAPTERS
     x = _randn(gen, R, D, dtype=dtype)
     a = _randn(gen, N, D, r, dtype=dtype, scale=1 / math.sqrt(D))
@@ -397,25 +412,34 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
 
 
 def decode_case(gen, dtype, K: int = 32, G: int = 1,
-                window: Optional[int] = None) -> Dict:
+                window: Optional[int] = None, serve: Dict = SERVE,
+                positions=(SYSTEM_PROMPT, MAX_PROMPT + OUTPUT_TOKENS),
+                reclaimed: bool = False) -> Dict:
     """Runtime decode: one token for each of ``num_slots`` rows over its
-    paged history, at Llama-2-7B head widths (``H = K * G`` query
-    heads)."""
+    paged history, at Llama-2-7B head widths (``H = K * G`` query heads),
+    rows at positions in [``positions``).  With ``reclaimed``, each live
+    row's table holds -1 for every block that slid wholly out of the
+    window, as the runtime's window reclamation leaves it."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    B, hd = SERVE["num_slots"], 128
-    NB, bs, MB = SERVE["num_blocks"], SERVE["block_size"], \
-        SERVE["max_blocks_per_slot"]
+    B, hd = serve["num_slots"], 128
+    NB, bs, MB = serve["num_blocks"], serve["block_size"], \
+        serve["max_blocks_per_slot"]
     H = K * G
     kp = _randn(gen, K, NB, bs, hd, dtype=dtype)
     vp = _randn(gen, K, NB, bs, hd, dtype=dtype)
     q = _randn(gen, B, H, hd, dtype=dtype)
-    pos = torch.randint(SYSTEM_PROMPT, MAX_PROMPT + OUTPUT_TOKENS, (B,),
-                        generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.randint(*positions, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
     pos[-1] = 0                            # an inactive slot ...
     tbl = paged_table(gen, B, MB, NB, pos // bs)
     tbl[-1] = -1                           # ... whose table is all -1
     tbl[1, 2] = -1                         # a hole inside a live row
+    if reclaimed:
+        dead = (pos - window + 1).clamp(min=0) // bs
+        j = torch.arange(MB, device="cuda")
+        tbl = torch.where(j[None] < dead[:, None], torch.full_like(tbl, -1),
+                          tbl).contiguous()
     t = torch.arange(MB * bs, device="cuda")
     ok = (t[None] <= pos[:, None]) & (tbl[:, t // bs] >= 0)
     if window is not None:
@@ -434,7 +458,9 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
     q4 = q[:, :, None, :].contiguous()
     return dict(
         shape=f"B={B} K={K} G={G} hd={hd} NB={NB} bs={bs} MB={MB} "
-              f"window={window} live_keys={live}",
+              f"window={window} live_keys={live}"
+              + (f" reclaimed_entries={int((tbl[:-1] < 0).sum())}"
+                 if reclaimed else ""),
         kernel=lambda: paged_decode_gqa(q, kp, vp, tbl, pos, window=window),
         plain=lambda: paged_attention_ref(q, kp, vp, tbl, pos,
                                           window=window),
@@ -449,21 +475,23 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
 
 
 def prefill_case(gen, dtype, K: int = 32, G: int = 1,
-                 window: Optional[int] = None) -> Dict:
+                 window: Optional[int] = None, serve: Dict = SERVE,
+                 starts=(0, MAX_PROMPT - SERVE["prefill_chunk"])) -> Dict:
     """Runtime prefill: a chunk of ``prefill_chunk`` queries for each of
     ``prefill_rows`` rows over its paged history, at Llama-2-7B head
-    widths (``H = K * G`` query heads)."""
+    widths (``H = K * G`` query heads), each chunk starting at a block
+    boundary in [``starts``]."""
     from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
-    B, C = SERVE["prefill_rows"], SERVE["prefill_chunk"]
+    B, C = serve["prefill_rows"], serve["prefill_chunk"]
     hd = 128
-    NB, bs, MB = SERVE["num_blocks"], SERVE["block_size"], \
-        SERVE["max_blocks_per_slot"]
+    NB, bs, MB = serve["num_blocks"], serve["block_size"], \
+        serve["max_blocks_per_slot"]
     H = K * G
     kp = _randn(gen, K, NB, bs, hd, dtype=dtype)
     vp = _randn(gen, K, NB, bs, hd, dtype=dtype)
     q = _randn(gen, B, C, H, hd, dtype=dtype)
-    start = bs * torch.randint(0, (MAX_PROMPT - C) // bs + 1, (B,),
+    start = bs * torch.randint(starts[0] // bs, starts[1] // bs + 1, (B,),
                                generator=gen, device="cuda",
                                dtype=torch.int32)
     q_pos = (start[:, None] + torch.arange(C, device="cuda")[None]
@@ -638,6 +666,29 @@ def kernels_phase() -> Dict[str, Dict]:
         ("sgmv", bf, lambda: sgmv_case(
             gen, bf, LAUNCH_BATCH * LAUNCH["prompt_len"],
             run=LAUNCH["prompt_len"], adapters=1))]
+    # phase 8's shapes: Mixtral-8x22B's 48 query heads over 8 kv heads
+    # (G = 6), its 4096-key window over ~4600 keys (decode tables with
+    # window-reclaimed -1 entries in front), and its LoRA sites at d_model
+    # 6144 (q and o: O = 6144; k and v: O = 1024)
+    from repro_torch.configs import get_config
+    w, mx = get_config(MIXTRAL).sliding_window, MIXTRAL_SERVE
+    lo, hi = MIXTRAL_PROMPT
+    rows = mx["prefill_rows"] * mx["prefill_chunk"]
+    makers += [
+        ("paged_attention", bf, lambda: decode_case(
+            gen, bf, K=8, G=6, window=w, serve=mx,
+            positions=(lo, hi + MIXTRAL_OUTPUT), reclaimed=True)),
+        ("paged_prefill", bf, lambda: prefill_case(
+            gen, bf, K=8, G=6, window=w, serve=mx,
+            starts=(w, hi - mx["prefill_chunk"]))),
+        ("sgmv", bf, lambda: sgmv_case(gen, bf, mx["num_slots"], D=6144,
+                                       O=6144)),
+        ("sgmv", bf, lambda: sgmv_case(gen, bf, rows,
+                                       run=mx["prefill_chunk"], D=6144,
+                                       O=6144)),
+        ("sgmv", bf, lambda: sgmv_case(gen, bf, rows,
+                                       run=mx["prefill_chunk"], D=6144,
+                                       O=1024))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for name, dtype, make in makers:
@@ -1182,11 +1233,12 @@ def wall_ms(fn: Callable[[], object]) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def breakdown(rt, cfg, device: Dict) -> Dict:
+def breakdown(rt, cfg, device: Dict, prompt_len: int = 512) -> Dict:
     """Where the time of the two dispatches goes, at full width.  A round
-    admits two groups of ``prefill_rows`` fresh 512-token prompts (8 prefill
-    dispatches each), which fills the slots, runs 4 decode chunks with
-    every slot busy, and drains the pool.  Two rounds run from the same
+    admits two groups of ``prefill_rows`` fresh ``prompt_len``-token
+    prompts (8 prefill dispatches each at 512 tokens), which fills the
+    slots, runs 4 decode chunks with every slot busy, and drains the
+    pool.  Two rounds run from the same
     empty state on fresh prompts of the same lengths, so both see the same
     shapes: the first is timed on the host clock alone, the second under
     the profiler for device time by kind.  The idle share is 1 - device
@@ -1200,7 +1252,8 @@ def breakdown(rt, cfg, device: Dict) -> Dict:
 
     def fresh() -> List:
         # 32 new tokens outlive the 16 measured decode steps
-        return [ServeRequest(prompt=rng.integers(0, cfg.vocab_size, 512),
+        return [ServeRequest(prompt=rng.integers(0, cfg.vocab_size,
+                                                 prompt_len),
                              adapter=i % ADAPTERS, max_new_tokens=32)
                 for i in range(2 * g)]
 
@@ -1242,7 +1295,7 @@ def breakdown(rt, cfg, device: Dict) -> Dict:
     pre = profiled(counted(lambda: admit(reqs)))
     dec = profiled(counted(decode4))
     drain()
-    per_group = -(-512 // scfg.prefill_chunk)
+    per_group = -(-prompt_len // scfg.prefill_chunk)
     steps = 4 * scfg.decode_chunk
     res = {"prefill_admission": {"dispatches": 2 * per_group,
                                  "wall_ms": pre_wall, **pre},
@@ -1254,8 +1307,8 @@ def breakdown(rt, cfg, device: Dict) -> Dict:
         "breakdown decode", counts[1], dec)
     per_step(f"decode step, {scfg.num_slots} rows (captured chunks of "
              f"{scfg.decode_chunk})", dec_wall, dec, steps, device)
-    per_step("prefill dispatch, 4 rows x 64 tokens (captured)", pre_wall,
-             pre, 2 * per_group, device)
+    per_step(f"prefill dispatch, {g} rows x {scfg.prefill_chunk} tokens "
+             f"(captured)", pre_wall, pre, 2 * per_group, device)
     return res
 
 
@@ -1883,39 +1936,21 @@ def abort_check(rt, reg, cfg, probe: OverloadProbe) -> Dict:
 
 
 # --------------------------------------------------------------- 7. parity
-def parity_phase() -> Dict:
+RUNTIME_KERNELS = ("sgmv", "paged_attention", "paged_prefill")
+
+
+def replay_on_both(label: str, cfg, params, scfg: Dict, trace,
+                   sampling=None) -> Dict[str, Dict]:
+    """The trace through a runtime on the card (kernels) and one on the
+    CPU (plain versions) under the same deterministic clock: the same
+    requests must be admitted and every token stream must be equal, the
+    card must launch the runtime's kernels and the CPU none.  Returns
+    device -> the run's counts."""
     from repro_torch import kernels
-    from repro_torch.configs import get_smoke
-    from repro_torch.core.engine import InferenceEngine
-    from repro_torch.core.sampling import SamplingParams
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.config import LoRAConfig
     from repro_torch.serving import (ContinuousRuntime, ServingConfig,
                                      replay_trace)
-
-    t0 = phase("phase 7: SMOKE float32, card (kernels) vs CPU (plain "
-               "versions): runtime replay, greedy and sampled; engine "
-               "generate")
-    cfg = get_smoke("llama2_7b").with_(
-        dtype="float32", lora=LoRAConfig(rank=8, alpha=16.0,
-                                         num_adapters=3))
-    gen = torch.Generator()
-    gen.manual_seed(1)
-    params = tf.init_params(cfg, gen, "cpu", lora_adapters=3,
-                            lora_b_scale=0.1)
-    scfg = dict(num_slots=4, block_size=8, num_blocks=24,
-                max_blocks_per_slot=6, prefill_chunk=16, decode_chunk=4)
-    work, prompts, fn_adapter = shared_prefix_trace(
-        9, 3, 16, 30, 8, cfg.vocab_size, seed=7)
-    # five sampled requests (temperature alone, top-k, top-p, both) take
-    # the sort/top-k/top-p/Philox path; the rest stay greedy
-    sampling = {1: SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
-                                  seed=5),
-                4: SamplingParams(temperature=1.0, seed=11),
-                5: SamplingParams(temperature=0.6, top_k=7),
-                6: SamplingParams(temperature=1.3, top_p=0.75, seed=2 ** 31 - 1),
-                8: SamplingParams(temperature=0.9, top_k=3, top_p=0.5)}
-    sinks, results = {}, {}
+    work, prompts, fn_adapter = trace
+    sinks, runs = {}, {}
     for device in ("cuda", "cpu"):
         rt = ContinuousRuntime(cfg, _to(params, device),
                                ServingConfig(**scfg), device=device,
@@ -1924,17 +1959,110 @@ def parity_phase() -> Dict:
         sinks[device] = {}
         res, _ = replay_trace(rt, work, fn_adapter, prompts=prompts,
                               token_sink=sinks[device], sampling=sampling)
-        results[device] = {
+        runs[device] = {
             "launches": kernels.launch_counts(),
             "admitted": sorted(r.req_id for r in res.requests
                                if r.first_token >= 0),
             "stall_steps": rt.stats["stall_steps"],
-            "sampled_tokens": rt.stats["sampled_tokens"]}
-    if results["cuda"]["sampled_tokens"] != len(sampling) * 8:
+            "sampled_tokens": rt.stats["sampled_tokens"],
+            "reclaimed_blocks": rt.stats["reclaimed_blocks"]}
+    card = runs["cuda"]["launches"]
+    if min(card[k] for k in RUNTIME_KERNELS) <= 0 or \
+            card["flash_attention"] or card["decode_attention"] or \
+            max(runs["cpu"]["launches"].values()) != 0:
+        fail(f"{label} launches: card {card}, CPU "
+             f"{runs['cpu']['launches']}")
+    if runs["cuda"]["admitted"] != runs["cpu"]["admitted"]:
+        fail(f"{label}: admitted sets differ: {runs}")
+    if sinks["cuda"] != sinks["cpu"]:
+        diff = [k for k in sinks["cpu"]
+                if sinks["cuda"].get(k) != sinks["cpu"][k]]
+        fail(f"{label}: token streams differ for requests {diff}")
+    n = sum(len(v) for v in sinks["cpu"].values())
+    print(f"{label} runtime: {len(sinks['cpu'])} requests, {n} tokens "
+          f"({runs['cuda']['sampled_tokens']} sampled) equal on card and "
+          f"CPU; stall steps {runs['cuda']['stall_steps']}, reclaimed "
+          f"blocks {runs['cuda']['reclaimed_blocks']}; card launches {card}")
+    runs["cuda"]["requests"], runs["cuda"]["tokens"] = len(sinks["cpu"]), n
+    return runs
+
+
+def generate_on_both(label: str, cfg, params, T: int, new: int) -> Dict:
+    """``InferenceEngine.generate`` of 3 rows of T tokens, one adapter
+    each, ``new`` greedy tokens, on the card and on the CPU: equal tokens,
+    and on the card one flash prefill per layer and a decode step per
+    token (captured once, after one eager run: graphs.py)."""
+    from repro_torch import kernels
+    from repro_torch.core.engine import InferenceEngine
+    B = 3
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32))
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = InferenceEngine(cfg, _to(params, device), max_context=40,
+                              device=device)
+        kernels.reset_launches()
+        got, _ = eng.generate(toks.to(device), new,
+                              adapter_idx=torch.arange(
+                                  B, dtype=torch.int32, device=device))
+        out[device] = {"tokens": got.cpu().tolist(),
+                       "launches": kernels.launch_counts()}
+    L = cfg.num_layers
+    want = {"flash_attention": L, "decode_attention": L * new,
+            "sgmv": len(cfg.lora.targets) * L * (new + 1),
+            "paged_attention": 0, "paged_prefill": 0}
+    if out["cuda"]["launches"] != want or \
+            max(out["cpu"]["launches"].values()) != 0:
+        fail(f"{label} engine launches: card {out['cuda']['launches']} "
+             f"(expected {want}), CPU {out['cpu']['launches']}")
+    if out["cuda"]["tokens"] != out["cpu"]["tokens"]:
+        fail(f"{label} engine tokens differ: card {out['cuda']['tokens']}, "
+             f"CPU {out['cpu']['tokens']}")
+    print(f"{label} engine generate: {B} rows x {new} greedy tokens over "
+          f"{T}-token prompts (window {cfg.sliding_window}) equal on card "
+          f"and CPU; card launches {out['cuda']['launches']}")
+    return out["cuda"]
+
+
+def smoke_params(arch: str, seed: int):
+    """SMOKE config of ``arch`` in float32 with a 3-adapter rank-8 bank,
+    random from ``seed`` (LoRA B drawn N(0, 0.1)), on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import LoRAConfig
+    cfg = get_smoke(arch).with_(
+        dtype="float32", lora=LoRAConfig(rank=8, alpha=16.0,
+                                         num_adapters=3))
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return cfg, tf.init_params(cfg, gen, "cpu", lora_adapters=3,
+                               lora_b_scale=0.1)
+
+
+def parity_phase() -> Dict:
+    from repro_torch.core.sampling import SamplingParams, \
+        philox_uniform_torch
+
+    t0 = phase("phase 7: SMOKE float32, card (kernels) vs CPU (plain "
+               "versions): runtime replay, greedy and sampled; engine "
+               "generate; Llama, then Mixtral (MoE, window 16)")
+    scfg = dict(num_slots=4, block_size=8, num_blocks=24,
+                max_blocks_per_slot=6, prefill_chunk=16, decode_chunk=4)
+    cfg, params = smoke_params("llama2_7b", seed=1)
+    trace = shared_prefix_trace(9, 3, 16, 30, 8, cfg.vocab_size, seed=7)
+    # five sampled requests (temperature alone, top-k, top-p, both) take
+    # the sort/top-k/top-p/Philox path; the rest stay greedy
+    sampling = {1: SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                                  seed=5),
+                4: SamplingParams(temperature=1.0, seed=11),
+                5: SamplingParams(temperature=0.6, top_k=7),
+                6: SamplingParams(temperature=1.3, top_p=0.75, seed=2 ** 31 - 1),
+                8: SamplingParams(temperature=0.9, top_k=3, top_p=0.5)}
+    runs = replay_on_both("Llama SMOKE", cfg, params, scfg, trace, sampling)
+    if runs["cuda"]["sampled_tokens"] != len(sampling) * 8:
         fail(f"expected {len(sampling) * 8} sampled tokens, the card drew "
-             f"{results['cuda']['sampled_tokens']}")
+             f"{runs['cuda']['sampled_tokens']}")
     # the sampled rows' uniforms: counter 0 (prefill) .. 7, card vs CPU
-    from repro_torch.core.sampling import philox_uniform_torch
     seeds = torch.tensor([sp.resolve_seed(rid) for rid, sp in
                           sorted(sampling.items())], dtype=torch.int32)
     ctr = torch.arange(8, dtype=torch.int32)
@@ -1945,57 +2073,318 @@ def parity_phase() -> Dict:
         fail("Philox uniforms differ between the card and the CPU")
     print(f"Philox: {u_cpu.numel()} uniforms of the sampled rows equal bit "
           f"for bit on card and CPU")
-    runtime_kernels = ("sgmv", "paged_attention", "paged_prefill")
-    card = results["cuda"]["launches"]
-    if min(card[k] for k in runtime_kernels) <= 0 or \
-            card["flash_attention"] or card["decode_attention"] or \
-            max(results["cpu"]["launches"].values()) != 0:
-        fail(f"launches: card {results['cuda']['launches']}, CPU "
-             f"{results['cpu']['launches']}")
-    if results["cuda"]["admitted"] != results["cpu"]["admitted"]:
-        fail(f"admitted sets differ: {results}")
-    if sinks["cuda"] != sinks["cpu"]:
-        diff = [k for k in sinks["cpu"]
-                if sinks["cuda"].get(k) != sinks["cpu"][k]]
-        fail(f"token streams differ for requests {diff} (sampled: "
-             f"{sorted(sampling)})")
-    n = sum(len(v) for v in sinks["cpu"].values())
-    print(f"{len(sinks['cpu'])} requests, {n} tokens ("
-          f"{results['cuda']['sampled_tokens']} sampled) equal on card "
-          f"and CPU; stall steps {results['cuda']['stall_steps']}; card "
-          f"launches {results['cuda']['launches']}")
+    engine = generate_on_both("Llama SMOKE", cfg, params, T=24, new=8)
 
-    # the warm-function engine: 3 rows, one adapter each, 8 greedy tokens
-    B, T, new = 3, 24, 8
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (B, T)).astype(np.int32))
-    engine = {}
-    for device in ("cuda", "cpu"):
-        eng = InferenceEngine(cfg, _to(params, device), max_context=40,
-                              device=device)
-        kernels.reset_launches()
-        out, _ = eng.generate(toks.to(device), new,
-                              adapter_idx=torch.arange(
-                                  B, dtype=torch.int32, device=device))
-        engine[device] = {"tokens": out.cpu().tolist(),
-                          "launches": kernels.launch_counts()}
-    # the decode step is captured once, after one eager run (graphs.py)
-    L = cfg.num_layers
-    want = {"flash_attention": L, "decode_attention": L * new,
-            "sgmv": len(cfg.lora.targets) * L * (new + 1),
-            "paged_attention": 0, "paged_prefill": 0}
-    if engine["cuda"]["launches"] != want or \
-            max(engine["cpu"]["launches"].values()) != 0:
-        fail(f"engine launches: card {engine['cuda']['launches']} "
-             f"(expected {want}), CPU {engine['cpu']['launches']}")
-    if engine["cuda"]["tokens"] != engine["cpu"]["tokens"]:
-        fail(f"engine tokens differ: card {engine['cuda']['tokens']}, CPU "
-             f"{engine['cpu']['tokens']}")
-    print(f"engine generate: {B} rows x {new} greedy tokens equal on card "
-          f"and CPU; card launches {engine['cuda']['launches']}")
+    # Mixtral SMOKE: sparse MoE, a 16-token window; its replay's decode
+    # chunks reclaim blocks, and its prompts run past the window
+    cfg, params = smoke_params(MIXTRAL, seed=2)
+    moe = replay_on_both(
+        "Mixtral SMOKE", cfg, params, scfg,
+        shared_prefix_trace(9, 3, 16, 30, 12, cfg.vocab_size, seed=8))
+    if not 0 < moe["cuda"]["reclaimed_blocks"] == \
+            moe["cpu"]["reclaimed_blocks"]:
+        fail(f"Mixtral SMOKE reclaimed blocks: card "
+             f"{moe['cuda']['reclaimed_blocks']}, CPU "
+             f"{moe['cpu']['reclaimed_blocks']}")
+    moe["cuda"]["engine"] = generate_on_both("Mixtral SMOKE", cfg, params,
+                                             T=24, new=8)
     print(f"phase 7 ok ({time.perf_counter() - t0:.1f} s)")
-    return {"requests": len(sinks["cpu"]), "tokens": n, **results["cuda"],
-            "engine": engine["cuda"]}
+    return {**runs["cuda"], "engine": engine, "mixtral_smoke": moe["cuda"]}
+
+
+# -------------------------------------------------------------- 8. Mixtral
+def mixtral_trace(vocab: int, seed: int):
+    """MIXTRAL_REQUESTS greedy requests, two per adapter, each adapter with
+    its own SYSTEM_PROMPT-token system prompt, prompts of MIXTRAL_PROMPT
+    tokens, arrivals 20 ms apart."""
+    rng = np.random.default_rng(seed)
+    sys_prompt = {f: rng.integers(0, vocab, SYSTEM_PROMPT).astype(np.int32)
+                  for f in range(ADAPTERS)}
+    work, prompts = [], {}
+    for rid in range(MIXTRAL_REQUESTS):
+        f = rid % ADAPTERS
+        n = int(rng.integers(MIXTRAL_PROMPT[0], MIXTRAL_PROMPT[1] + 1))
+        prompts[rid] = np.concatenate([
+            sys_prompt[f], rng.integers(0, vocab, n - SYSTEM_PROMPT
+                                        ).astype(np.int32)])
+        work.append(dict(req_id=rid, fn_id=f"fn{f}", arrival=0.02 * rid,
+                         prompt_len=n, output_len=MIXTRAL_OUTPUT,
+                         slo_ttft=1e9))
+    return work, prompts
+
+
+def expected_reclaimed(prompt_len: int, output: int, window: int,
+                       bs: int, chunk: int) -> int:
+    """Blocks a request reclaims on an ample pool.  Reclamation runs after
+    every accepted decode chunk that does not finish the request: with
+    ``chunk`` tokens a chunk and ``output - 1`` tokens to decode after
+    the prefill's, the last such chunk leaves the slot at position
+    ``prompt_len + chunk * (ceil((output - 1) / chunk) - 1)``, and every
+    logical block below ``(pos - window + 1) // bs`` is released then."""
+    pos = prompt_len + chunk * (-(-(output - 1) // chunk) - 1)
+    return max((pos - window + 1) // bs, 0)
+
+
+def check_chrome_trace(path: Path) -> int:
+    """Parse a written Chrome trace; its timestamps must be monotone on
+    every track.  Returns the number of events."""
+    events = json.loads(path.read_text())["traceEvents"]
+    last: Dict[int, float] = {}
+    for e in events:
+        if e["ph"] == "M":
+            continue
+        if e["ts"] < last.get(e["tid"], -1.0) or e.get("dur", 0) < 0:
+            fail(f"{path}: timestamps not monotone on track {e['tid']}")
+        last[e["tid"]] = e["ts"]
+    return len(events)
+
+
+def moe_alone(params, cfg, rows: int) -> Dict:
+    """Device time of every layer's MoE MLP alone on (1, rows, d_model)
+    random activations, eager, under the profiler: the share of a
+    dispatch that the "moe" kind stands for (its products show up as
+    "matmul" and its elementwise ops as "other" in a dispatch)."""
+    from repro_torch.models.moe import apply_moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    h = _randn(gen, 1, rows, cfg.d_model, dtype=cfg.torch_dtype)
+
+    def run() -> None:
+        for lp in params["layers"]:
+            apply_moe(lp["moe"], cfg, h)
+
+    run()
+    return profiled(run)
+
+
+def mixtral_bounds(cfg, params, scfg, prompt_len: int) -> Dict:
+    """Least times of one prefill dispatch and one decode step of the
+    breakdown on this card: weights read once (the embedding table
+    aside: only its rows are gathered), a decode step's windowed K/V, and
+    the operations of the backbone products (every expert over every row,
+    as the port computes them, and only the chosen experts' share) and of
+    attention, averaged over the ``prompt_len``-token admissions."""
+    D, F, E, k = cfg.d_model, cfg.d_ff, cfg.num_experts, \
+        cfg.experts_per_token
+    H, K, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, \
+        cfg.num_layers
+    w = cfg.sliding_window
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params)) \
+        - params["embed"].numel() * params["embed"].element_size()
+    attn_w = D * H * hd + 2 * D * K * hd + H * hd * D
+    per_token = {"every": L * (attn_w + E * 3 * D * F + D * E),
+                 "active": L * (attn_w + k * 3 * D * F + D * E)}
+    # decode: 8 rows one token each over min(pos + 1, window) keys
+    B = scfg.num_slots
+    keys = min(prompt_len + 1, w)
+    kv = L * B * keys * K * hd * 2 * 2
+    dec_ops = 2 * B * per_token["every"] + L * 4 * hd * H * B * keys
+    # prefill: prefill_rows x prefill_chunk tokens a dispatch; pairs of
+    # the whole admission spread over its dispatches
+    rows = scfg.prefill_rows * scfg.prefill_chunk
+    n_disp = -(-prompt_len // scfg.prefill_chunk)
+    pairs = sum(min(p + 1, w) for p in range(prompt_len)) / n_disp \
+        * scfg.prefill_rows
+    attn_ops = L * 4 * hd * H * pairs
+    out = {}
+    for name, nbytes, ops, active in (
+            ("decode_step", weights + kv, dec_ops,
+             2 * B * per_token["active"] + L * 4 * hd * H * B * keys),
+            ("prefill_dispatch", weights, 2 * rows * per_token["every"]
+             + attn_ops, 2 * rows * per_token["active"] + attn_ops)):
+        b = bound(nbytes, ops, torch.bfloat16)
+        b["active_expert_ops"] = int(active)
+        b["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        b["ops_ms"] = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        out[name] = b
+    return out
+
+
+def mixtral_phase(device: Dict) -> Dict:
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.serving import (AdapterRegistry, CompileGuard,
+                                     ContinuousRuntime, ServingConfig,
+                                     Telemetry, replay_trace,
+                                     terminal_state, write_metrics_json)
+
+    t0 = phase(f"phase 8: serve Mixtral-8x22B at full width "
+               f"({MIXTRAL_LAYERS} of 56 layers) on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory still allocated from earlier phases: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(MIXTRAL)
+    cfg = full.with_(num_layers=MIXTRAL_LAYERS, lora=LoRAConfig(
+        rank=16, alpha=32.0, num_adapters=ADAPTERS))
+    window, names = cfg.sliding_window, [f"fn{i}" for i in range(ADAPTERS)]
+    print(f"model: {cfg.name}, {cfg.num_layers} of {full.num_layers} layers "
+          f"(depth cut), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} kv heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, window "
+          f"{window}, vocab {cfg.vocab_size}, {cfg.dtype}; LoRA rank "
+          f"{cfg.lora.rank} on {'/'.join(cfg.lora.targets)}, bank of "
+          f"{ADAPTERS}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t_init = time.perf_counter()
+    params = tf.init_params(cfg, gen, "cuda", lora_adapters=ADAPTERS)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"weights: {n_bytes / 1e9:.2f} GB random from seed 0 in "
+          f"{time.perf_counter() - t_init:.1f} s")
+
+    scfg = ServingConfig(**MIXTRAL_SERVE)
+    tele = Telemetry()
+    rt = ContinuousRuntime(cfg, params, scfg, telemetry=tele)
+    reg = AdapterRegistry(rt, names=names)
+    work, prompts = mixtral_trace(cfg.vocab_size, seed=0)
+    fn_adapter = {n: n for n in names}
+    print(f"serving: {MIXTRAL_SERVE}; trace: {len(work)} greedy requests, "
+          f"2 per adapter, prompts {min(w['prompt_len'] for w in work)}-"
+          f"{max(w['prompt_len'] for w in work)} tokens ({SYSTEM_PROMPT}-"
+          f"token system prompt per adapter), {MIXTRAL_OUTPUT} output "
+          f"tokens, arrivals 20 ms apart")
+    sink: Dict[int, List[int]] = {}
+    with FiniteLogits() as finite, CompileGuard(
+            {"decode": 1, "prefill": 1}, runtime=rt) as guard:
+        kernels.reset_launches()
+        t_run = time.perf_counter()
+        res, _ = replay_trace(rt, work, fn_adapter, prompts=prompts,
+                              prefill_group=scfg.prefill_rows,
+                              token_sink=sink, telemetry=tele)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report = guard.report()
+    print(f"CompileGuard: {json.dumps(report)}")
+    if report["decode_compiles"] != 1 or report["prefill_compiles"] != 1:
+        fail(f"Mixtral dispatches captured more than once: {report}")
+    states = [terminal_state(r) for r in res.requests]
+    if states != ["finished"] * len(work):
+        fail(f"not every Mixtral request finished: {states}")
+    if any(len(sink[w["req_id"]]) != MIXTRAL_OUTPUT for w in work):
+        fail("a Mixtral request emitted the wrong number of tokens")
+    books = rt.check_invariants(res.requests)
+    if books["pool"]["live"] != 0 or books["slots_active"] != 0:
+        fail(f"blocks or slots still held after the drain: {books}")
+    if not finite.ok():
+        fail("non-finite logits during the Mixtral replay")
+    for layer in rt.cache:
+        for pool in layer.values():
+            if not bool(torch.isfinite(pool).all()):
+                fail("non-finite entries in a Mixtral KV pool")
+
+    layers, sites = cfg.num_layers, len(cfg.lora.targets)
+    prefills = rt.stats["prefill_chunks"] + 2 + 1   # + warmup, capture
+    steps = (rt.stats["decode_chunks"] + 2 + 1) * scfg.decode_chunk
+    expected = {"sgmv": sites * layers * (prefills + steps),
+                "paged_attention": layers * steps,
+                "paged_prefill": layers * prefills,
+                "flash_attention": 0, "decode_attention": 0}
+    print(f"launches {launches}, expected {expected} ({prefills} prefill "
+          f"dispatches, {steps} decode steps incl. warmup and the eager run "
+          f"before each capture, {layers} layers, {sites} LoRA sites)")
+    if launches != expected:
+        fail("Mixtral launch counts differ from layers x dispatches x sites")
+
+    # the reclamation rule, request by request
+    per_req = {w["req_id"]: expected_reclaimed(
+        w["prompt_len"], MIXTRAL_OUTPUT, window, scfg.block_size,
+        scfg.decode_chunk) for w in work}
+    last_pos = {w["req_id"]: w["prompt_len"] + scfg.decode_chunk * (
+        -(-(MIXTRAL_OUTPUT - 1) // scfg.decode_chunk) - 1) for w in work}
+    for rid, n in per_req.items():
+        print(f"req {rid}: prompt {work[rid]['prompt_len']}, last "
+              f"reclaiming chunk at position {last_pos[rid]}: "
+              f"({last_pos[rid]} - {window} + 1) // {scfg.block_size} = {n} "
+              f"blocks")
+    want_reclaimed = sum(per_req.values())
+    got_reclaimed = rt.stats["reclaimed_blocks"]
+    print(f"reclaimed blocks: {got_reclaimed}, rule {want_reclaimed}")
+    if got_reclaimed <= 0 or got_reclaimed != want_reclaimed:
+        fail(f"reclaimed {got_reclaimed} blocks, the rule gives "
+             f"{want_reclaimed}")
+    high = rt.pool.high_water
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_path = out_dir / "mixtral_trace.json"
+    metrics_path = out_dir / "mixtral_metrics.json"
+    tele.write_chrome_trace(str(trace_path))
+    write_metrics_json(rt.metrics_snapshot(), str(metrics_path))
+    n_events = check_chrome_trace(trace_path)
+    metrics = json.loads(metrics_path.read_text())
+    if metrics["counters"]["reclaimed_blocks"] != got_reclaimed:
+        fail(f"{metrics_path}: reclaimed_blocks "
+             f"{metrics['counters']['reclaimed_blocks']} != {got_reclaimed}")
+    print(f"telemetry: {trace_path.relative_to(ROOT)} ({n_events} events, "
+          f"monotone on every track), {metrics_path.relative_to(ROOT)} "
+          f"({len(metrics['counters'])} counters, host bubble fraction "
+          f"{metrics['host_bubble_fraction']:.3f})")
+
+    m = rt.metrics.histogram
+    ttft, tpot = m("ttft_s").summary(), m("tpot_s").summary()
+    print(f"TTFT p50 {ttft['p50']:.3f} s, TPOT p50 {tpot['p50'] * 1e3:.2f} "
+          f"ms (replay clock), replay wall {wall:.1f} s, peak memory "
+          f"{peak:.2f} GB allocated on {_smi(device)}; pool high water "
+          f"{high} blocks")
+
+    # the same trace without reclamation: equal tokens, a higher peak
+    rt2 = ContinuousRuntime(cfg, params, ServingConfig(
+        **MIXTRAL_SERVE, window_reclamation=False))
+    AdapterRegistry(rt2, names=names)
+    keep_sink: Dict[int, List[int]] = {}
+    replay_trace(rt2, work, fn_adapter, prompts=prompts,
+                 prefill_group=scfg.prefill_rows, token_sink=keep_sink)
+    high_keep = rt2.pool.high_water
+    if rt2.stats["reclaimed_blocks"] != 0:
+        fail("the runtime without reclamation reclaimed blocks")
+    if keep_sink != sink:
+        fail(f"tokens differ from the runtime without reclamation for "
+             f"{[k for k in sink if sink[k] != keep_sink.get(k)]}")
+    if not high < high_keep:
+        fail(f"peak blocks in use {high} with reclamation, {high_keep} "
+             f"without: not lower")
+    print(f"without reclamation: {len(keep_sink)} requests' tokens equal; "
+          f"peak blocks in use {high} with reclamation against {high_keep} "
+          f"without")
+    del rt2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bounds = mixtral_bounds(cfg, params, scfg, MIXTRAL_BREAKDOWN_PROMPT)
+    res_bd = breakdown(rt, cfg, device, prompt_len=MIXTRAL_BREAKDOWN_PROMPT)
+    moe = {"decode_step": moe_alone(params, cfg, scfg.num_slots),
+           "prefill_dispatch": moe_alone(
+               params, cfg, scfg.prefill_rows * scfg.prefill_chunk)}
+    for name, b in bounds.items():
+        print(f"bound, {name}: {b['bound_ms']:.2f} ms ({b['bound_by']}: "
+              f"{b['bytes'] / 1e9:.1f} GB -> {b['bytes_ms']:.2f} ms, "
+              f"{b['ops'] / 1e12:.2f} TFLOP every-expert -> "
+              f"{b['ops_ms']:.2f} ms; {b['active_expert_ops'] / 1e12:.2f} "
+              f"TFLOP with only the chosen experts); moe alone "
+              f"{moe[name]['device_busy_ms']:.2f} ms device "
+              f"({json.dumps(moe[name]['device_ms_by_kind'])})")
+    if not finite.ok():
+        fail("non-finite logits during the Mixtral breakdown")
+    del rt, reg, guard, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"layers": layers, "requests": len(work), "replay_wall_s": wall,
+           "ttft_p50_s": ttft["p50"], "tpot_p50_s": tpot["p50"],
+           "peak_memory_gb": peak, "weights_gb": n_bytes / 1e9,
+           "launches": launches, "compile_guard": report,
+           "reclaimed_blocks": got_reclaimed, "reclaimed_rule": per_req,
+           "pool_high_water": high, "pool_high_water_no_reclaim": high_keep,
+           "trace_events": n_events, "breakdown": res_bd, "bounds": bounds,
+           "moe_alone": moe, "phase_s": time.perf_counter() - t0}
+    print(f"phase 8 ok ({out['phase_s']:.1f} s)")
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -2014,6 +2403,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     del params
     torch.cuda.empty_cache()
     parity = parity_phase()
+    mixtral = mixtral_phase(device)
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2033,7 +2423,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.report.write_text(json.dumps(
             {"device": device, "build": build, "kernels": kern["cases"],
              "serve": serve, "launcher": launch, "overload": overload,
-             "parity": parity,
+             "parity": parity, "mixtral": mixtral,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -1,7 +1,8 @@
 """Architecture config registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-Port of ``repro/configs``.  Only the paper's primary serving backbone,
-Llama-2-7B, is ported so far; the other configs follow with the model
+Port of ``repro/configs``.  Ported so far: the paper's primary serving
+backbone, Llama-2-7B, and the two sparse-MoE configs (Mixtral-8x22B, with
+its sliding window, and Grok-1); the other configs follow with the model
 families they need.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["llama2_7b"]
+ARCH_IDS: List[str] = ["mixtral_8x22b", "grok_1_314b", "llama2_7b"]
 
 
 def _norm(arch: str) -> str:

@@ -13,7 +13,8 @@ configs.
 Paged pools: the per-layer cache is a pool of fixed-size blocks shared by every decode
 slot.  A host-side block table (B, max_blocks) int32 maps each slot's
 logical block j (token positions [j*bs, (j+1)*bs)) to a physical block
-id; -1 marks unallocated entries.  Physical block 0 is reserved as a
+id; -1 marks unallocated entries and blocks reclaimed after they slid out of
+a sliding window.  Physical block 0 is reserved as a
 *garbage* block: writes from inactive/stalled slots (table entry -1) are
 clipped onto it and never read back, which keeps every decode step
 branch-free and fixed-shape.
@@ -95,20 +96,12 @@ def paging_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     The reference also serves hybrid REC/SSD stacks through per-slot state
     rows; the port does not carry those rows yet, so such stacks are
     refused here with that reason, as are encoder/cross-attention models
-    (refused by the reference too).  Sliding-window configs are refused
-    as well: the reference frees the blocks that slide out of the window
-    after every decode chunk, and without that reclamation the port would
-    hold more blocks than the reference and admit, stall and evict
-    differently on a tight pool."""
+    (refused by the reference too)."""
     if cfg.cross_attention or cfg.encoder_layers:
         return "paged serving does not support encoder/cross-attention models"
     if has_slot_state(cfg):
         return ("REC/SSD slot-state serving is not ported to the PyTorch "
                 "runtime yet")
-    if cfg.sliding_window is not None:
-        return (f"sliding-window configs (window {cfg.sliding_window}) need "
-                f"window reclamation, which is not ported to the PyTorch "
-                f"runtime yet (ROADMAP item 12)")
     return None
 
 

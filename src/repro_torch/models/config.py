@@ -2,8 +2,9 @@
 
 The same frozen dataclass as the reference, field for field, so a config
 reads the same in both packages.  ``jnp_dtype`` becomes ``torch_dtype``.
-Only the attention-only dense stack (Llama-2) is served by the port so
-far; the other families' fields are kept so configs stay comparable.
+The port serves attention-only stacks, dense (Llama-2) and sparse MoE
+(Mixtral, Grok); the other families' fields are kept so configs stay
+comparable.
 """
 from __future__ import annotations
 
@@ -136,13 +137,21 @@ class ModelConfig:
         attn = D * H * hd + 2 * D * K * hd + H * hd * D
         if self.qkv_bias:
             attn += (H + 2 * K) * hd
-        mlp = 3 * D * F if self.mlp_for == SWIGLU else 2 * D * F
+        if self.mlp_for == MOE:
+            mlp = self.num_experts * (2 * D * F + F * D) + D * self.num_experts
+        elif self.mlp_for == SWIGLU:
+            mlp = 3 * D * F
+        else:
+            mlp = 2 * D * F
         total = (attn + mlp) * self.num_layers + V * D + D
         if not self.tie_embeddings:
             total += V * D
         return int(total)
 
     def active_param_count(self) -> int:
-        """Params touched per token (equal to ``param_count`` without
-        experts, the only case the port serves)."""
-        return self.param_count()
+        """Params touched per token (MoE: only routed experts)."""
+        if self.mlp_for != MOE:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        dead = (self.num_experts - self.experts_per_token) * 3 * D * F
+        return int(self.param_count() - dead * self.num_layers)

@@ -26,6 +26,13 @@ from repro_torch.models.config import SWIGLU, ModelConfig
 Params = Dict[str, Any]
 
 
+def _normal(gen: torch.Generator, shape, dtype, scale: float,
+            device) -> torch.Tensor:
+    """N(0, scale^2) drawn in float32 from ``gen``, cast to ``dtype``."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (t * scale).to(dtype)
+
+
 # ------------------------------------------------------------------- dense/LoRA
 def lora_delta(x: torch.Tensor, lora: Params, adapter_idx: torch.Tensor, *,
                scaling: float = 1.0) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Causal LM for attention-only stacks (port of the serving subset of
-``repro/models/transformer.py``), over ring caches (the warm-function
-engine) or paged pools (the serving runtime).
+"""Causal LM for attention-only stacks with a SwiGLU or MoE MLP (port of
+the serving subset of ``repro/models/transformer.py``), over ring caches
+(the warm-function engine) or paged pools (the serving runtime).
 
 A plain loop over layers replaces the reference's period ``lax.scan``;
 parameters are a dict with one entry per layer in ``params["layers"]``
@@ -26,32 +26,29 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.config import ATTN, SWIGLU, ModelConfig
-from repro_torch.models.layers import apply_attention, apply_mlp, apply_norm
+from repro_torch.models.config import ATTN, MOE, SWIGLU, ModelConfig
+from repro_torch.models.layers import (_normal, apply_attention, apply_mlp,
+                                       apply_norm)
+from repro_torch.models.moe import apply_moe, moe_init
 
 Params = Dict[str, Any]
 
 
 # ----------------------------------------------------------------------- init
-def _normal(gen: torch.Generator, shape, dtype, scale: float,
-            device) -> torch.Tensor:
-    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (t * scale).to(dtype)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", *, lora_adapters: int = 1,
                 lora_b_scale: float = 0.02) -> Params:
     """Seeded random parameters with the reference's init scales (dense
     N(0, 1/d_in), embeddings and LM head N(0, 0.02), norms at 1, LoRA A
-    N(0, 1/d_in)) and a stacked bank of ``lora_adapters`` adapters on the
-    config's targets.  Unlike the reference, whose LoRA B starts at zero,
-    B is drawn N(0, ``lora_b_scale``) so every adapter's delta is real.
+    N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo`` N(0, 1/F))
+    and a stacked bank of ``lora_adapters`` adapters on the config's
+    targets.  Unlike the reference, whose LoRA B starts at zero, B is drawn
+    N(0, ``lora_b_scale``) so every adapter's delta is real.
     ``generator`` must live on ``device``."""
     if any(kind != ATTN for kind in cfg.layer_kinds) or \
-            cfg.mlp_for != SWIGLU:
-        raise ValueError(f"{cfg.name}: only attention + SwiGLU stacks are "
-                         f"ported")
+            cfg.mlp_for not in (SWIGLU, MOE):
+        raise ValueError(f"{cfg.name}: only attention stacks with a SwiGLU "
+                         f"or MoE MLP are ported")
     dt = cfg.torch_dtype
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, K, hd, r = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, \
@@ -78,8 +75,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                     "b": _normal(generator, (N, r, shapes[t][1]), dt,
                                  lora_b_scale, device)}
                 for t in cfg.lora.targets if t in shapes}
-        layers.append({"norm1": ones(D), "attn": attn, "norm2": ones(D),
-                       "mlp": {"wi": w(D, F), "wg": w(D, F), "wo": w(F, D)}})
+        layer = {"norm1": ones(D), "attn": attn, "norm2": ones(D)}
+        if cfg.mlp_for == MOE:
+            layer["moe"] = moe_init(generator, cfg, dt, device)
+        else:
+            layer["mlp"] = {"wi": w(D, F), "wg": w(D, F), "wo": w(F, D)}
+        layers.append(layer)
     p: Params = {
         "embed": _normal(generator, (V, D), dt, 0.02, device),
         "layers": layers,
@@ -121,7 +122,10 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             block_tbl=block_tbl, adapter_idx=adapter_idx,
             chunk_ids=chunk_ids, window=cfg.sliding_window)
         h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
-        x = x + apply_mlp(lp["mlp"], cfg, h2)
+        if cfg.mlp_for == MOE:
+            x = x + apply_moe(lp["moe"], cfg, h2)
+        else:
+            x = x + apply_mlp(lp["mlp"], cfg, h2)
     return x
 
 

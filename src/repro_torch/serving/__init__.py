@@ -5,7 +5,8 @@ Layout (each module the counterpart of ``repro/serving/<name>.py``):
   * ``prefix``    — hash-trie of full prompt blocks (prefix sharing).
   * ``slots``     — decode-slot table + SLO admission scheduler.
   * ``runtime``   — chunked paged prefill / decode loop over the block
-                    pools, running through the CUDA kernels on the card.
+                    pools, running through the CUDA kernels on the card;
+                    sliding-window reclamation.
   * ``graphs``    — each fixed-shape dispatch captured once as a CUDA
                     graph (the port's form of ``jax.jit``).
   * ``compile_guard`` — capture budgets over a block of serving code.
@@ -13,7 +14,8 @@ Layout (each module the counterpart of ``repro/serving/<name>.py``):
   * ``faults``    — deterministic fault plans (artifact faults, pool
                     squeezes, dispatch slowdowns) and the retry primitive.
   * ``replay``    — feeds arrival traces through the runtime.
-  * ``metrics`` / ``telemetry`` — counters, gauges, histograms, spans.
+  * ``metrics`` / ``telemetry`` — counters, gauges, histograms, spans;
+                    the Chrome-trace and metrics-JSON exporters.
 """
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.serving.adapters import AdapterRegistry
@@ -32,7 +34,7 @@ from repro_torch.serving.runtime import (AdapterConfig, ContinuousRuntime,
                                          RobustConfig, ServeRequest,
                                          ServingConfig, terminal_state)
 from repro_torch.serving.slots import AdmissionScheduler, SlotTable
-from repro_torch.serving.telemetry import Telemetry
+from repro_torch.serving.telemetry import Telemetry, write_metrics_json
 
 __all__ = [
     "AdapterConfig", "AdapterRegistry", "AdmissionScheduler",
@@ -43,4 +45,5 @@ __all__ = [
     "RobustConfig", "SamplingParams", "ServeRequest", "ServingConfig",
     "SlotTable", "Telemetry", "blocks_for_tokens", "replay_requests",
     "replay_trace", "retry_with_backoff", "terminal_state",
+    "write_metrics_json",
 ]

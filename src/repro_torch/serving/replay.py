@@ -194,7 +194,9 @@ def replay_trace(runtime: ContinuousRuntime, workload: Sequence[Dict],
                         f"slot{st.sid}" if st.sid >= 0 else tm.TRACK_QUEUE,
                         t_done, req_id=st.req.req_id, tokens=st.produced)
         log("finish", st.req.req_id, st.sid,
-            f"{st.produced} tokens, {held} blocks released")
+            f"{st.produced} tokens, {held} blocks released"
+            + (f", {st.reclaimed} reclaimed mid-flight"
+               if st.reclaimed else ""))
 
     while ai < len(arrivals) or sched.pending or runtime.slots.num_active \
             or retryq:

@@ -46,10 +46,19 @@ Every measurement uses the injectable ``timer`` with the reference's exact
 sequence of timer readings, so a replay under a deterministic fake clock
 takes the same scheduling decisions as the reference's.
 
+Sliding-window reclamation (``ServingConfig.window_reclamation``, as the
+reference's): after each accepted decode chunk, blocks whose whole
+[j*bs, (j+1)*bs) token range slid out of the window are released back to
+the pool and the slot's table entry set to -1.  Every decode and prefill
+kernel masks both -1 entries and positions <= pos - window, so those keys
+are never read again, and the -1 entries are staged into the captured
+decode graph as they are.  The per-slot live working set shrinks to
+O(window); the block table still caps the total sequence length.
+
 Adapters are registry names (``serving.adapters.AdapterRegistry``) or raw
-bank slots.  Not ported yet (see ROADMAP.md): sliding-window reclamation
-(windowed configs are refused), REC/SSD slot state, and checkpoint
-artifacts (so a ``FaultPlan``'s checkpoint faults have no loader to reach).
+bank slots.  Not ported yet (see ROADMAP.md): REC/SSD slot state, and
+checkpoint artifacts (so a ``FaultPlan``'s checkpoint faults have no
+loader to reach).
 """
 from __future__ import annotations
 
@@ -132,6 +141,8 @@ class ServingConfig:
     max_blocks_per_slot: int = 8
     prefix_sharing: bool = True      # map full prompt blocks shared with
     #   earlier same-adapter requests (refcounted) and skip their compute
+    window_reclamation: bool = True  # sliding-window configs: release
+    #   blocks that slid fully out of the window after each decode chunk
     prefill: PrefillConfig = PrefillConfig()
     decode: DecodeConfig = DecodeConfig()
     adapters: AdapterConfig = AdapterConfig()
@@ -156,6 +167,7 @@ class ServingConfig:
     def __init__(self, num_slots: int = 8, block_size: int = 16,
                  num_blocks: int = 64, max_blocks_per_slot: int = 8,
                  prefix_sharing: bool = True,
+                 window_reclamation: bool = True,
                  prefill: Optional[PrefillConfig] = None,
                  decode: Optional[DecodeConfig] = None,
                  adapters: Optional[AdapterConfig] = None,
@@ -180,6 +192,7 @@ class ServingConfig:
                           ("num_blocks", num_blocks),
                           ("max_blocks_per_slot", max_blocks_per_slot),
                           ("prefix_sharing", prefix_sharing),
+                          ("window_reclamation", window_reclamation),
                           ("prefill", groups["prefill"]),
                           ("decode", groups["decode"]),
                           ("adapters", groups["adapters"]),
@@ -340,6 +353,7 @@ class ContinuousRuntime:
              "adapter name not in the registry / bank slot out of range "
              "(the decode path would compute a zero delta, but serving an "
              "unloaded adapter silently is a correctness bug)"),
+            ("reclaimed_blocks", "blocks returned mid-flight (window)"),
             ("admit_syncs", "deliberate device reads during admission"),
             # terminal-state + preemption counters: every request ends in
             # exactly ONE of finished / rejected_* / aborted / abandoned —
@@ -833,13 +847,19 @@ class ContinuousRuntime:
         and pays only the tail.
 
         A block is completed when every position in its [j*bs, (j+1)*bs)
-        range was written (j < pos // bs).  Token content comes from the
-        slot's own record: prompt_tokens for positions [0, L), history for
-        [L, pos).  Returns the number of newly indexed blocks."""
+        range was written (j < pos // bs); the chain truncates at the
+        first window-reclaimed entry (-1) because trie chains must be
+        contiguous from block 0.  Token content comes from the slot's own
+        record: prompt_tokens for positions [0, L), history for [L, pos).
+        Returns the number of newly indexed blocks."""
         if self.prefix is None or st.prompt_tokens is None:
             return 0
         bs = self.scfg.block_size
         n_full = min(st.pos // bs, len(st.blocks))
+        for j in range(n_full):
+            if st.blocks[j] < 0:
+                n_full = j
+                break
         if n_full <= 0:
             return 0
         stream = [int(t) for t in st.prompt_tokens]
@@ -1057,16 +1077,39 @@ class ContinuousRuntime:
                 # RNG counter == tokens generated so far: a requeued
                 # request restarts at produced = 1, so its draws repeat
                 self.slots.rng_counter[s.sid] = s.produced
+                self._reclaim_window(s)
         self._sample_gauges()
         return DecodeResult(emitted, finished, aborted, stalled, dt,
                             preempted=preempted)
+
+    def _reclaim_window(self, s: SlotState) -> None:
+        """Release blocks that slid fully out of the sliding window.
+
+        Every future query of this slot sits at position >= s.pos, and the
+        attention kernels mask keys at t <= pos - window (and -1 table
+        entries), so a block whose whole [j*bs, (j+1)*bs) range is
+        <= s.pos - window can never be read (or written: writes land at
+        pos // bs >= the first live block) again.  The release is a
+        refcount drop — a prefix-shared prompt block outlives this slot's
+        window if other requests still map it, and a registered one parks
+        in the cached LRU, still matchable by future admits."""
+        w = self.cfg.sliding_window
+        if w is None or not self.scfg.window_reclamation:
+            return
+        dead = (s.pos - w + 1) // self.scfg.block_size
+        if dead > s.reclaimed:
+            freed = self.slots.reclaim(s.sid, dead)
+            if freed:
+                self.pool.free(freed)
+                self.stats["reclaimed_blocks"] += len(freed)
 
     # -------------------------------------------------------------- meta
     def check_invariants(self, requests: Optional[Sequence[Request]] = None,
                          *, raise_on_error: bool = True) -> Dict[str, Any]:
         """Audit the books, whichever way each slot died (finish, abort,
-        preempt, force-evict): every block a bound slot maps is live with a
-        refcount covering its holders and not parked in the cached LRU;
+        preempt, force-evict): every block a bound slot maps (window-
+        reclaimed -1 entries skipped) is live with a refcount covering its
+        holders and not parked in the cached LRU;
         adapter pin counts equal the live holders per bank slot; with
         ``requests``, every request ends in exactly one terminal class
         (per-request breakdown flags, so several replays may share one
@@ -1191,3 +1234,19 @@ class ContinuousRuntime:
         """Share of the wall interval between the first and last dispatch
         NOT covered by device work."""
         return host_bubble_fraction(self._dispatch_windows)
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """One flat JSON-able dict of everything the runtime knows:
+        counters (the ``stats`` keys), gauge summaries, latency histograms,
+        the capture-count gauges and the host-bubble fraction; with a
+        recorder attached, its span and instant counts.  Exporters
+        (``telemetry.write_metrics_json``) call this once after a
+        replay."""
+        self._sample_gauges()
+        snap = self.metrics.snapshot()
+        snap["host_bubble_fraction"] = self.host_bubble_fraction()
+        snap["dispatches"] = len(self._dispatch_windows)
+        if self.telemetry is not None:
+            snap["spans"] = len(self.telemetry.spans)
+            snap["instant_events"] = len(self.telemetry.instants)
+        return snap

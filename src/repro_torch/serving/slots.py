@@ -32,10 +32,13 @@ class SlotState:
     prompt_len: int
     budget: int                  # max output tokens (incl. the prefill token)
     pos: int                     # next KV write position (absolute)
-    blocks: List[int]            # physical block ids, logical order
+    blocks: List[int]            # physical block ids, logical order; -1 =
+    #   reclaimed (slid fully out of the sliding window, returned to pool)
     last_token: int              # last accepted token (stall replays it)
     produced: int = 1            # tokens emitted so far (prefill emits one)
     stalled: bool = False
+    reclaimed: int = 0           # logical blocks [0, reclaimed) returned to
+    #   the pool by sliding-window reclamation
     shared: int = 0              # leading blocks mapped from the prefix
     #   cache at admit (refcount bumps, not fresh allocations)
     prompt_tokens: Optional[np.ndarray] = None  # the admitted prompt ids —
@@ -111,8 +114,27 @@ class SlotTable:
         self.block_tbl[sid, len(s.blocks)] = block_id
         s.blocks.append(block_id)
 
+    def reclaim(self, sid: int, upto: int) -> List[int]:
+        """Drop logical blocks [0, upto) that slid fully out of the sliding
+        window: table entries become -1 (the decode mask already never reads
+        them) and the physical ids are returned for the pool to release.
+        Monotonic and idempotent — already-reclaimed entries are skipped."""
+        s = self.states[sid]
+        assert s is not None
+        upto = min(upto, len(s.blocks))
+        freed: List[int] = []
+        for j in range(s.reclaimed, upto):
+            b = s.blocks[j]
+            if b >= 0:
+                freed.append(b)
+                s.blocks[j] = -1
+                self.block_tbl[sid, j] = -1
+        s.reclaimed = max(s.reclaimed, upto)
+        return freed
+
     def release(self, sid: int) -> List[int]:
-        """Unbind a slot; returns its blocks for the pool to release."""
+        """Unbind a slot; returns its still-held blocks for the pool to
+        release (reclaimed -1 placeholders were already returned)."""
         s = self.states[sid]
         assert s is not None
         self.states[sid] = None
@@ -125,7 +147,7 @@ class SlotTable:
         self.top_p[sid] = 1.0
         self.seed[sid] = 0
         self.rng_counter[sid] = 0
-        return s.blocks
+        return [b for b in s.blocks if b >= 0]
 
 
 class AdmissionScheduler:

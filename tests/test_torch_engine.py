@@ -3,8 +3,9 @@
 with the reference's own parameters carried over by the weight bridge.
 
 Configs: the SMOKE Llama stack (G = 1), a GQA stack (4 query heads over
-2 kv heads, as ``tests/test_lora_core.py::CFG`` has G > 1) and SMOKE Llama
-with a sliding window.  LoRA B is drawn nonzero so every adapter's delta
+2 kv heads, as ``tests/test_lora_core.py::CFG`` has G > 1), SMOKE Llama
+with a sliding window, and the MoE SMOKE stacks of Mixtral (16-token
+window) and Grok.  LoRA B is drawn nonzero so every adapter's delta
 is real.
 
 Tolerances, float32: logits within atol = rtol = 1e-4 (layers of float32
@@ -45,6 +46,11 @@ CONFIGS = {
     "llama-window6": (
         jax_get_smoke("llama2_7b").with_(dtype="float32", sliding_window=6),
         get_smoke("llama2_7b").with_(dtype="float32", sliding_window=6)),
+    # the MoE stacks (Mixtral with its 16-token window)
+    "mixtral": (jax_get_smoke("mixtral_8x22b").with_(dtype="float32"),
+                get_smoke("mixtral_8x22b").with_(dtype="float32")),
+    "grok": (jax_get_smoke("grok_1_314b").with_(dtype="float32"),
+             get_smoke("grok_1_314b").with_(dtype="float32")),
 }
 
 
@@ -212,3 +218,27 @@ def test_ring_decode_refuses_a_position_off_the_ring_index(models):
     assert cache[0]["idx"] == 8
     eng.decode_one(nxt, cache, 8, ai)
     assert cache[0]["idx"] == 9
+
+
+@pytest.mark.parametrize("name,max_context,T,new", [
+    ("mixtral", 32, 20, 8),        # prompt past the 16-token window
+    ("mixtral", 24, 8, 12),        # decodes past the window: ring of 16
+    ("grok", 32, 8, 8),
+    ("grok", 12, 8, 10),           # ring wraps
+])
+def test_moe_prefill_and_generate_match_reference(models, name,
+                                                  max_context, T, new):
+    """The MoE stacks through the ring engine: prefill logits and ring
+    caches, then greedy generation, equal to the reference's."""
+    ej, et = _engines(models, name, max_context)
+    toks = _prompts(models[name][2].vocab_size, T=T, seed=5)
+    lj, cj = ej.prefill(jnp.asarray(toks), jnp.asarray(ADAPTERS))
+    lt, ct = et.prefill(torch.from_numpy(toks), torch.from_numpy(ADAPTERS))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    _assert_caches_match(ct, cj)
+    out_j, cj = ej.generate(jnp.asarray(toks), new,
+                            adapter_idx=jnp.asarray(ADAPTERS))
+    out_t, ct = et.generate(torch.from_numpy(toks), new,
+                            adapter_idx=torch.from_numpy(ADAPTERS))
+    np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
+    _assert_caches_match(ct, cj)

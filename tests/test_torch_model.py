@@ -1,6 +1,7 @@
-"""Whole SMOKE model (Llama-2 family, float32) through the port against the
-reference, with the reference's own parameters carried over by the weight
-bridge; plus the sampling epilogue and the bridge itself.
+"""Whole SMOKE model (Llama-2, and the MoE stacks of Mixtral and Grok,
+float32) through the port against the reference, with the reference's own
+parameters carried over by the weight bridge; plus the sampling epilogue
+and the bridge itself.
 
 Tolerance: logits within atol 1e-4 (two layers of float32 matmuls summed
 in another order), greedy tokens equal.
@@ -24,6 +25,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.core import sampling as ts
 from repro_torch.core.engine import make_chunked_prefill_step
 from repro_torch.core.engine import make_serve_step
+from repro_torch.models import transformer as tf
 from repro_torch.models.cache import init_paged_cache
 
 CFG_T = get_smoke("llama2_7b").with_(dtype="float32")
@@ -188,3 +190,120 @@ def test_bridge_round_trips_a_bf16_checkpoint(tmp_path):
             for p in parts:
                 node = node[p]
             np.testing.assert_array_equal(node.float().numpy(), want)
+
+
+# ------------------------------------------------------- MoE SMOKE configs
+MOE_ARCHS = ["mixtral_8x22b", "grok_1_314b"]
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """arch -> (jax cfg, jax params, torch cfg, torch params): the MoE
+    SMOKE stacks (Mixtral with its 16-token window) in float32, LoRA B
+    nonzero."""
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg_j, params = build_model(arch)
+        flat = _flatten(params)
+        rng = np.random.default_rng(0)
+        for k, v in flat.items():
+            if "/lora/" in k and k.endswith("/b"):
+                flat[k] = (rng.standard_normal(v.shape) * 0.1).astype(
+                    v.dtype)
+        cfg_t = get_smoke(arch).with_(dtype="float32")
+        out[arch] = (cfg_j, _unflatten(flat), cfg_t,
+                     params_from_flat(flat, cfg_t, device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_paged_prefill_past_the_window_then_decode(moe_models, arch):
+    """Three 16-token chunks of paged prefill (prompts of 40 and 48
+    tokens, past Mixtral's 16-token window) and four decode steps, through
+    the MoE MLP: logits within 1e-4 of the reference's and greedy tokens
+    equal."""
+    cfg_j, pj, cfg_t, pt = moe_models[arch]
+    NB, bs, MB, C = 32, 8, 8, 16
+    L = np.array([40, 48], np.int32)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg_t.vocab_size, (2, 48)).astype(np.int32)
+    tbl = np.full((2, MB), -1, np.int32)
+    tbl[0, :6] = np.arange(1, 7)
+    tbl[1, :7] = np.arange(8, 15)
+    ai = np.array([1, 2], np.int32)
+    cache_j = jax_init_cache(cfg_j, NB, bs)
+    cache_t = init_paged_cache(cfg_t, NB, bs, device="cpu")
+    step_j, step_t = jax_prefill_step(cfg_j), make_chunked_prefill_step(
+        cfg_t)
+    for r in range(3):
+        tokens = prompt[:, r * C:(r + 1) * C].copy()
+        start = np.full(2, r * C, np.int32)
+        last = np.minimum(L - 1 - r * C, C - 1).astype(np.int32)
+        ids = tbl[:, 2 * r:2 * r + 2].copy()
+        ids[ids < 0] = 0                          # past row 0's prompt
+        lj, cache_j = step_j(
+            pj, jnp.asarray(tokens), jnp.asarray(start), jnp.asarray(last),
+            cache_j, jnp.asarray(ids), jnp.asarray(tbl),
+            adapter_idx=jnp.asarray(ai), use_paged_kernel=True)
+        lt, cache_t = step_t(
+            pt, torch.from_numpy(tokens), torch.from_numpy(start),
+            torch.from_numpy(last), cache_t, torch.from_numpy(ids),
+            torch.from_numpy(tbl), adapter_idx=torch.from_numpy(ai))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4,
+                                   rtol=1e-4)
+    tok_j = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+    tok_t = torch.argmax(lt, -1).to(torch.int32)
+    np.testing.assert_array_equal(tok_t.numpy(), tok_j)
+    serve_j, serve_t = jax_serve_step(cfg_j), make_serve_step(cfg_t)
+    for step in range(4):
+        lj, cache_j = serve_j(pj, jnp.asarray(tok_j), cache_j,
+                              jnp.asarray(L + step),
+                              adapter_idx=jnp.asarray(ai),
+                              block_tbl=jnp.asarray(tbl),
+                              use_paged_kernel=True)
+        lt, cache_t = serve_t(pt, tok_t, cache_t,
+                              torch.from_numpy(L + step),
+                              adapter_idx=torch.from_numpy(ai),
+                              block_tbl=torch.from_numpy(tbl))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4,
+                                   rtol=1e-4)
+        tok_j = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+        tok_t = torch.argmax(lt, -1).to(torch.int32)
+        np.testing.assert_array_equal(tok_t.numpy(), tok_j)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_bridge_round_trips_a_moe_checkpoint(arch, tmp_path):
+    """The reference's save_checkpoint layout of a MoE stack (stacked
+    ``periods/p0/moe/{router/w,wi,wg,wo}``) comes across leaf for leaf in
+    bfloat16, and ``init_params`` draws the same tree."""
+    cfg = get_smoke(arch)                          # bfloat16
+    params = jtf.init_params(jax.random.PRNGKey(4), jax_get_smoke(arch),
+                             lora_adapters=2)
+    path = str(tmp_path / "ck")
+    save_checkpoint(path, params)
+    got = load_params(path, cfg, device="cpu")
+    flat = _flatten(params)
+    moe_keys = [k for k in flat if "/moe/" in k]
+    assert sorted(k.split("/moe/")[1] for k in moe_keys) == \
+        ["router/w", "wg", "wi", "wo"]
+    for key in moe_keys:
+        want = np.asarray(flat[key], np.float32)
+        for n in range(cfg.num_layers):
+            node = got["layers"][n]
+            for p in key.split("/")[2:]:
+                node = node[p]
+            assert node.dtype == torch.bfloat16
+            np.testing.assert_array_equal(node.float().numpy(), want[n])
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    drawn = tf.init_params(cfg, gen, "cpu", lora_adapters=2)
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [shapes(v) for v in tree]
+        return tuple(tree.shape)
+
+    assert shapes(drawn) == shapes(got)

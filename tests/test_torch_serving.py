@@ -205,22 +205,6 @@ def test_replay_matches_reference_runtime(models, num_blocks):
     assert torch.is_tensor(rt_t.cache[0]["kp"])
 
 
-def test_windowed_config_refused_until_reclamation_is_ported(models):
-    """The port does not free blocks that slide out of the window (the
-    reference does after every decode chunk), so a windowed config would
-    hold more blocks and admit differently on a tight pool: refused."""
-    from repro_torch.models.cache import paging_unsupported_reason
-    cfg = CFG_T.with_(sliding_window=16)
-    reason = paging_unsupported_reason(cfg)
-    assert reason is not None and "window reclamation" in reason
-    assert "not ported" in reason
-    assert paging_unsupported_reason(CFG_T) is None
-    with pytest.raises(ValueError, match="window reclamation"):
-        ContinuousRuntime(cfg, models[2], ServingConfig(
-            num_slots=4, block_size=8, num_blocks=32, max_blocks_per_slot=6,
-            prefill_chunk=16), device="cpu")
-
-
 def _pool_trail(rt):
     """Record the pool's (cached, free) after every decode chunk."""
     trail, decode = [], rt.decode
