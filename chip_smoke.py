@@ -11,14 +11,18 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    ``nvidia-smi --query-gpu=name,power.limit`` line, the driver's version
    and nvcc's release;
 2. build: compile the kernels with nvcc for sm_90a; print ptxas's
-   registers and spills of the tensor-core (bf16) prefill kernels, and
-   the registers, static and dynamic shared memory and spills of the
-   split-KV decode instantiations and of the SGMV kernels;
+   registers and spills of the tensor-core (bf16) prefill kernels and of
+   the float32 paged prefill at hd 256, and the registers, static and
+   dynamic shared memory and spills of the split-KV decode
+   instantiations and of the SGMV kernels;
 3. kernels: each of the five hand-written kernels against its plain
    PyTorch version at the shapes the two serving paths give it at the
    widths of Llama-2-7B, in bfloat16 and float32 (and bfloat16 GQA and
    window cases of flash, ring decode, paged decode and paged prefill,
-   and SGMV at the row layouts of the two prefills),
+   SGMV at the row layouts of the two prefills, Mixtral-8x22B's shapes,
+   and, timed in both dtypes, paged decode and prefill at
+   RecurrentGemma-9B's hd 256 and G = 16 and SGMV at Mamba2-780M's
+   sites),
    with its median device time, the plain version's, a library yardstick
    where one PyTorch call computes the same function, the least time the
    card could take for the work (``bound_ms``) and the share of it the
@@ -79,8 +83,25 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    the same tokens, greedy and sampled (temperature, top-k, top-p), and
    the sampled rows' Philox uniforms must be equal bit for bit on the two
    devices; and ``InferenceEngine.generate`` on the two devices must emit
-   the same greedy tokens.
+   the same greedy tokens; then the same for Mixtral SMOKE, and replays of
+   RecurrentGemma SMOKE and Mamba2 SMOKE (state rows);
+8. Mixtral-8x22B at full width, its depth cut to 8 of 56 layers: window
+   reclamation against its rule and against a run without it, the
+   telemetry exporters, the breakdown beside its bound;
+9. RecurrentGemma-9B at full width and depth (38 layers, hd 256, G = 16)
+   under ``CompileGuard({decode: 1, prefill: 1})``: 8 requests of
+   2100-2600 prompt tokens past the 2048-key window, exact launch counts,
+   ``reclaimed_blocks`` against the rule, tokens equal to an eager
+   runtime's, 4 prompts again on recycled slots with equal tokens, the
+   state rows of slots a decode chunk did not serve unchanged bit for
+   bit, the sampling epilogue alone at vocab 256000, and the breakdown
+   beside its bound;
+10. Mamba2-780M at full width and depth (48 SSD layers): no pool block
+   charged, exact SGMV launches, tokens equal to an eager runtime's, the
+   breakdown beside its bound (weights plus the state rows read and
+   written).
 
+Phases 8-10 each run in a child process of the script (``isolated``).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
 eager run of it (``serving/graphs.py``), whose launches count.  The last
@@ -99,6 +120,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -176,6 +198,31 @@ MIXTRAL_PROMPT = (4200, 4700)     # past the 4096-key window
 MIXTRAL_OUTPUT = 64          # every slot decodes across the window
 MIXTRAL_BREAKDOWN_PROMPT = 4160   # 65 chunks: history up to the window
 
+# Phase 9: RecurrentGemma-9B at full width and depth (38 layers, 18.8 GB of
+# bf16 weights).  Its 12 ATTN layers page 16 tokens x 1 kv head x 256 x K
+# and V: 16 KB per block per layer, so 1400 blocks are 269 MB over the 12
+# layers; 168 blocks per slot hold 2688 tokens.  The 26 REC layers keep
+# 1.06 MB of state rows per slot.
+RGEMMA = "recurrentgemma_9b"
+RGEMMA_SERVE = dict(num_slots=8, block_size=16, num_blocks=1400,
+                    max_blocks_per_slot=168, prefill_chunk=64,
+                    prefill_rows=4, decode_chunk=4)
+RGEMMA_PROMPT = (2100, 2600)      # past the 2048-key window
+RGEMMA_OUTPUT = 64
+RGEMMA_REPEAT = 4                 # first-wave prompts served again
+RGEMMA_BREAKDOWN_PROMPT = 2112    # 33 chunks: history past the window
+
+# Phase 10: Mamba2-780M at full width and depth (48 SSD layers, 1.56 GB),
+# attention-free: no pool block is charged (the pool only holds its
+# garbage block), and a slot's state rows are 76.4 MB.
+MAMBA = "mamba2_780m"
+MAMBA_SERVE = dict(num_slots=8, block_size=16, num_blocks=8,
+                   max_blocks_per_slot=4, prefill_chunk=64, prefill_rows=4,
+                   decode_chunk=4)
+MAMBA_PROMPT = (1000, 4000)
+MAMBA_OUTPUT = 64
+MAMBA_BREAKDOWN_PROMPT = 1024
+
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
              "src/repro/kernels/sgmv/sgmv.py:28"),
@@ -201,7 +248,9 @@ def phase(title: str):
 
 
 # --------------------------------------------------------------- 1. device
-def device_phase() -> Dict:
+def setup() -> None:
+    """A card and a checkout, or fail; the port on the path; float32
+    products in full float32."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA "
              "card")
@@ -211,6 +260,10 @@ def device_phase() -> Dict:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def device_phase() -> Dict:
+    setup()
     t0 = phase("phase 1: device")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -285,9 +338,11 @@ def build_phase() -> Dict:
           f"{len(usage)} kernel instantiations, "
           f"{sum(u.get('spill_stores', 0) for u in usage)} bytes of spill "
           f"stores in all")
-    # the tensor-core prefill steps (bf16): registers and spills
+    # the tensor-core prefill steps (bf16) and the float32 paged prefill
+    # at hd 256: registers and spills
     for u in usage:
-        if "_bf16" in u["function"]:
+        if "_bf16" in u["function"] or \
+                "paged_prefill_f32ILi256" in u["function"]:
             print(f"ptxas {u['function']}: {u['registers']} registers, "
                   f"spill stores {u.get('spill_stores')} B, spill loads "
                   f"{u.get('spill_loads')} B")
@@ -414,15 +469,16 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
 def decode_case(gen, dtype, K: int = 32, G: int = 1,
                 window: Optional[int] = None, serve: Dict = SERVE,
                 positions=(SYSTEM_PROMPT, MAX_PROMPT + OUTPUT_TOKENS),
-                reclaimed: bool = False) -> Dict:
+                reclaimed: bool = False, hd: int = 128) -> Dict:
     """Runtime decode: one token for each of ``num_slots`` rows over its
-    paged history, at Llama-2-7B head widths (``H = K * G`` query heads),
-    rows at positions in [``positions``).  With ``reclaimed``, each live
-    row's table holds -1 for every block that slid wholly out of the
-    window, as the runtime's window reclamation leaves it."""
+    paged history, at Llama-2-7B head widths by default (``H = K * G``
+    query heads of ``hd``), rows at positions in [``positions``).  With
+    ``reclaimed``, each live row's table holds -1 for every block that
+    slid wholly out of the window, as the runtime's window reclamation
+    leaves it."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    B, hd = serve["num_slots"], 128
+    B = serve["num_slots"]
     NB, bs, MB = serve["num_blocks"], serve["block_size"], \
         serve["max_blocks_per_slot"]
     H = K * G
@@ -476,15 +532,15 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
 
 def prefill_case(gen, dtype, K: int = 32, G: int = 1,
                  window: Optional[int] = None, serve: Dict = SERVE,
-                 starts=(0, MAX_PROMPT - SERVE["prefill_chunk"])) -> Dict:
+                 starts=(0, MAX_PROMPT - SERVE["prefill_chunk"]),
+                 hd: int = 128) -> Dict:
     """Runtime prefill: a chunk of ``prefill_chunk`` queries for each of
     ``prefill_rows`` rows over its paged history, at Llama-2-7B head
-    widths (``H = K * G`` query heads), each chunk starting at a block
-    boundary in [``starts``]."""
+    widths by default (``H = K * G`` query heads of ``hd``), each chunk
+    starting at a block boundary in [``starts``]."""
     from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
     B, C = serve["prefill_rows"], serve["prefill_chunk"]
-    hd = 128
     NB, bs, MB = serve["num_blocks"], serve["block_size"], \
         serve["max_blocks_per_slot"]
     H = K * G
@@ -689,9 +745,38 @@ def kernels_phase() -> Dict[str, Dict]:
         ("sgmv", bf, lambda: sgmv_case(gen, bf, rows,
                                        run=mx["prefill_chunk"], D=6144,
                                        O=1024))]
+    # phases 9 and 10's shapes: RecurrentGemma-9B's 16 query heads over 1
+    # kv head of 256 (G = 16) under its 2048-key window over ~2300
+    # positions, and Mamba2-780M's LoRA sites (in: 1536 -> 6448, out:
+    # 3072 -> 1536), in both dtypes, every case timed
+    # (names of their own: the Mixtral cases above read w, lo and hi when
+    # they run)
+    rg, rgs, mb = get_config(RGEMMA), RGEMMA_SERVE, get_config(MAMBA)
+    fused = 2 * mb.d_inner + 2 * mb.ssm_state_dim + mb.ssm_num_heads
+    rw, G16 = rg.sliding_window, rg.num_heads // rg.num_kv_heads
+    rlo, rhi = RGEMMA_PROMPT
+    timed = len(makers)
+    for dtype in (torch.bfloat16, torch.float32):
+        makers += [
+            ("paged_attention", dtype, lambda d=dtype: decode_case(
+                gen, d, K=rg.num_kv_heads, G=G16, hd=rg.head_dim_,
+                window=rw, serve=rgs, positions=(rlo, rhi + RGEMMA_OUTPUT),
+                reclaimed=True)),
+            ("paged_prefill", dtype, lambda d=dtype: prefill_case(
+                gen, d, K=rg.num_kv_heads, G=G16, hd=rg.head_dim_,
+                window=rw, serve=rgs,
+                starts=(rw, rhi - rgs["prefill_chunk"])))]
+        for D, O in ((mb.d_model, fused), (mb.d_inner, mb.d_model)):
+            makers += [
+                ("sgmv", dtype, lambda d=dtype, D=D, O=O: sgmv_case(
+                    gen, d, MAMBA_SERVE["num_slots"], D=D, O=O)),
+                ("sgmv", dtype, lambda d=dtype, D=D, O=O: sgmv_case(
+                    gen, d, MAMBA_SERVE["prefill_rows"]
+                    * MAMBA_SERVE["prefill_chunk"],
+                    run=MAMBA_SERVE["prefill_chunk"], D=D, O=O))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
-    for name, dtype, make in makers:
+    for i, (name, dtype, make) in enumerate(makers):
         c = make()
         got = c["kernel"]()
         want = c["plain"]()
@@ -712,7 +797,7 @@ def kernels_phase() -> Dict[str, Dict]:
                "bytes": c["bytes"], "ops": c["ops"],
                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                "library": c["library_label"]}
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 or i >= timed:
             row["ms"] = device_ms(c["kernel"], 50, flush)
             row["plain_ms"] = device_ms(c["plain"], 10, flush)
             row["library_ms"] = (device_ms(c["library"], 50, flush)
@@ -799,6 +884,41 @@ def shared_prefix_trace(n_req: int, n_fn: int, system: int, max_prompt: int,
                          prompt_len=len(prompts[rid]),
                          output_len=out_tokens, slo_ttft=1e9))
     return work, prompts, {f"fn{f}": f for f in range(n_fn)}
+
+
+def system_prompt_trace(vocab: int, n: int, prompt, output: int, seed: int,
+                system: int = SYSTEM_PROMPT):
+    """``n`` greedy requests round robin over the ADAPTERS functions, each
+    function with its own ``system``-token system prompt, prompts of
+    ``prompt`` tokens, ``output`` output tokens, arrivals 20 ms apart."""
+    rng = np.random.default_rng(seed)
+    sys_prompt = {f: rng.integers(0, vocab, system).astype(np.int32)
+                  for f in range(ADAPTERS)}
+    work, prompts = [], {}
+    for rid in range(n):
+        f = rid % ADAPTERS
+        L = int(rng.integers(prompt[0], prompt[1] + 1))
+        prompts[rid] = np.concatenate([
+            sys_prompt[f],
+            rng.integers(0, vocab, L - system).astype(np.int32)])
+        work.append(dict(req_id=rid, fn_id=f"fn{f}", arrival=0.02 * rid,
+                         prompt_len=L, output_len=output, slo_ttft=1e9))
+    return work, prompts
+
+
+def expected_launches(cfg, prefills: int, steps: int) -> Dict[str, int]:
+    """Launches of ``prefills`` prefill dispatches and ``steps`` decode
+    steps: one paged kernel per ATTN layer, one SGMV per LoRA site (q/k/v/o
+    of an ATTN layer, in/out of a REC or SSD block)."""
+    attn = cfg.layer_kinds.count("attn")
+    sites = sum(len(set(cfg.lora.targets) & ({"q", "k", "v", "o"}
+                                             if kind == "attn"
+                                             else {"in", "out"}))
+                for kind in cfg.layer_kinds)
+    return {"sgmv": sites * (prefills + steps),
+            "paged_attention": attn * steps,
+            "paged_prefill": attn * prefills,
+            "flash_attention": 0, "decode_attention": 0}
 
 
 def model_params():
@@ -976,10 +1096,7 @@ def serve_phase(cfg, params, device: Dict) -> Dict:
     prefills = dispatched[0] + 2 + 1             # + warmup's two, capture's
     steps = (dispatched[1] + 2 + 1) * scfg.decode_chunk
     sites = len(cfg.lora.targets)
-    expected = {"sgmv": sites * layers * (prefills + steps),
-                "paged_attention": layers * steps,
-                "paged_prefill": layers * prefills,
-                "flash_attention": 0, "decode_attention": 0}
+    expected = expected_launches(cfg, prefills, steps)
     print(f"launches {launches}, expected {expected} ({prefills} prefill "
           f"dispatches, {steps} decode steps incl. warmup and the eager run "
           f"before each capture, {layers} layers, {sites} LoRA sites)")
@@ -1324,15 +1441,20 @@ def per_step(label: str, wall: float, prof: Dict, n: int,
 def report_rounds(label: str, res: Dict[str, Dict]) -> Dict[str, Dict]:
     """Add each round's profiler slowdown and idle share (1 - device busy /
     unprofiled host wall), print it, and fail when the device was busy
-    longer than the host wall of the same work."""
+    longer than the host wall of the same work: the profiled round's.  A
+    round that keeps the device saturated (idle share about 0) may show a
+    slightly negative idle share against the unprofiled round's wall: the
+    profiler's per-kernel overhead lengthens the busy time it measures."""
     for name, r in res.items():
         r["profiler_slowdown"] = r["profiled_wall_ms"] / r["wall_ms"]
         if r["device_busy_ms"] is not None:
             r["idle_share"] = 1.0 - r["device_busy_ms"] / r["wall_ms"]
         print(f"{label} {name}: {json.dumps(r)}")
-        if r.get("idle_share", 0.0) < 0.0:
+        if r["device_busy_ms"] is not None and \
+                r["device_busy_ms"] > r["profiled_wall_ms"]:
             fail(f"{label} {name}: device busy {r['device_busy_ms']} ms "
-                 f"exceeds the host wall {r['wall_ms']} ms of the same work")
+                 f"exceeds the host wall {r['profiled_wall_ms']} ms of the "
+                 f"same work")
     return res
 
 
@@ -1803,11 +1925,7 @@ def overload_phase(cfg, params, device: Dict) -> Dict:
         fail(f"no demoted block was watched ({probe.demoted} demoted)")
     prefills = dispatched[0] + 2 + 1         # + warmup's two, capture's
     steps = (dispatched[1] + 2 + 1) * scfg.decode_chunk
-    sites = len(cfg.lora.targets)
-    expected = {"sgmv": sites * layers * (prefills + steps),
-                "paged_attention": layers * steps,
-                "paged_prefill": layers * prefills,
-                "flash_attention": 0, "decode_attention": 0}
+    expected = expected_launches(cfg, prefills, steps)
     print(f"launches {launches}, expected {expected} ({prefills} prefill "
           f"dispatches, {steps} decode steps incl. warmup and the eager run "
           f"before each capture)")
@@ -1940,11 +2058,13 @@ RUNTIME_KERNELS = ("sgmv", "paged_attention", "paged_prefill")
 
 
 def replay_on_both(label: str, cfg, params, scfg: Dict, trace,
-                   sampling=None) -> Dict[str, Dict]:
+                   sampling=None,
+                   kernels_used=RUNTIME_KERNELS) -> Dict[str, Dict]:
     """The trace through a runtime on the card (kernels) and one on the
     CPU (plain versions) under the same deterministic clock: the same
     requests must be admitted and every token stream must be equal, the
-    card must launch the runtime's kernels and the CPU none.  Returns
+    card must launch ``kernels_used`` (the runtime's kernels that the
+    stack has layers for) and no other, and the CPU none.  Returns
     device -> the run's counts."""
     from repro_torch import kernels
     from repro_torch.serving import (ContinuousRuntime, ServingConfig,
@@ -1967,8 +2087,8 @@ def replay_on_both(label: str, cfg, params, scfg: Dict, trace,
             "sampled_tokens": rt.stats["sampled_tokens"],
             "reclaimed_blocks": rt.stats["reclaimed_blocks"]}
     card = runs["cuda"]["launches"]
-    if min(card[k] for k in RUNTIME_KERNELS) <= 0 or \
-            card["flash_attention"] or card["decode_attention"] or \
+    if min(card[k] for k in kernels_used) <= 0 or \
+            any(n for k, n in card.items() if k not in kernels_used) or \
             max(runs["cpu"]["launches"].values()) != 0:
         fail(f"{label} launches: card {card}, CPU "
              f"{runs['cpu']['launches']}")
@@ -2025,14 +2145,15 @@ def generate_on_both(label: str, cfg, params, T: int, new: int) -> Dict:
 
 
 def smoke_params(arch: str, seed: int):
-    """SMOKE config of ``arch`` in float32 with a 3-adapter rank-8 bank,
-    random from ``seed`` (LoRA B drawn N(0, 0.1)), on the CPU."""
+    """SMOKE config of ``arch`` in float32 with a 3-adapter rank-8 bank on
+    its LoRA targets, random from ``seed`` (LoRA B drawn N(0, 0.1)), on
+    the CPU."""
+    import dataclasses
     from repro_torch.configs import get_smoke
     from repro_torch.models import transformer as tf
-    from repro_torch.models.config import LoRAConfig
-    cfg = get_smoke(arch).with_(
-        dtype="float32", lora=LoRAConfig(rank=8, alpha=16.0,
-                                         num_adapters=3))
+    cfg = get_smoke(arch)
+    cfg = cfg.with_(dtype="float32", lora=dataclasses.replace(
+        cfg.lora, rank=8, alpha=16.0, num_adapters=3))
     gen = torch.Generator()
     gen.manual_seed(seed)
     return cfg, tf.init_params(cfg, gen, "cpu", lora_adapters=3,
@@ -2045,7 +2166,8 @@ def parity_phase() -> Dict:
 
     t0 = phase("phase 7: SMOKE float32, card (kernels) vs CPU (plain "
                "versions): runtime replay, greedy and sampled; engine "
-               "generate; Llama, then Mixtral (MoE, window 16)")
+               "generate; Llama, then Mixtral (MoE, window 16), then "
+               "RecurrentGemma and Mamba2 (state rows)")
     scfg = dict(num_slots=4, block_size=8, num_blocks=24,
                 max_blocks_per_slot=6, prefill_chunk=16, decode_chunk=4)
     cfg, params = smoke_params("llama2_7b", seed=1)
@@ -2088,31 +2210,26 @@ def parity_phase() -> Dict:
              f"{moe['cpu']['reclaimed_blocks']}")
     moe["cuda"]["engine"] = generate_on_both("Mixtral SMOKE", cfg, params,
                                              T=24, new=8)
+
+    # the stacks with REC/SSD state rows: RecurrentGemma SMOKE (REC, REC,
+    # ATTN; window 16, so its replay reclaims) and Mamba2 SMOKE (SSD only:
+    # no paged kernel runs)
+    cfg, params = smoke_params(RGEMMA, seed=3)
+    rgemma = replay_on_both(
+        "RecurrentGemma SMOKE", cfg, params, scfg,
+        shared_prefix_trace(9, 3, 16, 30, 12, cfg.vocab_size, seed=9))
+    cfg, params = smoke_params(MAMBA, seed=4)
+    mamba = replay_on_both(
+        "Mamba2 SMOKE", cfg, params, scfg,
+        shared_prefix_trace(9, 3, 16, 60, 12, cfg.vocab_size, seed=10),
+        kernels_used=("sgmv",))
     print(f"phase 7 ok ({time.perf_counter() - t0:.1f} s)")
-    return {**runs["cuda"], "engine": engine, "mixtral_smoke": moe["cuda"]}
+    return {**runs["cuda"], "engine": engine, "mixtral_smoke": moe["cuda"],
+            "recurrentgemma_smoke": rgemma["cuda"],
+            "mamba2_smoke": mamba["cuda"]}
 
 
 # -------------------------------------------------------------- 8. Mixtral
-def mixtral_trace(vocab: int, seed: int):
-    """MIXTRAL_REQUESTS greedy requests, two per adapter, each adapter with
-    its own SYSTEM_PROMPT-token system prompt, prompts of MIXTRAL_PROMPT
-    tokens, arrivals 20 ms apart."""
-    rng = np.random.default_rng(seed)
-    sys_prompt = {f: rng.integers(0, vocab, SYSTEM_PROMPT).astype(np.int32)
-                  for f in range(ADAPTERS)}
-    work, prompts = [], {}
-    for rid in range(MIXTRAL_REQUESTS):
-        f = rid % ADAPTERS
-        n = int(rng.integers(MIXTRAL_PROMPT[0], MIXTRAL_PROMPT[1] + 1))
-        prompts[rid] = np.concatenate([
-            sys_prompt[f], rng.integers(0, vocab, n - SYSTEM_PROMPT
-                                        ).astype(np.int32)])
-        work.append(dict(req_id=rid, fn_id=f"fn{f}", arrival=0.02 * rid,
-                         prompt_len=n, output_len=MIXTRAL_OUTPUT,
-                         slo_ttft=1e9))
-    return work, prompts
-
-
 def expected_reclaimed(prompt_len: int, output: int, window: int,
                        bs: int, chunk: int) -> int:
     """Blocks a request reclaims on an ample pool.  Reclamation runs after
@@ -2241,7 +2358,9 @@ def mixtral_phase(device: Dict) -> Dict:
     tele = Telemetry()
     rt = ContinuousRuntime(cfg, params, scfg, telemetry=tele)
     reg = AdapterRegistry(rt, names=names)
-    work, prompts = mixtral_trace(cfg.vocab_size, seed=0)
+    work, prompts = system_prompt_trace(
+        cfg.vocab_size, MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_OUTPUT,
+        seed=0)
     fn_adapter = {n: n for n in names}
     print(f"serving: {MIXTRAL_SERVE}; trace: {len(work)} greedy requests, "
           f"2 per adapter, prompts {min(w['prompt_len'] for w in work)}-"
@@ -2282,10 +2401,7 @@ def mixtral_phase(device: Dict) -> Dict:
     layers, sites = cfg.num_layers, len(cfg.lora.targets)
     prefills = rt.stats["prefill_chunks"] + 2 + 1   # + warmup, capture
     steps = (rt.stats["decode_chunks"] + 2 + 1) * scfg.decode_chunk
-    expected = {"sgmv": sites * layers * (prefills + steps),
-                "paged_attention": layers * steps,
-                "paged_prefill": layers * prefills,
-                "flash_attention": 0, "decode_attention": 0}
+    expected = expected_launches(cfg, prefills, steps)
     print(f"launches {launches}, expected {expected} ({prefills} prefill "
           f"dispatches, {steps} decode steps incl. warmup and the eager run "
           f"before each capture, {layers} layers, {sites} LoRA sites)")
@@ -2387,11 +2503,379 @@ def mixtral_phase(device: Dict) -> Dict:
     return out
 
 
+# --------------------------------------------- 9-10. stacks with state rows
+def state_model(arch: str, layers: Optional[int] = None):
+    """``arch`` at full width (and depth unless ``layers``) with a
+    4-adapter rank-16 bank on its LoRA targets, random from seed 0 on the
+    card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    cfg = cfg.with_(lora=dataclasses.replace(cfg.lora,
+                                             num_adapters=ADAPTERS))
+    kinds = {k: cfg.layer_kinds.count(k) for k in sorted(set(
+        cfg.layer_kinds))}
+    print(f"model: {cfg.name}, {cfg.num_layers} layers {kinds} (no depth "
+          f"cut), d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          + (f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv heads x "
+             f"{cfg.head_dim_}, window {cfg.sliding_window}, d_ff "
+             f"{cfg.d_ff}, " if "attn" in kinds else
+             f"{cfg.ssm_num_heads} SSD heads x {cfg.ssm_head_dim}, state "
+             f"{cfg.ssm_state_dim}, ")
+          + f"vocab {cfg.vocab_size}, {cfg.dtype}; LoRA rank "
+          f"{cfg.lora.rank} on {'/'.join(cfg.lora.targets)}, bank of "
+          f"{ADAPTERS}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t_init = time.perf_counter()
+    params = tf.init_params(cfg, gen, "cuda", lora_adapters=ADAPTERS)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"weights: {n_bytes / 1e9:.2f} GB random from seed 0 in "
+          f"{time.perf_counter() - t_init:.1f} s")
+    return cfg, params, n_bytes
+
+
+class StateRowWatch:
+    """Around every decode chunk of ``rt``: the REC/SSD state rows of the
+    slots the chunk does not serve (unbound before the chunk) must keep
+    their bits.  The comparisons are ANDed into one device flag."""
+
+    def __init__(self, rt):
+        self.rt, self.plain = rt, rt.decode
+        self.layers = [layer for kind, layer in zip(rt.cfg.layer_kinds,
+                                                    rt.cache)
+                       if kind != "attn"]
+        self.flag = torch.ones((), dtype=torch.bool, device=rt.device)
+        self.rows_checked = 0
+        rt.decode = self
+
+    def __call__(self):
+        idle = [sid for sid, st in enumerate(self.rt.slots.states)
+                if st is None]
+        rows = torch.tensor(idle, dtype=torch.long, device=self.rt.device)
+        before = [{k: t.index_select(0, rows) for k, t in layer.items()}
+                  for layer in self.layers] if idle else []
+        out = self.plain()
+        for snap, layer in zip(before, self.layers):
+            for k, t in layer.items():       # bit for bit: compare bytes
+                self.flag.logical_and_((t.index_select(0, rows).view(
+                    torch.uint8) == snap[k].view(torch.uint8)).all())
+        self.rows_checked += len(idle) if out is not None else 0
+        return out
+
+    def ok(self) -> bool:
+        return bool(self.flag)
+
+
+def state_bounds(cfg, params, scfg, prompt_len: int) -> Dict:
+    """Least times of one decode step and one prefill dispatch of the
+    breakdown on this card.  Bytes: every weight once (a tied embedding
+    is the LM head, read whole; an untied one only gathered), the decode
+    step's windowed K/V, and the state rows of the dispatch's rows read
+    and written once.  Operations: the weight products and attention (the
+    scans' elementwise work is not counted)."""
+    from repro_torch.models.cache import state_bytes_per_slot
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    embed = params["embed"].numel()
+    elems = sum(t.numel() for t in _leaves(params)) - embed
+    weights = (elems + (embed if cfg.tie_embeddings else 0)) * es
+    attn = cfg.layer_kinds.count("attn")
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    w = cfg.sliding_window or prompt_len + 1
+    B, rows = scfg.num_slots, scfg.prefill_rows * scfg.prefill_chunk
+    head = D * V
+    keys = min(prompt_len + 1, w)
+    n_disp = -(-prompt_len // scfg.prefill_chunk)
+    pairs = sum(min(p + 1, w) for p in range(prompt_len)) / n_disp \
+        * scfg.prefill_rows
+    state = state_bytes_per_slot(cfg)
+    out = {}
+    for name, nbytes, ops in (
+            ("decode_step",
+             weights + attn * B * keys * K * hd * 2 * es + 2 * B * state,
+             2 * B * (elems + head) + attn * 4 * hd * H * B * keys),
+            ("prefill_dispatch", weights + 2 * scfg.prefill_rows * state,
+             2 * rows * elems + 2 * scfg.prefill_rows * head
+             + attn * 4 * hd * H * pairs)):
+        b = bound(nbytes, ops, cfg.torch_dtype)
+        b["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        b["ops_ms"] = ops / PEAK_OPS_PER_S[cfg.torch_dtype] * 1e3
+        out[name] = b
+    return out
+
+
+def serve_state_model(label: str, cfg, params, scfg, work, prompts,
+                      device: Dict) -> Dict:
+    """The trace through the captured runtime under ``CompileGuard({decode:
+    1, prefill: 1})`` with adapters by name, the unserved state rows
+    watched, then on a runtime whose dispatches run eagerly: every request
+    finishes with its tokens, the books balance, nothing is non-finite,
+    the launch counts are exact and the eager runtime's tokens equal."""
+    from repro_torch import kernels
+    from repro_torch.serving import (AdapterRegistry, CompileGuard,
+                                     ContinuousRuntime, replay_trace,
+                                     terminal_state)
+    names = [f"fn{i}" for i in range(ADAPTERS)]
+    rt = ContinuousRuntime(cfg, params, scfg)
+    reg = AdapterRegistry(rt, names=names)
+    watch = StateRowWatch(rt)
+    fn_adapter = {n: n for n in names}
+    print(f"serving: {scfg.num_slots} slots, block {scfg.block_size}, "
+          f"{scfg.num_blocks} pool blocks, {scfg.max_blocks_per_slot} per "
+          f"slot, prefill {scfg.prefill_chunk} x {scfg.prefill_rows}, decode "
+          f"chunk {scfg.decode_chunk}; trace: {len(work)} greedy requests, "
+          f"prompts {min(w['prompt_len'] for w in work)}-"
+          f"{max(w['prompt_len'] for w in work)} tokens, "
+          f"{work[0]['output_len']} output tokens, arrivals 20 ms apart")
+    torch.cuda.reset_peak_memory_stats()
+    sink: Dict[int, List[int]] = {}
+    with FiniteLogits() as finite, CompileGuard(
+            {"decode": 1, "prefill": 1}, runtime=rt) as guard:
+        kernels.reset_launches()
+        t_run = time.perf_counter()
+        res, _ = replay_trace(rt, work, fn_adapter, prompts=prompts,
+                              prefill_group=scfg.prefill_rows,
+                              token_sink=sink)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report = guard.report()
+    print(f"CompileGuard: {json.dumps(report)}")
+    if report["decode_compiles"] != 1 or report["prefill_compiles"] != 1:
+        fail(f"{label} dispatches captured more than once: {report}")
+    states = [terminal_state(r) for r in res.requests]
+    if states != ["finished"] * len(work):
+        fail(f"not every {label} request finished: {states}")
+    if any(len(sink[w["req_id"]]) != w["output_len"] for w in work):
+        fail(f"a {label} request emitted the wrong number of tokens")
+    books = rt.check_invariants(res.requests)
+    if books["pool"]["live"] != 0 or books["slots_active"] != 0:
+        fail(f"blocks or slots still held after the drain: {books}")
+    if not finite.ok():
+        fail(f"non-finite logits during the {label} replay")
+    for layer in rt.cache:
+        for t in layer.values():
+            if not bool(torch.isfinite(t).all()):
+                fail(f"non-finite entries in a {label} pool or state row")
+    prefills = rt.stats["prefill_chunks"] + 2 + 1   # + warmup, capture
+    steps = (rt.stats["decode_chunks"] + 2 + 1) * scfg.decode_chunk
+    expected = expected_launches(cfg, prefills, steps)
+    print(f"launches {launches}, expected {expected} ({prefills} prefill "
+          f"dispatches, {steps} decode steps incl. warmup and the eager run "
+          f"before each capture)")
+    if launches != expected:
+        fail(f"{label} launch counts differ from layers x dispatches x sites")
+
+    rt_e = ContinuousRuntime(cfg, params, scfg)
+    AdapterRegistry(rt_e, names=names)
+    rt_e._decode = EagerDispatch(rt_e._decode)
+    rt_e._prefill = EagerDispatch(rt_e._prefill)
+    eager_sink: Dict[int, List[int]] = {}
+    replay_trace(rt_e, work, fn_adapter, prompts=prompts,
+                 prefill_group=scfg.prefill_rows, token_sink=eager_sink)
+    if eager_sink != sink:
+        fail(f"{label}: eager and captured runtimes emit different tokens "
+             f"for {[k for k in sink if sink[k] != eager_sink.get(k)]}")
+    print(f"eager runtime: {len(eager_sink)} requests, tokens equal to the "
+          f"captured runtime's")
+    del rt_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = rt.metrics.histogram
+    ttft, tpot = m("ttft_s").summary(), m("tpot_s").summary()
+    print(f"TTFT p50 {ttft['p50']:.3f} s, TPOT p50 {tpot['p50'] * 1e3:.2f} "
+          f"ms (replay clock), replay wall {wall:.1f} s, peak memory "
+          f"{peak:.2f} GB allocated on {_smi(device)}; pool high water "
+          f"{rt.pool.high_water} blocks")
+    return {"rt": rt, "reg": reg, "watch": watch, "sink": sink,
+            "finite": finite, "guard": guard,
+            "out": {"layers": cfg.num_layers, "requests": len(work),
+                    "replay_wall_s": wall, "ttft_p50_s": ttft["p50"],
+                    "tpot_p50_s": tpot["p50"], "peak_memory_gb": peak,
+                    "launches": launches, "expected_launches": expected,
+                    "compile_guard": report,
+                    "pool_high_water": rt.pool.high_water,
+                    "recomputed_tokens": rt.stats["recomputed_tokens"]}}
+
+
+def state_breakdown(label: str, run: Dict, cfg, params, device: Dict,
+                    prompt_len: int) -> Dict:
+    """Phase 4's breakdown round at ``prompt_len``-token prompts, each
+    dispatch's host wall and device busy beside its bound."""
+    rt, scfg = run["rt"], run["rt"].scfg
+    bounds = state_bounds(cfg, params, scfg, prompt_len)
+    res = breakdown(rt, cfg, device, prompt_len=prompt_len)
+    for name, b in bounds.items():
+        print(f"{label} bound, {name}: {b['bound_ms']:.2f} ms "
+              f"({b['bound_by']}: {b['bytes'] / 1e9:.2f} GB -> "
+              f"{b['bytes_ms']:.2f} ms, {b['ops'] / 1e12:.2f} TFLOP -> "
+              f"{b['ops_ms']:.2f} ms)")
+    if not run["finite"].ok():
+        fail(f"non-finite logits during the {label} breakdown")
+    return {"breakdown": res, "bounds": bounds}
+
+
+def recurrentgemma_phase(device: Dict) -> Dict:
+    from repro_torch.core.sampling import sample_with_uniform
+    from repro_torch.serving import ServingConfig, replay_trace
+
+    t0 = phase("phase 9: serve RecurrentGemma-9B at full width and depth "
+               "on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, n_bytes = state_model(RGEMMA)
+    scfg = ServingConfig(**RGEMMA_SERVE)
+    work, prompts = system_prompt_trace(
+        cfg.vocab_size, MIXTRAL_REQUESTS, RGEMMA_PROMPT, RGEMMA_OUTPUT,
+        seed=0)
+    run = serve_state_model("RecurrentGemma", cfg, params, scfg, work,
+                            prompts, device)
+    rt, sink, out = run["rt"], run["sink"], run["out"]
+    window = cfg.sliding_window
+    per_req = {w["req_id"]: expected_reclaimed(
+        w["prompt_len"], RGEMMA_OUTPUT, window, scfg.block_size,
+        scfg.decode_chunk) for w in work}
+    got = rt.stats["reclaimed_blocks"]
+    print(f"reclaimed blocks: {got}, rule {sum(per_req.values())} "
+          f"({json.dumps(per_req)})")
+    if got <= 0 or got != sum(per_req.values()):
+        fail(f"reclaimed {got} blocks, the rule gives "
+             f"{sum(per_req.values())}")
+
+    # the first RGEMMA_REPEAT prompts again, on recycled slots: their state
+    # rows hold the first wave's leftovers until position 0 reads zeros
+    again = [dict(w, req_id=1000 + w["req_id"], arrival=0.02 * i)
+             for i, w in enumerate(work[:RGEMMA_REPEAT])]
+    again_prompts = {w["req_id"]: prompts[w["req_id"] - 1000]
+                     for w in again}
+    leftovers = sum(int(layer["h"].abs().sum() > 0) for kind, layer in
+                    zip(cfg.layer_kinds, rt.cache) if kind == "rec")
+    again_sink: Dict[int, List[int]] = {}
+    replay_trace(rt, again, {n: n for n in run["reg"].names()},
+                 prompts=again_prompts, prefill_group=scfg.prefill_rows,
+                 token_sink=again_sink)
+    diff = [k for k in again_sink if again_sink[k] != sink[k - 1000]]
+    if diff or len(again_sink) != RGEMMA_REPEAT:
+        fail(f"second wave on recycled slots emitted other tokens: {diff}")
+    watch = run["watch"]
+    if not watch.ok() or watch.rows_checked == 0:
+        fail(f"state rows of slots no chunk served changed "
+             f"({watch.rows_checked} row-chunks checked)")
+    print(f"second wave: {RGEMMA_REPEAT} first-wave prompts on recycled "
+          f"slots (leftover state in {leftovers} REC layers before it), "
+          f"tokens equal to the first wave's; {watch.rows_checked} "
+          f"row-chunks of unserved slots kept their state bits")
+
+    # the sampling epilogue alone at this vocabulary, greedy rows
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    B = scfg.num_slots
+    logits = _randn(gen, B, cfg.vocab_size, dtype=cfg.torch_dtype)
+    zf = torch.zeros(B, device="cuda")
+    zi = torch.zeros(B, dtype=torch.int32, device="cuda")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    sample_ms = device_ms(lambda: sample_with_uniform(
+        logits, zf, zi, torch.ones_like(zf), zf + 0.5), 20, flush)
+    del flush, logits
+    print(f"sampling epilogue alone, {B} rows x vocab {cfg.vocab_size}: "
+          f"{sample_ms:.3f} ms device (CUDA events, L2 flushed)")
+    out.update(state_breakdown("RecurrentGemma", run, cfg, params, device,
+                               RGEMMA_BREAKDOWN_PROMPT))
+    out.update({"weights_gb": n_bytes / 1e9, "reclaimed_blocks": got,
+                "reclaimed_rule": per_req, "second_wave": len(again_sink),
+                "state_row_chunks_checked": watch.rows_checked,
+                "sampling_epilogue_ms": sample_ms,
+                "phase_s": time.perf_counter() - t0})
+    del run, rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 9 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
+def mamba_phase(device: Dict) -> Dict:
+    from repro_torch.models.cache import state_bytes_per_slot
+    from repro_torch.serving import ServingConfig
+
+    t0 = phase("phase 10: serve Mamba2-780M at full width and depth on the "
+               "card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, n_bytes = state_model(MAMBA)
+    scfg = ServingConfig(**MAMBA_SERVE)
+    print(f"state rows: {state_bytes_per_slot(cfg) / 1e6:.1f} MB a slot")
+    work, prompts = system_prompt_trace(
+        cfg.vocab_size, MAMBA_SERVE["num_slots"], MAMBA_PROMPT,
+        MAMBA_OUTPUT, seed=1)
+    run = serve_state_model("Mamba2", cfg, params, scfg, work, prompts,
+                            device)
+    rt, out = run["rt"], run["out"]
+    if rt.needs_kv or rt.pool.high_water != 0:
+        fail(f"the attention-free stack charged pool blocks (high water "
+             f"{rt.pool.high_water})")
+    watch = run["watch"]
+    if not watch.ok():
+        fail("state rows of slots no chunk served changed")
+    print(f"no pool block charged (high water 0); {watch.rows_checked} "
+          f"row-chunks of unserved slots kept their state bits")
+    out.update(state_breakdown("Mamba2", run, cfg, params, device,
+                               MAMBA_BREAKDOWN_PROMPT))
+    out.update({"weights_gb": n_bytes / 1e9,
+                "state_mb_per_slot": state_bytes_per_slot(cfg) / 1e6,
+                "phase_s": time.perf_counter() - t0})
+    del run, rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
+# phases run in a child process each (see ``isolated``)
+ISOLATED = {"8": mixtral_phase, "9": recurrentgemma_phase,
+            "10": mamba_phase}
+
+
+def isolated(phase_id: str, device: Dict) -> Dict:
+    """Run phase ``phase_id`` in a child process of this script, with a
+    CUDA context and profiler of its own, and return its report.  In one
+    process, once phases 3 and 7 held the hd-256 and REC/SSD cases, the
+    profiler of phase 8's breakdown lost 1-2 of 128-1040 kernel records
+    (the launch cross-check failed) or crashed the process in a graph
+    replay, in 4 runs of 4 on one H100; run alone, each of phases 8-10
+    passed.  The child writes to this process's standard output."""
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = Path(tmp) / "phase.json"
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--child-phase", phase_id, "--child-report", str(report),
+             "--child-device", json.dumps(device)],
+            timeout=900, check=False)
+        if child.returncode:
+            fail(f"phase {phase_id} failed in its child process (exit "
+                 f"{child.returncode})")
+        return json.loads(report.read_text())
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
                     help="write every number of the run to this JSON file")
+    ap.add_argument("--child-phase", choices=sorted(ISOLATED),
+                    help=argparse.SUPPRESS)   # set by ``isolated`` only
+    ap.add_argument("--child-report", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--child-device", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.child_phase is not None:
+        setup()
+        out = ISOLATED[args.child_phase](json.loads(args.child_device))
+        args.child_report.write_text(json.dumps(out))
+        return 0
     t_start = time.perf_counter()
     device = device_phase()
     build = build_phase()
@@ -2403,7 +2887,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     del params
     torch.cuda.empty_cache()
     parity = parity_phase()
-    mixtral = mixtral_phase(device)
+    torch.cuda.empty_cache()
+    mixtral = isolated("8", device)
+    rgemma = isolated("9", device)
+    mamba = isolated("10", device)
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2424,6 +2911,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             {"device": device, "build": build, "kernels": kern["cases"],
              "serve": serve, "launcher": launch, "overload": overload,
              "parity": parity, "mixtral": mixtral,
+             "recurrentgemma": rgemma, "mamba2": mamba,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

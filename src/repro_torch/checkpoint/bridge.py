@@ -47,6 +47,11 @@ class _BF16Tagged:
         self.bits = bits
 
 
+# stored dtypes that ``dtype`` recasts; float32 leaves of a low-precision
+# model (the REC/SSD blocks' Λ, a_log, dt_bias, d_skip) keep their width
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
 def _to_tensor(v, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     if isinstance(v, _BF16Tagged):
         t = torch.from_numpy(v.bits.astype(np.uint16).view(np.int16)
@@ -56,7 +61,7 @@ def _to_tensor(v, dtype: Optional[torch.dtype], device) -> torch.Tensor:
                              ).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(v))      # a writable copy
-    if dtype is not None and t.is_floating_point():
+    if dtype is not None and t.dtype in _LOW_PRECISION:
         t = t.to(dtype)
     return t.to(device)
 
@@ -83,8 +88,12 @@ def params_from_flat(flat: Dict[str, Any], cfg: ModelConfig, *,
     """Flat reference checkpoint dict -> port params on ``device``.
 
     ``flat`` is what ``load_flat`` returns, or the reference's in-memory
-    ``_flatten(params)`` output.  ``dtype`` casts floating tensors (None
-    keeps the stored dtype)."""
+    ``_flatten(params)`` output.  ``dtype`` casts the leaves stored in a
+    low-precision dtype (bfloat16, float16); float32 leaves stay float32,
+    as the reference keeps them in a bf16 model (None keeps every stored
+    dtype).  The layer index of ``periods/p{j}`` row n is
+    ``n * len(pattern) + j``, whatever the layers' kinds (ATTN, REC,
+    SSD), and ``tail/#i`` follows the periods."""
     pat = cfg.pattern
     n_per = len(pat)
     layers: List[Dict] = [dict() for _ in range(cfg.num_layers)]

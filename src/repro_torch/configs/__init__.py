@@ -1,8 +1,10 @@
 """Architecture config registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
 Port of ``repro/configs``.  Ported so far: the paper's primary serving
-backbone, Llama-2-7B, and the two sparse-MoE configs (Mixtral-8x22B, with
-its sliding window, and Grok-1); the other configs follow with the model
+backbone, Llama-2-7B, the two sparse-MoE configs (Mixtral-8x22B, with
+its sliding window, and Grok-1), and the two stacks with recurrent
+state (RecurrentGemma-9B, hybrid RG-LRU + local attention, and
+Mamba2-780M, attention-free SSD); the other configs follow with the model
 families they need.
 """
 from __future__ import annotations
@@ -12,7 +14,8 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["mixtral_8x22b", "grok_1_314b", "llama2_7b"]
+ARCH_IDS: List[str] = ["recurrentgemma_9b", "mixtral_8x22b", "grok_1_314b",
+                       "mamba2_780m", "llama2_7b"]
 
 
 def _norm(arch: str) -> str:

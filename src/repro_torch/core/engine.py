@@ -1,7 +1,7 @@
-"""Multi-LoRA inference steps over a shared backbone (port of the
-attention-stack subset of ``repro/core/engine.py``): the warm-function
-``InferenceEngine`` over ring caches, and the serving steps over the paged
-pools.
+"""Multi-LoRA inference steps over a shared backbone (port of
+``repro/core/engine.py``): the warm-function ``InferenceEngine`` over ring
+caches (attention-only stacks), the serving steps over the paged pools and
+slot-state rows, and the slot-wise REC/SSD state ops.
 
 The reference builds pure functions that it jits; the factories here
 return plain functions that update the caches in place (the stand-in for
@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ModelConfig
 
 Params = Dict[str, Any]
 
@@ -44,15 +44,17 @@ def make_chunked_prefill_step(cfg: ModelConfig):
     writing K/V straight into pool blocks (``chunk_ids`` (B, C//bs);
     garbage-block entries skip the write) and attending over each row's
     paged history via ``block_tbl`` (B, MB).  ``last_idx`` (B,) is the
-    in-chunk index whose logit to return.  Returns ((B, V) logits, pools
-    updated in place)."""
+    in-chunk index whose logit to return; ``state_rows`` (B,) names each
+    row's REC/SSD slot-state row.  Returns ((B, V) logits, pools and state
+    rows updated in place)."""
 
     def chunked_prefill_step(params, tokens, start, last_idx, cache,
-                             chunk_ids, block_tbl, *, adapter_idx=None):
+                             chunk_ids, block_tbl, *, adapter_idx=None,
+                             state_rows=None):
         logits, cache = tf.forward(
             params, cfg, tokens, cache=cache, adapter_idx=adapter_idx,
             start_pos=start, last_pos=last_idx, block_tbl=block_tbl,
-            chunk_ids=chunk_ids)
+            chunk_ids=chunk_ids, state_rows=state_rows)
         return logits[:, -1], cache
 
     return chunked_prefill_step
@@ -60,16 +62,65 @@ def make_chunked_prefill_step(cfg: ModelConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """ONE-token decode.  On a ring cache ``pos`` is the scalar position of
-    every row; on the paged pools it is (B,) per-slot positions and
-    ``block_tbl`` (B, MB) maps each slot's logical blocks to pool
-    blocks."""
+    every row; on the paged pools it is (B,) per-slot positions,
+    ``block_tbl`` (B, MB) maps each slot's logical blocks to pool blocks
+    and ``state_rows`` (B,) names each row's REC/SSD slot-state row."""
 
     def serve_step(params, token, cache, pos, *, adapter_idx=None,
-                   block_tbl=None):
+                   block_tbl=None, state_rows=None):
         return tf.decode_step(params, cfg, token, cache, pos,
-                              adapter_idx=adapter_idx, block_tbl=block_tbl)
+                              adapter_idx=adapter_idx, block_tbl=block_tbl,
+                              state_rows=state_rows)
 
     return serve_step
+
+
+# --------------------------------------------------- slot-wise state ops
+# REC/SSD layers keep their serving state in dense per-slot rows
+# (models.cache.slot_state_spec).  The runtime never dispatches these: a
+# prefill chunk at position 0 zeroes a recycled row in-step and every step
+# scatters its own updates.  They exist for tests, migration and slot
+# snapshot/restore.  The port's cache is a list in stack order, so a
+# state tree is one entry per layer: a {name: tensor} dict for REC/SSD
+# layers, None for ATTN layers (their K/V lives in pool blocks).
+def make_state_extract_fn(cfg: ModelConfig):
+    """(cache, row) -> per-layer copies of slot ``row``'s REC/SSD state."""
+
+    def extract(cache, row: int) -> List[Optional[Dict[str, torch.Tensor]]]:
+        return [None if kind == ATTN else
+                {k: t[row].clone() for k, t in layer.items()}
+                for kind, layer in zip(cfg.layer_kinds, cache)]
+
+    return extract
+
+
+def make_state_insert_fn(cfg: ModelConfig):
+    """(cache, states, row) -> cache with slot ``row``'s REC/SSD state set
+    from ``states`` (the extract layout; ATTN entries ignored), in
+    place."""
+
+    def insert(cache, states, row: int):
+        for kind, layer, st in zip(cfg.layer_kinds, cache, states):
+            if kind != ATTN:
+                for k, t in layer.items():
+                    t[row] = st[k].to(t.dtype)
+        return cache
+
+    return insert
+
+
+def make_state_reset_fn(cfg: ModelConfig):
+    """(cache, rows (R,)) -> cache with those REC/SSD rows zeroed in place
+    (ATTN pools untouched)."""
+
+    def reset(cache, rows: torch.Tensor):
+        for kind, layer in zip(cfg.layer_kinds, cache):
+            if kind != ATTN:
+                for t in layer.values():
+                    t.index_fill_(0, rows.long().to(t.device), 0)
+        return cache
+
+    return reset
 
 
 class InferenceEngine:

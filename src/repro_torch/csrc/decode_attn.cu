@@ -49,7 +49,8 @@ __global__ void __launch_bounds__(dec::kThreads) ring_decode_part_kernel(
   const int t0 = s * part;
   const size_t row0 = static_cast<size_t>(b) * S + t0;  // slot 0's cache row
   dec::partition_step<T, HD, GP>(
-      q, k, v, static_cast<size_t>(b) * K + h, G, min(part, S - t0), part,
+      q, k, v, (static_cast<size_t>(b) * K + h) * G, G, min(part, S - t0),
+      part,
       [=](int i) -> long long {
         const int sp = slot_pos[t0 + i];
         const bool ok =
@@ -101,7 +102,7 @@ extern "C" int ring_decode(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int bad =
-      dec::dispatch(dtype, hd, G, [&](auto t, auto d, auto gp) {
+      dec::dispatch<128>(dtype, hd, G, [&](auto t, auto d, auto gp) {
         return launch<typename decltype(t)::type, decltype(d)::value,
                       decltype(gp)::value>(q, k, v, slot_pos, pos_ptr,
                                            pos_host, acc, m, l, out, B, K,
@@ -115,7 +116,7 @@ extern "C" int ring_decode(const void* q, const void* k, const void* v,
 // at head dim hd (32, 64 or 128), dtype, part slots and G (1..8) query
 // heads per kv head.
 extern "C" int decode_smem_bytes(int hd, int dtype, int part, int G) {
-  return dec::dispatch(dtype, hd, G, [&](auto t, auto d, auto) {
+  return dec::dispatch<256>(dtype, hd, G, [&](auto t, auto d, auto) {
     return static_cast<int>(dec::smem_bytes<typename decltype(t)::type,
                                             decltype(d)::value>(part, G));
   });

@@ -2,7 +2,7 @@
 // (decode_attn.cu over the ring cache, paged_attn.cu over the block pools).
 //
 // One CTA of 128 threads takes one (row, kv head, partition of `part`
-// slots) for all G query heads of that kv head.  The kernels differ only in
+// slots) for the G query heads of that kv head (at most kMaxG of them).  The kernels differ only in
 // how slot i of the partition is found and whether it is attended, and
 // each passes that as slot_offset(i): the element offset of the slot's K/V
 // row for this kv head, or -1 when the slot is not attended.  The step:
@@ -18,16 +18,18 @@
 //     nothing is read from it: paged pools hold whatever stalled rows last
 //     wrote to the garbage block, ring slots past pos hold a stale lap;
 //  3. waits for the K group only and computes the scores from shared
-//     memory while V is in flight.  A key row is split over LPR = hd *
-//     sizeof(T) / 16 lanes (16 at hd 128 in bf16, 32 in float32); each
-//     lane reads its 16 bytes once for all G heads, whose q chunks it holds
-//     in float32 registers, and the G dot products are reduced over the
-//     LPR lanes with log2(LPR) shuffles;
+//     memory while V is in flight.  A key row of CH = hd * sizeof(T) / 16
+//     chunks of 16 bytes is split over LPR = min(CH, 32) lanes (16 at hd
+//     128 in bf16, 32 in float32 and at hd 256), each lane holding CPL =
+//     CH / LPR chunks (2 at hd 256 in float32, else 1); each lane reads
+//     its chunks once for all G heads, whose q chunks it holds in float32
+//     registers, and the G dot products are reduced over the LPR lanes
+//     with log2(LPR) shuffles;
 //  4. takes the partition softmax, one warp a head: float32 max and sum,
 //     probability exactly 0 for a slot that is not attended;
 //  5. waits for V and forms P V from shared memory: thread (j, c) owns
-//     16-byte chunk c of the head dimension for rows j, j + 128 / LPR, ...
-//     and all G heads, so V is read once from device memory whatever G.
+//     the chunks c, c + LPR, ... of the head dimension for rows j, j + 128
+//     / LPR, ... and all G heads, so V is read once per CTA whatever G.
 //     The partial sums are reduced over a warp's row groups with shuffles
 //     and over the 4 warps through shared memory;
 //  6. writes each head's unnormalised (acc, m, l) triple for
@@ -38,6 +40,11 @@
 // step runs on the CUDA cores in float32 and its design is about keeping
 // bytes in flight.  G is a template bound (GP = 1, 2, 4 or 8, the least
 // power of two >= G), so the G = 1 path carries no registers for 8 heads.
+// A CTA takes at most kMaxG = 8 query heads: at hd 256 a lane holds 8
+// floats of q and 8 of the output per head (128 registers at 8 heads), so
+// 16 heads would spill.  A kernel whose kv heads carry more query heads
+// (RecurrentGemma-9B: 16 over 1) gives each group of at most 8 its own
+// CTA, which reads the partition's K/V again (twice at G = 16).
 #pragma once
 
 #include <type_traits>
@@ -50,7 +57,20 @@ namespace decode {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPart = kThreads;  // slots per partition: one thread each
-constexpr int kMaxG = 8;            // query heads per kv head
+constexpr int kMaxG = 8;            // query heads per CTA
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one CTA
+
+// A row of HD elements as 16-byte chunks over the lanes of a warp.
+template <typename T, int HD>
+struct RowLayout {
+  static constexpr int EPC = 16 / sizeof(T);     // elements per chunk
+  static constexpr int CH = HD / EPC;            // chunks per row
+  static constexpr int LPR = CH < 32 ? CH : 32;  // lanes per row
+  static constexpr int CPL = CH / LPR;           // chunks per lane
+  static constexpr int EPL = CPL * EPC;          // elements per lane
+  static_assert(CH >= 1 && 32 % LPR == 0 && CH % LPR == 0,
+                "a row spans 1..32 lanes, whole chunks each");
+};
 
 // Bytes of dynamic shared memory: K and V rows, slot offsets, scores
 // [G][part], the P V partial sums [kWarps][G][HD].
@@ -59,6 +79,16 @@ constexpr size_t smem_bytes(int part, int G) {
   return (2 * sizeof(T) * HD + sizeof(long long) + sizeof(float) * G) *
              static_cast<size_t>(part) +
          sizeof(float) * kWarps * G * HD;
+}
+
+// The largest partition (a power of two <= kMaxPart) whose staging at GP
+// heads fits one CTA's shared memory: 128 slots, but 64 at hd 256 in
+// float32.
+template <typename T, int HD, int GP>
+constexpr int max_part() {
+  int part = kMaxPart;
+  while (part > 1 && smem_bytes<T, HD>(part, GP) > kMaxSmem) part /= 2;
+  return part;
 }
 
 // 16 bytes (4 floats or 8 bf16) -> float32.
@@ -81,14 +111,29 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p,
   }
 }
 
+// The EPL elements of row `row` that lane slot c holds: chunks c, c +
+// LPR, ..., as float32.
+template <typename T, int HD>
+__device__ __forceinline__ void load_lane(const T* row, int c,
+                                          float (&f)[RowLayout<T, HD>::EPL]) {
+  using L = RowLayout<T, HD>;
+#pragma unroll
+  for (int j = 0; j < L::CPL; ++j) {
+    float t[L::EPC];
+    load16(row + (c + j * L::LPR) * L::EPC, t);
+#pragma unroll
+    for (int e = 0; e < L::EPC; ++e) f[j * L::EPC + e] = t[e];
+  }
+}
+
 // Issue the 16-byte copies of rows 0..n-1 of `src` (offsets off[i], -1 =
 // zero-fill) into `dst` (rows of HD elements).
 template <typename T, int HD>
 __device__ __forceinline__ void copy_rows(T* dst, const T* src,
                                           const long long* off, int n) {
-  constexpr int EPC = 16 / sizeof(T), LPR = HD / EPC;
-  for (int x = threadIdx.x; x < n * LPR; x += kThreads) {
-    const int i = x / LPR, ch = x % LPR;
+  constexpr int EPC = RowLayout<T, HD>::EPC, CH = RowLayout<T, HD>::CH;
+  for (int x = threadIdx.x; x < n * CH; x += kThreads) {
+    const int i = x / CH, ch = x % CH;
     const long long o = off[i];
     cp_async16(dst + i * HD + ch * EPC, src + (o >= 0 ? o : 0) + ch * EPC,
                o >= 0);
@@ -99,26 +144,28 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src,
 // lane holds in qr, into sc[g * part + i] (-inf where off[i] < 0).
 template <typename T, int HD, int GP>
 __device__ __forceinline__ void score_rows(
-    const T* Ks, const long long* off, const float (&qr)[GP][16 / sizeof(T)],
-    float* sc, int G, int n, int part, float scale) {
-  constexpr int EPC = 16 / sizeof(T), LPR = HD / EPC, RPW = 32 / LPR;
+    const T* Ks, const long long* off,
+    const float (&qr)[GP][RowLayout<T, HD>::EPL], float* sc, int G, int n,
+    int part, float scale) {
+  constexpr int EPL = RowLayout<T, HD>::EPL, LPR = RowLayout<T, HD>::LPR;
+  constexpr int RPW = 32 / LPR;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = lane % LPR;
   for (int i0 = warp * RPW; i0 < n; i0 += kWarps * RPW) {  // warp-uniform
     const int i = i0 + lane / LPR;
-    float kf[EPC];
+    float kf[EPL];
     if (i < n) {
-      load16(Ks + i * HD + c * EPC, kf);
+      load_lane<T, HD>(Ks + i * HD, c, kf);
     } else {
 #pragma unroll
-      for (int e = 0; e < EPC; ++e) kf[e] = 0.f;
+      for (int e = 0; e < EPL; ++e) kf[e] = 0.f;
     }
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
       if (g >= G) break;
       float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPC; ++e) dot += qr[g][e] * kf[e];
+      for (int e = 0; e < EPL; ++e) dot += qr[g][e] * kf[e];
 #pragma unroll
       for (int o = LPR / 2; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
@@ -131,42 +178,41 @@ __device__ __forceinline__ void score_rows(
 // Step 5: this thread's share of P V, rows j, j + 128 / LPR, ... of Vs
 // with probabilities sc[g * part + i], added into acc.
 template <typename T, int HD, int GP>
-__device__ __forceinline__ void pv_rows(const T* Vs, const float* sc,
-                                        float (&acc)[GP][16 / sizeof(T)],
-                                        int G, int n, int part) {
-  constexpr int EPC = 16 / sizeof(T), LPR = HD / EPC;
+__device__ __forceinline__ void pv_rows(
+    const T* Vs, const float* sc, float (&acc)[GP][RowLayout<T, HD>::EPL],
+    int G, int n, int part) {
+  constexpr int EPL = RowLayout<T, HD>::EPL, LPR = RowLayout<T, HD>::LPR;
   constexpr int NGRP = kThreads / LPR;
   const int c = threadIdx.x % LPR;
   for (int i = threadIdx.x / LPR; i < n; i += NGRP) {
-    float vf[EPC];
-    load16(Vs + i * HD + c * EPC, vf);
+    float vf[EPL];
+    load_lane<T, HD>(Vs + i * HD, c, vf);
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
       if (g >= G) break;
       const float pr = sc[g * part + i];
 #pragma unroll
-      for (int e = 0; e < EPC; ++e) acc[g][e] += pr * vf[e];
+      for (int e = 0; e < EPL; ++e) acc[g][e] += pr * vf[e];
     }
   }
 }
 
 // The whole partition step (steps 1-6 above).  Every thread of the CTA
 // calls it with the same arguments; the CTA is launched with
-// smem_bytes<T, HD>(part, G) bytes of dynamic shared memory.  qh = row *
-// K + kv head; q is (rows, K * G, HD); the triple of query head qh * G + g
-// goes to index (qh * G + g) * NP + s of m_out / l_out (times HD for
-// acc_out).
+// smem_bytes<T, HD>(part, G) bytes of dynamic shared memory.  It serves
+// the G query heads q0, q0 + 1, ... (G <= GP), each a row of HD elements
+// of q; the triple of query head q0 + g goes to index (q0 + g) * NP + s of
+// m_out / l_out (times HD for acc_out).
 template <typename T, int HD, int GP, typename SlotOffset>
 __device__ __forceinline__ void partition_step(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, size_t qh, int G, int n, int part,
+    const T* __restrict__ v, size_t q0, int G, int n, int part,
     SlotOffset slot_offset, float* __restrict__ acc_out,
     float* __restrict__ m_out, float* __restrict__ l_out, int s, int NP,
     float scale) {
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int LPR = HD / EPC;        // lanes per K/V row
-  static_assert(LPR >= 1 && 32 % LPR == 0, "a row spans 1..32 lanes");
-  static_assert(GP >= 1 && GP <= kMaxG, "query heads per kv head");
+  using L = RowLayout<T, HD>;
+  constexpr int EPC = L::EPC, LPR = L::LPR, EPL = L::EPL;
+  static_assert(GP >= 1 && GP <= kMaxG, "query heads per CTA");
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + part * HD;
@@ -174,17 +220,17 @@ __device__ __forceinline__ void partition_step(
   float* sc = reinterpret_cast<float*>(off + part);  // [G][part]
   float* red = sc + G * part;                         // [kWarps][G][HD]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = lane % LPR;  // this lane's 16-byte chunk of a row
+  const int c = lane % LPR;  // this lane's first 16-byte chunk of a row
 
   // 1. resolve
   const long long mine = tid < n ? slot_offset(tid) : -1;
   if (tid < n) off[tid] = mine;
   if (!__syncthreads_or(mine >= 0)) {
     for (int d = tid; d < G * HD; d += kThreads)
-      acc_out[((qh * G + d / HD) * NP + s) * HD + d % HD] = 0.f;
+      acc_out[((q0 + d / HD) * NP + s) * HD + d % HD] = 0.f;
     if (tid < G) {
-      m_out[(qh * G + tid) * NP + s] = neg_inf();
-      l_out[(qh * G + tid) * NP + s] = 0.f;
+      m_out[(q0 + tid) * NP + s] = neg_inf();
+      l_out[(q0 + tid) * NP + s] = 0.f;
     }
     return;
   }
@@ -194,14 +240,14 @@ __device__ __forceinline__ void partition_step(
   cp_async_commit();
   copy_rows<T, HD>(Vs, v, off, n);
   cp_async_commit();
-  float qr[GP][EPC];
+  float qr[GP][EPL];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
     if (g < G) {
-      load16(q + (qh * G + g) * HD + c * EPC, qr[g]);
+      load_lane<T, HD>(q + (q0 + g) * HD, c, qr[g]);
     } else {
 #pragma unroll
-      for (int e = 0; e < EPC; ++e) qr[g][e] = 0.f;
+      for (int e = 0; e < EPL; ++e) qr[g][e] = 0.f;
     }
   }
 
@@ -227,34 +273,37 @@ __device__ __forceinline__ void partition_step(
     }
     sum = warp_sum(sum);
     if (lane == 0) {
-      m_out[(qh * G + g) * NP + s] = mx;
-      l_out[(qh * G + g) * NP + s] = sum;
+      m_out[(q0 + g) * NP + s] = mx;
+      l_out[(q0 + g) * NP + s] = sum;
     }
   }
   cp_async_wait<0>();
   __syncthreads();
 
   // 5. P V: masked rows are zero-filled and weigh exactly 0
-  float acc[GP][EPC];
+  float acc[GP][EPL];
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   pv_rows<T, HD, GP>(Vs, sc, acc, G, n, part);
 #pragma unroll
   for (int o = LPR; o < 32; o <<= 1)  // the warp's row groups
 #pragma unroll
     for (int g = 0; g < GP; ++g)
 #pragma unroll
-      for (int e = 0; e < EPC; ++e)
+      for (int e = 0; e < EPL; ++e)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
   if (lane < LPR) {
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
       if (g >= G) break;
 #pragma unroll
-      for (int e = 0; e < EPC; ++e)
-        red[(warp * G + g) * HD + c * EPC + e] = acc[g][e];
+      for (int j = 0; j < L::CPL; ++j)
+#pragma unroll
+        for (int e = 0; e < EPC; ++e)
+          red[(warp * G + g) * HD + (c + j * LPR) * EPC + e] =
+              acc[g][j * EPC + e];
     }
   }
   __syncthreads();
@@ -264,7 +313,7 @@ __device__ __forceinline__ void partition_step(
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += red[w * G * HD + d];
-    acc_out[((qh * G + d / HD) * NP + s) * HD + d % HD] = a;
+    acc_out[((q0 + d / HD) * NP + s) * HD + d % HD] = a;
   }
 }
 
@@ -285,7 +334,7 @@ int dispatch_g(int G, F& f) {
   return f(type_tag<T>{}, int_tag<HD>{}, int_tag<8>{});
 }
 
-template <typename T, typename F>
+template <typename T, int MaxHD, typename F>
 int dispatch_hd(int hd, int G, F& f) {
   switch (hd) {
     case 32:
@@ -294,16 +343,21 @@ int dispatch_hd(int hd, int G, F& f) {
       return dispatch_g<T, 64>(G, f);
     case 128:
       return dispatch_g<T, 128>(G, f);
+    case 256:
+      if constexpr (MaxHD >= 256) return dispatch_g<T, 256>(G, f);
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename F>
+// G: query heads of one CTA (1..kMaxG).  MaxHD: the largest head dim
+// instantiated (the ring kernel stops at 128, the paged one at 256).
+template <int MaxHD, typename F>
 int dispatch(int dtype, int hd, int G, F&& f) {
   if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == DTYPE_BF16 ? dispatch_hd<__nv_bfloat16>(hd, G, f)
-                             : dispatch_hd<float>(hd, G, f);
+  return dtype == DTYPE_BF16 ? dispatch_hd<__nv_bfloat16, MaxHD>(hd, G, f)
+                             : dispatch_hd<float, MaxHD>(hd, G, f);
 }
 
 }  // namespace decode

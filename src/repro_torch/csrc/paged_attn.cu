@@ -31,6 +31,13 @@
 //    holds what stalled rows wrote — and gets probability exactly 0.  A
 //    row with no live key (an inactive slot) yields exact zeros, finite as
 //    the runtime requires.
+// A kv head with more than kMaxG = 8 query heads (RecurrentGemma-9B: 16
+// over 1, at hd 256) splits them into groups of 8 on the grid's third
+// axis; each group's CTA stages the partition itself, so K/V are read once
+// per group.  At hd 256 a bf16 partition of 64 slots and 8 heads stages
+// 99 KB (float32: 163 KB), above the 48 KB default: the launcher raises
+// the limit once per instantiation (rt::allow_smem) to its largest
+// partition (dec::max_part).
 #include <cmath>
 
 #include "decode_tile.cuh"
@@ -38,6 +45,8 @@
 namespace {
 
 namespace dec = rt::decode;
+
+constexpr int kMaxGroups = 2;  // head groups of kMaxG per kv head
 
 template <typename T, int HD, int GP>
 __global__ void __launch_bounds__(dec::kThreads) paged_decode_part_kernel(
@@ -47,12 +56,15 @@ __global__ void __launch_bounds__(dec::kThreads) paged_decode_part_kernel(
     float* __restrict__ m, float* __restrict__ l, int K, int G, int NB,
     int bs, int MB, int part, int window, float scale) {
   const int b = blockIdx.x / K, h = blockIdx.x % K, s = blockIdx.y;
+  const int g0 = blockIdx.z * dec::kMaxG;  // this CTA's query heads
+  const int Gc = min(dec::kMaxG, G - g0);
   const int p = pos[b];
   const int t_end = min(min((s + 1) * part, p + 1), MB * bs);  // exclusive
   int t_begin = s * part;
   if (window > 0) t_begin = max(t_begin, p - window + 1);
   dec::partition_step<T, HD, GP>(
-      q, kp, vp, static_cast<size_t>(b) * K + h, G, t_end - t_begin, part,
+      q, kp, vp, (static_cast<size_t>(b) * K + h) * G + g0, Gc,
+      t_end - t_begin, part,
       [=](int i) -> long long {
         const int t = t_begin + i;
         const int phys = tbl[b * MB + t / bs];
@@ -73,13 +85,18 @@ int launch(const void* q, const void* kp, const void* vp, const void* tbl,
   const int NP = (MB * bs + part - 1) / part;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
-  static const cudaError_t attr =
-      rt::allow_smem(paged_decode_part_kernel<T, HD, GP>,
-                     dec::smem_bytes<T, HD>(dec::kMaxPart, GP));
+  if (part > dec::max_part<T, HD, GP>())
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = rt::allow_smem(
+      paged_decode_part_kernel<T, HD, GP>,
+      dec::smem_bytes<T, HD>(dec::max_part<T, HD, GP>(), GP));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid(B * K, NP);
+  const int groups = (G + dec::kMaxG - 1) / dec::kMaxG;
+  dim3 grid(B * K, NP, groups);
   paged_decode_part_kernel<T, HD, GP>
-      <<<grid, dec::kThreads, dec::smem_bytes<T, HD>(part, G), st>>>(
+      <<<grid, dec::kThreads,
+         dec::smem_bytes<T, HD>(part, G < dec::kMaxG ? G : dec::kMaxG),
+         st>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), static_cast<const int*>(tbl),
           static_cast<const int*>(pos), static_cast<float*>(acc),
@@ -97,17 +114,19 @@ int launch(const void* q, const void* kp, const void* vp, const void* tbl,
 // q (B, K*G, hd); kp/vp (K, NB, bs, hd); tbl (B, MB) int32; pos (B,) int32;
 // scratch acc (B, K, G, S, hd), m/l (B, K, G, S) float32 with
 // S = ceil(MB*bs / part); out (B, K*G, hd).  q, kp and vp start on 16-byte
-// boundaries.  window <= 0 means none.
+// boundaries.  window <= 0 means none.  hd 32, 64, 128 or 256; G up to
+// kMaxGroups * kMaxG = 16.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* tbl, const void* pos, void* acc,
                             void* m, void* l, void* out, int B, int K, int G,
                             int NB, int bs, int MB, int hd, int part,
                             int window, int dtype, void* stream) {
-  if (part < 1 || part > dec::kMaxPart)
+  if (part < 1 || part > dec::kMaxPart || G < 1 ||
+      G > kMaxGroups * dec::kMaxG)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  const int bad =
-      dec::dispatch(dtype, hd, G, [&](auto t, auto d, auto gp) {
+  const int bad = dec::dispatch<256>(
+      dtype, hd, G < dec::kMaxG ? G : dec::kMaxG, [&](auto t, auto d, auto gp) {
         return launch<typename decltype(t)::type, decltype(d)::value,
                       decltype(gp)::value>(q, kp, vp, tbl, pos, acc, m, l,
                                            out, B, K, G, NB, bs, MB, part,

@@ -42,6 +42,16 @@
 // keys in 12 stages) moves ~384 KB per CTA.  Shared memory: 103 KB at
 // hd 128 (the ring, Q staged in its third K buffer, the key positions).
 //
+// hd 256 (RecurrentGemma-9B: 16 query heads over 1 kv head) takes the
+// same kernels.  bf16: Q gets its own buffer and its fragments are
+// reloaded per stage (prefill_tile.cuh, q_in_smem), and the ring has two
+// stages: 2 x 2 x 64 x 264 x 2 bytes + Q's 33 KB = 166 KB.  float32: the
+// CUDA-core step's Q tile, K and V stage and probability tile at a
+// 260-float stride, 213 KB.
+// At G = 16 a 64-row tile holds 4 queries, so a chunk of 64 queries is 16
+// tiles per (row, kv head), and each tile walks the window's keys itself:
+// the history is read 16 times, where the bound reads it once.
+//
 // Queries sit at start[b] + c.  The kernel also receives the positions
 // the plain version would take and asserts they are that contiguous run.
 #include <cmath>
@@ -165,12 +175,16 @@ __global__ void __launch_bounds__(rt::tile::kThreads) paged_prefill_f32(
 }
 
 // ------------------------------------------------------------ bfloat16
-constexpr int kStagesBf16 = 3;
+// Stages of the bf16 ring: three, two at hd 256 (the Q buffer's room).
+template <int HD>
+__host__ __device__ constexpr int stages_bf16() {
+  return rt::tile::tc::q_in_smem<HD>() ? 2 : 3;
+}
 
 template <int HD>
-constexpr size_t smem_bytes_bf16() {
-  return rt::tile::tc::smem_bytes<HD, kStagesBf16>() +
-         kStagesBf16 * kKT * sizeof(int);
+__host__ __device__ constexpr size_t smem_bytes_bf16() {
+  return rt::tile::tc::smem_bytes<HD, stages_bf16<HD>()>() +
+         stages_bf16<HD>() * kKT * sizeof(int);
 }
 
 template <int HD>
@@ -181,12 +195,13 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads) paged_prefill_bf16(
     bf16* __restrict__ out, int C, int K, int G, int NB, int bs, int MB,
     int window, float scale_log2) {
   namespace tc = rt::tile::tc;
-  constexpr int NS = kStagesBf16, LD = tc::ld<HD>(), CH = HD / 8;
+  constexpr int NS = stages_bf16<HD>(), LD = tc::ld<HD>(), CH = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NS][kKT][LD]
   bf16* Vs = Ks + NS * kKT * LD;                 // [NS][kKT][LD]
   bf16* Qs = tc::q_buffer<HD, NS>(Ks);           // [kM][LD]
-  int* kpos = reinterpret_cast<int*>(Vs + NS * kKT * LD);  // [NS][kKT]
+  int* kpos = reinterpret_cast<int*>(smem_raw +  // [NS][kKT]
+                                     tc::smem_bytes<HD, NS>());
 
   const int b = blockIdx.x / K, h = blockIdx.x % K;
   const int H = K * G, rows = C * G;
@@ -336,6 +351,10 @@ extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,
       break;
     case 128:
       bad = launch<128>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
+                        NB, bs, MB, window, s);
+      break;
+    case 256:
+      bad = launch<256>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
                         NB, bs, MB, window, s);
       break;
     default:

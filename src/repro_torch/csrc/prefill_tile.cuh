@@ -19,7 +19,12 @@
 //  * Q is copied once into shared memory (the K buffer of the last ring
 //    slot, not yet in use) and loaded with ldmatrix into A fragments that
 //    stay in registers for the whole key walk (HD/16 k-steps x 4
-//    registers: 32 at HD = 128).
+//    registers: 32 at HD = 128).  At HD = 256 (q_in_smem) the fragments
+//    would take 64 registers beside the output's 128 and spill, so Q gets
+//    a buffer of its own past the ring and each stage reloads its
+//    fragments with ldmatrix, one k-step at a time; the ring then holds
+//    two stages (three of 64 keys at a 264-element stride, 203 KB, leave
+//    no room for Q's 33 KB).
 //  * K and V stages are copied as bf16 into a ring of NS buffers with
 //    16-byte cp.async (src-size 0 zero-fills a key that is not read), so
 //    stage s + NS - 1 is in flight while stage s is computed; one
@@ -35,7 +40,7 @@
 //  * P V: the score accumulators, rounded to bf16 pairs, are the A
 //    fragments of the second product (P never goes through shared
 //    memory); V fragments come from ldmatrix.trans; O accumulates in
-//    float32 registers (HD/8 n-tiles x 4: 64 at HD = 128).
+//    float32 registers (HD/8 n-tiles x 4: 64 at HD = 128, 128 at 256).
 //  * Epilogue: normalise, round to bf16, stage each warp's 16 rows in its
 //    own rows of the Q buffer and write them out with 16-byte stores.
 // This is the arithmetic of the Pallas kernels, not an approximation of
@@ -206,19 +211,29 @@ __host__ __device__ constexpr int ld() {
   return HD + 8;
 }
 
+// Whether Q's fragments are read from shared memory at every stage
+// instead of held in registers (see the top of this file).
+template <int HD>
+__host__ __device__ constexpr bool q_in_smem() {
+  return HD > 128;
+}
+
 // Bytes of shared memory: a ring of NS (K, V) stages, K buffers first.
 // The Q tile is staged in the K buffer of ring slot NS - 1 (q_buffer):
 // the walk first fills that slot after every warp has loaded its Q
-// fragments, and the epilogue reuses it once every stage is done.
+// fragments, and the epilogue reuses it once every stage is done.  With
+// q_in_smem the Q tile has its own buffer after the ring.
 template <int HD, int NS>
-constexpr size_t smem_bytes() {
-  return static_cast<size_t>(2 * NS * kKT) * ld<HD>() * sizeof(bf16);
+__host__ __device__ constexpr size_t smem_bytes() {
+  return static_cast<size_t>(2 * NS * kKT + (q_in_smem<HD>() ? kM : 0)) *
+         ld<HD>() * sizeof(bf16);
 }
 static_assert(kM == kKT, "the Q tile fits one K buffer");
 
 template <int HD, int NS>
 __device__ __forceinline__ bf16* q_buffer(bf16* Ks) {
-  return Ks + (NS - 1) * kKT * ld<HD>();
+  return q_in_smem<HD>() ? Ks + 2 * NS * kKT * ld<HD>()
+                         : Ks + (NS - 1) * kKT * ld<HD>();
 }
 
 // Copy the tile's query rows into Qs (kM rows of stride ld<HD>()).  Tile
@@ -247,17 +262,28 @@ __device__ __forceinline__ void stage_q(bf16* Qs, const bf16* q, int b,
 // column block, columns 2t and 2t + 1.
 template <int HD>
 struct Rows {
-  uint32_t q[HD / 16][4];  // A fragments of Q, one per 16-wide k-step
+  static constexpr int kQF = q_in_smem<HD>() ? 1 : HD / 16;
+  uint32_t q[kQF][4];      // A fragments of Q, one per 16-wide k-step
+  const bf16* qw;          // the warp's 16 rows of Q (q_in_smem)
   float o[HD / 8][4];      // unnormalised output, float32
   float m[2];              // running max, log2 domain
   float l[2];              // this lane's partial sum of probabilities
 
-  // Load the warp's Q fragments from its 16 rows of Qs.
-  __device__ __forceinline__ void init(const bf16* Qw) {
+  // The A fragment of Q at k-step kk from the warp's rows of Qs.
+  __device__ __forceinline__ void load_q(uint32_t (&f)[4], const bf16* Qw,
+                                         int kk) const {
     const int lane = threadIdx.x & 31;
+    ldsm_x4(f, Qw + (lane & 15) * ld<HD>() + kk * 16 + (lane >> 4) * 8);
+  }
+
+  // Load the warp's Q fragments from its 16 rows of Qs (with q_in_smem,
+  // keep where they are).
+  __device__ __forceinline__ void init(const bf16* Qw) {
+    qw = Qw;
+    if constexpr (!q_in_smem<HD>()) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      ldsm_x4(q[kk], Qw + (lane & 15) * ld<HD>() + kk * 16 + (lane >> 4) * 8);
+      for (int kk = 0; kk < HD / 16; ++kk) load_q(q[kk], Qw, kk);
+    }
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
@@ -289,8 +315,8 @@ __device__ __forceinline__ void attend_stage(const bf16* Ks, const bf16* Vs,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  // one k-step of S = Q K^T with Q's A fragment qa
+  auto qk = [&](const uint32_t(&qa)[4], int kk) {
 #pragma unroll
     for (int jp = 0; jp < NT / 2; ++jp) {
       // matrices: keys 16jp + {0..7, 0..7, 8..15, 8..15} x dims
@@ -298,8 +324,18 @@ __device__ __forceinline__ void attend_stage(const bf16* Ks, const bf16* Vs,
       uint32_t b[4];
       ldsm_x4(b, Ks + (16 * jp + (mi >> 1) * 8 + mr) * LD + kk * 16 +
                      (mi & 1) * 8);
-      mma_bf16(s[2 * jp], st.q[kk], b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], st.q[kk], b[2], b[3]);
+      mma_bf16(s[2 * jp], qa, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+    }
+  };
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (q_in_smem<HD>()) {
+      uint32_t qa[4];
+      st.load_q(qa, st.qw, kk);
+      qk(qa, kk);
+    } else {
+      qk(st.q[kk], kk);
     }
   }
 

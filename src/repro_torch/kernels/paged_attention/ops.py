@@ -7,6 +7,9 @@ in-kernel and staging their K/V rows in shared memory with 16-byte
 ``cp.async`` copies, then a merge kernel) for CUDA tensors, and takes the
 plain version (``ref.paged_attention_ref``) only for CPU tensors.
 
+A kv head with more than 8 query heads (up to ``MAX_GROUP``) is served
+by groups of 8 heads, each group in CTAs of its own.
+
 ``paged_decode_gqa.launches`` counts calls that launched the kernel.
 """
 from __future__ import annotations
@@ -19,8 +22,8 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 PARTITION = 64           # tokens per split-KV partition (kernel max 128)
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8            # query heads per kv head
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_GROUP = 16           # query heads per kv head
 
 
 def paged_decode_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

@@ -1,6 +1,6 @@
-"""KV caches for attention-only stacks (port of the attention subset of
-``repro/models/cache.py``): ring caches for the warm-function engine and
-paged pools for the serving runtime.
+"""Decode caches (port of ``repro/models/cache.py``): ring caches of
+attention-only stacks for the warm-function engine, and for the serving
+runtime paged pools beside per-slot REC/SSD state rows.
 
 Ring cache (``init_cache``): per layer ``{"k","v": (B, S, K, hd),
 "slot_pos": (S,) int32 (-1 = empty), "idx"}``.  Token t of a row is
@@ -19,14 +19,24 @@ a sliding window.  Physical block 0 is reserved as a
 clipped onto it and never read back, which keeps every decode step
 branch-free and fixed-shape.
 
+Slot state: REC/SSD layers have no per-position K/V to page; their
+decode state is a fixed-size recurrent summary of the whole prefix (conv
+tail + hidden / SSM state).  The paged cache therefore holds, per such
+layer, dense ``(num_slots + 1, ...)`` state tensors beside the pools —
+one row per decode slot plus a reserved *garbage row* (the last one, index
+``num_slots``) that plays the role of the garbage block: prefill padding
+rows and stalled decode rows are pointed at it, so their discarded
+computation never advances a live slot's state.  It is never read as real
+state.
+
 Unlike the reference, whose jitted steps return new caches (donated
-buffers), the port updates both kinds IN PLACE — the stand-in for
+buffers), the port updates every kind IN PLACE — the stand-in for
 ``donate_argnums``.  Either cache is a list with one dict per layer, in
 stack order (not the reference's ``{"periods", "tail"}`` tree).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -91,28 +101,100 @@ def has_slot_state(cfg: ModelConfig) -> bool:
 
 
 def paging_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
-    """None if the port's paged runtime can serve the config.
+    """None if the paged runtime can serve the config.
 
-    The reference also serves hybrid REC/SSD stacks through per-slot state
-    rows; the port does not carry those rows yet, so such stacks are
-    refused here with that reason, as are encoder/cross-attention models
-    (refused by the reference too)."""
+    ATTN layers page their K/V through the shared block pool; REC and SSD
+    layers carry per-slot state rows beside it (``slot_state_spec``), so
+    hybrid and attention-free stacks are servable.  Only encoder /
+    cross-attention models stay out, as in the reference."""
     if cfg.cross_attention or cfg.encoder_layers:
         return "paged serving does not support encoder/cross-attention models"
-    if has_slot_state(cfg):
-        return ("REC/SSD slot-state serving is not ported to the PyTorch "
-                "runtime yet")
     return None
+
+
+def slot_state_spec(kind: str, cfg: ModelConfig,
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Per-slot state tensors of ONE layer of ``kind``: name -> (per-slot
+    shape, dtype).  ATTN layers return {} (their state is paged K/V)."""
+    dtype = dtype or cfg.torch_dtype
+    Di, W = cfg.d_inner, cfg.ssm_conv_width
+    if kind == REC:
+        return {"conv": ((W - 1, Di), dtype), "h": ((Di,), torch.float32)}
+    if kind == SSD:
+        return {"conv": ((W - 1, Di), dtype),
+                "ssm": ((cfg.ssm_num_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state_dim), torch.float32)}
+    return {}
+
+
+def slot_state_cache(kind: str, cfg: ModelConfig, rows: int,
+                     dtype: Optional[torch.dtype] = None, *,
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """One REC/SSD layer's slot-state tensors: {name: (rows, ...)}."""
+    return {k: torch.zeros((rows,) + shp, dtype=dt, device=device)
+            for k, (shp, dt) in slot_state_spec(kind, cfg, dtype).items()}
+
+
+def state_bytes_per_slot(cfg: ModelConfig,
+                         dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes of dense recurrent state ONE slot pins across the whole stack
+    (the REC/SSD analogue of the per-slot paged-KV working set)."""
+    total = 0
+    for kind in cfg.layer_kinds:
+        for shp, dt in slot_state_spec(kind, cfg, dtype).values():
+            n = 1
+            for d in shp:
+                n *= d
+            total += n * torch.empty((), dtype=dt).element_size()
+    return total
+
+
+def gather_slot_state(state: Dict[str, torch.Tensor], rows: torch.Tensor,
+                      positions: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One layer's slot-state rows in dispatch-row order.
+
+    ``rows``: (B,) int32 state row of each dispatch row (the garbage row
+    for padding and stalled rows); ``positions``: (B, T) the rows'
+    positions.  A row whose first position is 0 starts a fresh prompt on a
+    recycled slot and reads ZERO state instead of the previous tenant's,
+    so admission needs no reset.  Device ops only (no host read): the
+    captured dispatches run it."""
+    fresh = positions[:, 0] == 0
+    out = {}
+    for name, t in state.items():
+        s = t.index_select(0, rows.long())
+        m = fresh.reshape((-1,) + (1,) * (s.dim() - 1))
+        out[name] = torch.where(m, torch.zeros_like(s), s)
+    return out
+
+
+def scatter_slot_state(state: Dict[str, torch.Tensor],
+                       new: Dict[str, torch.Tensor],
+                       rows: torch.Tensor) -> None:
+    """Write updated per-row state back to its slot rows, in place (the
+    inverse of ``gather_slot_state``).  Duplicate garbage-row writes land
+    in any order; the garbage row is never read as real state."""
+    for name, t in state.items():
+        t.index_copy_(0, rows.long(), new[name].to(t.dtype))
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype: Optional[torch.dtype] = None, *,
+                     num_slots: Optional[int] = None,
                      device="cuda") -> Cache:
-    """Full-model paged cache: one block pool per attention layer."""
+    """Full-model paged cache, one entry per layer: a block pool for each
+    ATTN layer, ``(num_slots + 1, ...)`` slot-state rows (the last row is
+    the garbage row) for each REC/SSD layer."""
     reason = paging_unsupported_reason(cfg)
     if reason is not None:
         raise ValueError(reason)
     dtype = dtype or cfg.torch_dtype
-    assert all(kind == ATTN for kind in cfg.layer_kinds)
+    if has_slot_state(cfg) and num_slots is None:
+        raise ValueError(
+            "config has REC/SSD layers: init_paged_cache needs num_slots "
+            "to size the per-slot state rows (+1 garbage row)")
     return [paged_attn_cache(cfg, num_blocks, block_size, dtype, device)
-            for _ in cfg.layer_kinds]
+            if kind == ATTN else
+            slot_state_cache(kind, cfg, num_slots + 1, dtype, device=device)
+            for kind in cfg.layer_kinds]

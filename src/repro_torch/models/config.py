@@ -2,9 +2,10 @@
 
 The same frozen dataclass as the reference, field for field, so a config
 reads the same in both packages.  ``jnp_dtype`` becomes ``torch_dtype``.
-The port serves attention-only stacks, dense (Llama-2) and sparse MoE
-(Mixtral, Grok); the other families' fields are kept so configs stay
-comparable.
+The port serves decoder stacks of attention (dense Llama-2, sparse MoE
+Mixtral and Grok), RG-LRU recurrent blocks (RecurrentGemma) and SSD
+blocks (Mamba-2); the encoder/cross-attention and VLM fields are kept so
+configs stay comparable.
 """
 from __future__ import annotations
 
@@ -114,6 +115,10 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def ssm_num_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def num_periods(self) -> int:
         return self.num_layers // len(self.pattern)
 
@@ -131,7 +136,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Backbone parameter count of an attention-only stack."""
+        """Backbone parameter count, as the reference counts it: ATTN
+        layers with their MLP, REC blocks (in/gate projections, gates'
+        biases, Λ, out projection) with their MLP, SSD blocks alone."""
         D, F, V = self.d_model, self.d_ff, self.vocab_size
         H, K, hd = self.num_heads, self.num_kv_heads, self.head_dim_
         attn = D * H * hd + 2 * D * K * hd + H * hd * D
@@ -141,9 +148,15 @@ class ModelConfig:
             mlp = self.num_experts * (2 * D * F + F * D) + D * self.num_experts
         elif self.mlp_for == SWIGLU:
             mlp = 3 * D * F
+        elif self.mlp_for == NONE:
+            mlp = 0
         else:
             mlp = 2 * D * F
-        total = (attn + mlp) * self.num_layers + V * D + D
+        Di, S, nh = self.d_inner, self.ssm_state_dim, self.ssm_num_heads
+        per = {ATTN: attn + mlp,
+               REC: 2 * D * Di + 2 * Di + Di * D + 2 * Di + mlp,
+               SSD: D * (2 * Di + 2 * S + nh) + Di * D + nh * 2 + Di}
+        total = sum(per[k] for k in self.layer_kinds) + V * D + D
         if not self.tie_embeddings:
             total += V * D
         return int(total)

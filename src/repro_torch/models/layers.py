@@ -1,6 +1,6 @@
-"""Core layers of the attention-only stacks (port of the serving subset of
-``repro/models/layers.py``): dense + LoRA delta, RMSNorm, RoPE, SwiGLU,
-and the ring and paged branches of attention.
+"""Core layers (port of the serving subset of ``repro/models/layers.py``):
+dense + LoRA delta, RMSNorm, RoPE, SwiGLU, the ring and paged branches of
+attention, and the depthwise causal conv of the REC and SSD mixers.
 
 Parameters are plain dicts of tensors in the reference's layout
 (``x @ W`` with W of shape (d_in, d_out)), so weights carry over from the
@@ -67,6 +67,39 @@ def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None, *,
             y = y + lora_delta(x, lora, adapter_idx,
                                scaling=scaling).to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------- causal conv
+def causal_conv1d(xs: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None,
+                  seq_lens: Optional[torch.Tensor] = None):
+    """Depthwise causal conv shared by the REC and SSD mixers.
+
+    xs: (B, T, Di); w: (W, Di); state: (B, W-1, Di) carried inputs
+    (decode / chunked-prefill continuation).  ``seq_lens``: (B,) valid-
+    token counts — the returned tail then holds the W-1 inputs ENDING at
+    each row's last valid token (chunk-tail padding never leaks into the
+    carried state); None keeps the plain last-W-1 tail.  The taps are
+    summed in the reference's order, each product and sum in xs's dtype.
+    Returns (out (B, T, Di), new_state (B, W-1, Di))."""
+    W = w.shape[0]
+    B, T = xs.shape[:2]
+    if state is None:
+        pad = xs.new_zeros((B, W - 1) + tuple(xs.shape[2:]))
+    else:
+        pad = state.to(xs.dtype)
+    xfull = torch.cat([pad, xs], dim=1)                  # (B, T+W-1, Di)
+    out = xfull[:, 0:T] * w[0]
+    for i in range(1, W):
+        out = out + xfull[:, i:i + T] * w[i]
+    if seq_lens is None:
+        return out, xfull[:, T:]
+    # input of in-chunk token i sits at xfull index (W-1)+i; the tail ends
+    # at the last valid token, i.e. xfull[len : len + W - 1]
+    idx = seq_lens.long()[:, None] + torch.arange(W - 1,
+                                                  device=xs.device)[None]
+    idx = idx[..., None].expand(B, W - 1, xfull.shape[-1])
+    return out, torch.gather(xfull, 1, idx)
 
 
 # ----------------------------------------------------------------------- norms

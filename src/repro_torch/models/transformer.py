@@ -1,6 +1,8 @@
-"""Causal LM for attention-only stacks with a SwiGLU or MoE MLP (port of
-the serving subset of ``repro/models/transformer.py``), over ring caches
-(the warm-function engine) or paged pools (the serving runtime).
+"""Causal LM (port of the serving subset of ``repro/models/transformer.py``)
+for stacks of attention, RG-LRU (REC) and Mamba-2 (SSD) layers with a
+SwiGLU or MoE MLP (none after SSD), over ring caches (the warm-function
+engine; attention-only stacks) or paged pools with per-slot REC/SSD state
+rows (the serving runtime).
 
 A plain loop over layers replaces the reference's period ``lax.scan``;
 parameters are a dict with one entry per layer in ``params["layers"]``
@@ -26,10 +28,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.config import ATTN, MOE, SWIGLU, ModelConfig
+from repro_torch.models.config import (ATTN, MOE, NONE, REC, SSD, SWIGLU,
+                                       ModelConfig)
 from repro_torch.models.layers import (_normal, apply_attention, apply_mlp,
                                        apply_norm)
 from repro_torch.models.moe import apply_moe, moe_init
+from repro_torch.models.rglru import apply_rglru_block, rglru_init
+from repro_torch.models.ssm import apply_ssd, ssd_init
 
 Params = Dict[str, Any]
 
@@ -40,15 +45,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 lora_b_scale: float = 0.02) -> Params:
     """Seeded random parameters with the reference's init scales (dense
     N(0, 1/d_in), embeddings and LM head N(0, 0.02), norms at 1, LoRA A
-    N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo`` N(0, 1/F))
-    and a stacked bank of ``lora_adapters`` adapters on the config's
-    targets.  Unlike the reference, whose LoRA B starts at zero, B is drawn
-    N(0, ``lora_b_scale``) so every adapter's delta is real.
-    ``generator`` must live on ``device``."""
-    if any(kind != ATTN for kind in cfg.layer_kinds) or \
-            cfg.mlp_for not in (SWIGLU, MOE):
-        raise ValueError(f"{cfg.name}: only attention stacks with a SwiGLU "
-                         f"or MoE MLP are ported")
+    N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo`` N(0, 1/F);
+    REC and SSD blocks as ``rglru_init`` / ``ssd_init``) and a stacked
+    bank of ``lora_adapters`` adapters on the config's targets: q/k/v/o of
+    attention, in/out of the REC and SSD blocks.  Unlike the reference,
+    whose LoRA B starts at zero, B is drawn N(0, ``lora_b_scale``) so every
+    adapter's delta is real.  ``generator`` must live on ``device``."""
+    if cfg.cross_attention or cfg.encoder_layers or \
+            cfg.mlp_for not in (SWIGLU, MOE, NONE):
+        raise ValueError(f"{cfg.name}: only decoder stacks with a SwiGLU "
+                         f"or MoE MLP (or none) are ported")
     dt = cfg.torch_dtype
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, K, hd, r = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, \
@@ -62,23 +68,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(d):
         return {"scale": torch.ones((d,), dtype=dt, device=device)}
 
-    shapes = {"q": (D, H * hd), "k": (D, K * hd), "v": (D, K * hd),
-              "o": (H * hd, D)}
-    layers: List[Params] = []
-    for _ in range(cfg.num_layers):
-        attn = {"wq": w(D, H * hd), "wk": w(D, K * hd), "wv": w(D, K * hd),
-                "wo": w(H * hd, D)}
-        if cfg.lora:
-            attn["lora"] = {
-                t: {"a": _normal(generator, (N, shapes[t][0], r), dt,
+    def bank(shapes):
+        return {t: {"a": _normal(generator, (N, shapes[t][0], r), dt,
                                  1.0 / math.sqrt(shapes[t][0]), device),
                     "b": _normal(generator, (N, r, shapes[t][1]), dt,
                                  lora_b_scale, device)}
                 for t in cfg.lora.targets if t in shapes}
-        layer = {"norm1": ones(D), "attn": attn, "norm2": ones(D)}
+
+    attn_shapes = {"q": (D, H * hd), "k": (D, K * hd), "v": (D, K * hd),
+                   "o": (H * hd, D)}
+    fused = 2 * cfg.d_inner + 2 * cfg.ssm_state_dim + cfg.ssm_num_heads
+    inout = {REC: {"in": (D, cfg.d_inner), "out": (cfg.d_inner, D)},
+             SSD: {"in": (D, fused), "out": (cfg.d_inner, D)}}
+    layers: List[Params] = []
+    for kind in cfg.layer_kinds:
+        layer: Params = {"norm1": ones(D)}
+        if kind == ATTN:
+            attn = {"wq": w(D, H * hd), "wk": w(D, K * hd),
+                    "wv": w(D, K * hd), "wo": w(H * hd, D)}
+            if cfg.lora:
+                attn["lora"] = bank(attn_shapes)
+            layer["attn"] = attn
+        else:
+            name, block = ("rec", rglru_init) if kind == REC else \
+                ("ssd", ssd_init)
+            layer[name] = block(generator, cfg, dt, device)
+            lora = bank(inout[kind])
+            if lora:
+                layer[name]["lora"] = lora
+        if cfg.mlp_for != NONE:
+            layer["norm2"] = ones(D)
         if cfg.mlp_for == MOE:
             layer["moe"] = moe_init(generator, cfg, dt, device)
-        else:
+        elif cfg.mlp_for == SWIGLU:
             layer["mlp"] = {"wi": w(D, F), "wg": w(D, F), "wo": w(F, D)}
         layers.append(layer)
     p: Params = {
@@ -103,24 +125,59 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
+def _state_mixer(apply, p: Params, cfg: ModelConfig, h: torch.Tensor,
+                 layer_cache: Dict[str, torch.Tensor],
+                 positions: torch.Tensor,
+                 state_rows: Optional[torch.Tensor],
+                 state_seq: Optional[torch.Tensor],
+                 adapter_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """A REC/SSD block over its slot-state rows: gather each dispatch row's
+    state (zeros for a row starting at position 0), run decode (T == 1) or
+    chunked-prefill continuation (T > 1, ``state_seq`` valid-token counts
+    masking the chunk tail), scatter the new state back in place."""
+    if state_rows is None:
+        raise ValueError("REC/SSD layers need state_rows (the paged "
+                         "runtime's slot-state rows)")
+    st = cache_lib.gather_slot_state(layer_cache, state_rows, positions)
+    mix, upd = apply(p, cfg, h, state=st, seq_lens=state_seq,
+                     lora=p.get("lora"), lora_scaling=cfg.lora.scaling,
+                     adapter_idx=adapter_idx)
+    cache_lib.scatter_slot_state(layer_cache, upd, state_rows)
+    return mix
+
+
 def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                positions: torch.Tensor, cache: List[Dict[str, Any]],
                adapter_idx: Optional[torch.Tensor],
                block_tbl: Optional[torch.Tensor] = None,
-               chunk_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               chunk_ids: Optional[torch.Tensor] = None,
+               state_rows: Optional[torch.Tensor] = None,
+               state_seq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Residual blocks in stack order; the caches update in place."""
     B, T = x.shape[:2]
     if adapter_idx is not None and T > 1:
-        # per-token adapter ids, once per dispatch for all 4 x layers sites
+        # per-token adapter ids, once per dispatch for every LoRA site
         # (an expand: repeat_interleave may read its size back to the host)
         adapter_idx = adapter_idx[:, None].expand(B, T).contiguous().view(
             B * T)
-    for lp, layer_cache in zip(params["layers"], cache):
+    for kind, lp, layer_cache in zip(cfg.layer_kinds, params["layers"],
+                                     cache):
         h = apply_norm(x, lp["norm1"], cfg.norm_type)
-        x = x + apply_attention(
-            lp["attn"], cfg, h, positions=positions, cache=layer_cache,
-            block_tbl=block_tbl, adapter_idx=adapter_idx,
-            chunk_ids=chunk_ids, window=cfg.sliding_window)
+        if kind == ATTN:
+            x = x + apply_attention(
+                lp["attn"], cfg, h, positions=positions, cache=layer_cache,
+                block_tbl=block_tbl, adapter_idx=adapter_idx,
+                chunk_ids=chunk_ids, window=cfg.sliding_window)
+        elif kind == REC:
+            x = x + _state_mixer(apply_rglru_block, lp["rec"], cfg, h,
+                                 layer_cache, positions, state_rows,
+                                 state_seq, adapter_idx)
+        else:
+            x = x + _state_mixer(apply_ssd, lp["ssd"], cfg, h, layer_cache,
+                                 positions, state_rows, state_seq,
+                                 adapter_idx)
+        if cfg.mlp_for == NONE:
+            continue
         h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
         if cfg.mlp_for == MOE:
             x = x + apply_moe(lp["moe"], cfg, h2)
@@ -147,7 +204,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             start_pos: Optional[torch.Tensor] = None,
             last_pos: Optional[torch.Tensor] = None,
             block_tbl: Optional[torch.Tensor] = None,
-            chunk_ids: Optional[torch.Tensor] = None
+            chunk_ids: Optional[torch.Tensor] = None,
+            state_rows: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """Prefill; the cache updates in place.
 
@@ -158,7 +216,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     Paged pools: one chunk at positions ``start_pos[b] + [0, T)``;
     chunk_ids: (B, T//bs) pool blocks this chunk writes; block_tbl: (B, MB)
-    the rows' full logical history.
+    the rows' full logical history.  ``state_rows`` (B,) maps each row to
+    its REC/SSD slot-state row: a chunk continues the recurrent scans from
+    the carried state, and ``last_pos`` doubles as the in-chunk bound of
+    valid tokens, so chunk-tail padding never advances the state.
 
     Logits: at the per-row in-chunk index ``last_pos`` (B,) if given, else
     at the last position with ``last_only``, else at every position.
@@ -170,9 +231,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = offs.expand(B, T).to(torch.int32)
     else:
         positions = (start_pos[:, None] + offs).to(torch.int32)
+    state_seq = None
+    if state_rows is not None and last_pos is not None:
+        state_seq = last_pos.to(torch.int32) + 1
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
                    adapter_idx=adapter_idx, block_tbl=block_tbl,
-                   chunk_ids=chunk_ids)
+                   chunk_ids=chunk_ids, state_rows=state_rows,
+                   state_seq=state_seq)
     if last_pos is not None:
         idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
         return _logits(params, cfg, torch.gather(x, 1, idx)), cache
@@ -185,7 +250,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: List[Dict[str, Any]],
                 pos: Union[int, torch.Tensor], *,
                 block_tbl: Optional[torch.Tensor] = None,
-                adapter_idx: Optional[torch.Tensor] = None
+                adapter_idx: Optional[torch.Tensor] = None,
+                state_rows: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """ONE decode step.  token: (B,) int.  On a ring cache ``pos`` is the
     scalar absolute position of every row (an int, or a 0-d tensor),
@@ -193,7 +259,10 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     has seen): the token is written at slot ``pos % S``, computed on the
     device so that a captured step can replay at any position.  On the
     paged pools it is (B,) int32 per-row positions and block_tbl (B, MB)
-    int32.  Returns ((B, V) logits, cache updated in place)."""
+    int32; ``state_rows`` (B,) int32 addresses the REC/SSD slot-state rows
+    (a row pointed at the garbage row computes on junk and writes it
+    there, leaving real state untouched).  Returns ((B, V) logits, cache
+    updated in place)."""
     B = token.shape[0]
     if _is_ring(cache) and (not isinstance(pos, torch.Tensor)
                             or pos.device.type == "cpu"):
@@ -209,7 +278,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     else:
         positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
-                   adapter_idx=adapter_idx, block_tbl=block_tbl)
+                   adapter_idx=adapter_idx, block_tbl=block_tbl,
+                   state_rows=state_rows)
     return _logits(params, cfg, x)[:, 0], cache
 
 

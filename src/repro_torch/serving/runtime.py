@@ -55,10 +55,24 @@ are never read again, and the -1 entries are staged into the captured
 decode graph as they are.  The per-slot live working set shrinks to
 O(window); the block table still caps the total sequence length.
 
+Hybrid REC/SSD slot state (as the reference's): hybrid and
+attention-free stacks (RecurrentGemma, Mamba-2) carry, per REC/SSD layer,
+dense ``(num_slots + 1, ...)`` recurrent-state rows beside the paged pools
+(the last row is the garbage row).  Both dispatches take a ``state_rows``
+vector mapping dispatch rows to state rows, staged like every other
+input: a prefill row starting at position 0 reads zero state (so a
+recycled slot needs no reset), later chunks continue the scans from the
+carried row, and decode advances it in the same captured step as the KV
+write.  Recurrent state summarises the WHOLE prefix, so stacks with state
+start the chunk loop at token 0 (prefix-shared blocks skip the write,
+never the compute), and a stalled slot's row points at the garbage row
+for the stalled chunk (its state would otherwise advance twice).
+Attention-free stacks charge no pool blocks, are not bounded by the block
+table, never stall, and run without prefix sharing.
+
 Adapters are registry names (``serving.adapters.AdapterRegistry``) or raw
-bank slots.  Not ported yet (see ROADMAP.md): REC/SSD slot state, and
-checkpoint artifacts (so a ``FaultPlan``'s checkpoint faults have no
-loader to reach).
+bank slots.  Not ported yet (see ROADMAP.md): checkpoint artifacts (so a
+``FaultPlan``'s checkpoint faults have no loader to reach).
 """
 from __future__ import annotations
 
@@ -76,9 +90,10 @@ from repro_torch.core.lora import partition_lora, tree_leaves
 from repro_torch.core.sampling import (GREEDY, MODES, SamplingParams,
                                        philox_uniform_torch,
                                        sample_tokens, sample_with_uniform)
-from repro_torch.models.cache import (GARBAGE_BLOCK, init_paged_cache,
+from repro_torch.models.cache import (GARBAGE_BLOCK, has_slot_state,
+                                      init_paged_cache,
                                       paging_unsupported_reason)
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.serverless.batching import Request
 from repro_torch.serving.graphs import GraphedDispatch
 from repro_torch.serving.kv_pool import BlockPool, blocks_for_tokens
@@ -322,16 +337,30 @@ class ContinuousRuntime:
                 f"multiple of block_size {scfg.block_size}")
         if scfg.prefill_rows < 1:
             raise ValueError("prefill_rows must be >= 1")
+        self.has_state = has_slot_state(cfg)
+        # attention-free stacks have no K/V to page: no blocks charged,
+        # capacity not bounded by the block table, no prefix sharing, no
+        # stalls
+        self.needs_kv = ATTN in cfg.layer_kinds
+        if self.has_state and scfg.prefill_chunk % cfg.ssm_chunk:
+            raise ValueError(
+                f"prefill_chunk {scfg.prefill_chunk} must be a multiple of "
+                f"ssm_chunk {cfg.ssm_chunk} for REC/SSD stacks: recurrent "
+                f"scans run in ssm_chunk-aligned blocks so chunk-at-a-time "
+                f"prefill stays bitwise-equal to whole-prompt prefill")
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
         self.device = torch.device(device)
         self.pool = BlockPool(scfg.num_blocks, scfg.block_size)
         self.slots = SlotTable(scfg.num_slots, scfg.max_blocks_per_slot)
-        self.cache = init_paged_cache(cfg, scfg.num_blocks, scfg.block_size,
-                                      device=self.device)
+        # REC/SSD state rows: one per slot + the trailing garbage row
+        self.garbage_state_row = scfg.num_slots
+        self.cache = init_paged_cache(
+            cfg, scfg.num_blocks, scfg.block_size, device=self.device,
+            num_slots=scfg.num_slots if self.has_state else None)
         self.prefix: Optional[PrefixCache] = None
-        if scfg.prefix_sharing:
+        if scfg.prefix_sharing and self.needs_kv:
             self.prefix = PrefixCache(scfg.block_size)
             self.pool.cache_hook = self.prefix.has_block
             self.pool.evict_hook = self.prefix.forget_block
@@ -409,13 +438,14 @@ class ContinuousRuntime:
 
     # ------------------------------------------------------------ dispatches
     @torch.no_grad()
-    def _decode_chunk(self, tok, pos, tbl, ai, temp, top_k, top_p, seed,
-                      counter) -> torch.Tensor:
+    def _decode_chunk(self, tok, pos, tbl, ai, srows, temp, top_k, top_p,
+                      seed, counter) -> torch.Tensor:
         """The fixed-shape decode loop: ``decode_chunk`` steps, each with
         the sampling epilogue; step i runs at positions ``pos + i`` with
-        RNG counters ``counter + i`` and feeds its tokens to step i + 1.
-        Every input is a device tensor; the uniforms of all steps are drawn
-        up front.  Returns (B, chunk) int32 tokens."""
+        RNG counters ``counter + i`` and feeds its tokens to step i + 1;
+        ``srows`` names each row's REC/SSD state row.  Every input is a
+        device tensor; the uniforms of all steps are drawn up front.
+        Returns (B, chunk) int32 tokens."""
         steps = self.scfg.decode_chunk
         offs = torch.arange(steps, device=tok.device)
         u = philox_uniform_torch(seed[None], counter.long()[None]
@@ -423,20 +453,22 @@ class ContinuousRuntime:
         out = []
         for i in range(steps):
             logits, _ = self._serve(self.params, tok, self.cache, pos + i,
-                                    adapter_idx=ai, block_tbl=tbl)
+                                    adapter_idx=ai, block_tbl=tbl,
+                                    state_rows=srows)
             tok = sample_with_uniform(logits, temp, top_k, top_p, u[i])
             out.append(tok)
         return torch.stack(out, dim=1)
 
     @torch.no_grad()
     def _prefill_chunk(self, tokens, start, last_idx, ai, chunk_ids, tbl,
-                       temp, top_k, top_p, seed) -> torch.Tensor:
+                       srows, temp, top_k, top_p, seed) -> torch.Tensor:
         """ONE slice of the join path: write this chunk's K/V into pool
-        blocks and sample the first output token from the logit at
-        ``last_idx`` with RNG counter 0.  Returns (G,) int32 tokens."""
+        blocks (REC/SSD layers: advance the state rows ``srows`` names) and
+        sample the first output token from the logit at ``last_idx`` with
+        RNG counter 0.  Returns (G,) int32 tokens."""
         logits, _ = self._chunk_step(self.params, tokens, start, last_idx,
                                      self.cache, chunk_ids, tbl,
-                                     adapter_idx=ai)
+                                     adapter_idx=ai, state_rows=srows)
         return sample_tokens(logits, temp, top_k, top_p, seed,
                              torch.zeros_like(seed))
 
@@ -452,6 +484,11 @@ class ContinuousRuntime:
 
     # ------------------------------------------------------------ capacity
     def max_output_for(self, prompt_len: int) -> int:
+        """Largest output a request with this prompt can be granted: the
+        block table's capacity, or (attention-free stacks, whose whole
+        decode state is a slot row) any int32-positionable length."""
+        if not self.needs_kv:
+            return 2 ** 31 - 1 - prompt_len
         cap = self.scfg.max_blocks_per_slot * self.scfg.block_size
         return cap - prompt_len + 1        # last KV write is L + out - 2
 
@@ -463,6 +500,8 @@ class ContinuousRuntime:
         return output_len <= self.max_output_for(prompt_len)
 
     def admit_cost_blocks(self, prompt_len: int, output_len: int = 2) -> int:
+        if not self.needs_kv:
+            return 0                       # nothing to page for REC/SSD-only
         extra = 1 if output_len > 1 else 0
         return blocks_for_tokens(prompt_len + extra, self.scfg.block_size)
 
@@ -506,11 +545,21 @@ class ContinuousRuntime:
 
     def _prefill_rounds(self, prompt_len: int, covered_tokens: int) -> int:
         """Chunk-loop dispatch rounds a prompt needs — the exact loop
-        bound ``_chunk_prefill`` runs (prefix-covered tokens skip
-        rounds)."""
-        bs, C = self.scfg.block_size, self.scfg.prefill_chunk
-        start = min((covered_tokens // bs) * bs, ((prompt_len - 1) // bs) * bs)
-        return max(-(-(prompt_len - start) // C), 1)
+        bound ``_chunk_prefill`` runs (prefix-covered tokens skip rounds;
+        stacks with recurrent state always start at token 0)."""
+        return max(-(-(prompt_len - self._start_token(prompt_len,
+                                                      covered_tokens))
+                     // self.scfg.prefill_chunk), 1)
+
+    def _start_token(self, prompt_len: int, covered_tokens: int) -> int:
+        """First prompt token the chunk loop computes: the first one past
+        the prefix-shared blocks (a fully covered prompt still recomputes
+        its last block), or 0 for stacks with REC/SSD state, which must
+        integrate every token."""
+        if self.has_state:
+            return 0
+        bs = self.scfg.block_size
+        return min((covered_tokens // bs) * bs, ((prompt_len - 1) // bs) * bs)
 
     def deadline_floors(self, prompt_len: int, output_len: int,
                         covered_tokens: int = 0
@@ -612,7 +661,8 @@ class ContinuousRuntime:
                        ) -> List[int]:
         """Advance up to ``prefill_rows`` prompts' chunk loops side by side,
         one fixed (prefill_rows, prefill_chunk) dispatch per round; rows
-        that finished early and unused rows ride along as garbage rows.
+        that finished early and unused rows ride along as garbage rows (and
+        point at the garbage state row; a live row points at its sid's).
         Each item is (prompt, adapter, blocks, covered_blk, sid, sampling,
         seed).  Returns the per-item first output tokens."""
         scfg = self.scfg
@@ -626,7 +676,7 @@ class ContinuousRuntime:
         seed = np.zeros((G,), np.int32)
         for i, (prompt, _, _, cov, _, sp, sd) in enumerate(items):
             L = len(prompt)
-            start_tok = min(cov * bs, ((L - 1) // bs) * bs)
+            start_tok = self._start_token(L, cov * bs)
             starts.append(list(range(start_tok, L, C)))
             self.stats["recomputed_tokens"] += L - start_tok
             temp[i] = sp.temperature
@@ -643,7 +693,8 @@ class ContinuousRuntime:
             ai = np.zeros((G,), np.int32)
             ids = np.full((G, nb_c), GARBAGE_BLOCK, np.int32)
             tbl = np.full((G, MB), -1, np.int32)
-            for i, (prompt, adapter, blocks, cov, _, _, _) \
+            srows = np.full((G,), self.garbage_state_row, np.int32)
+            for i, (prompt, adapter, blocks, cov, sid, _, _) \
                     in enumerate(items):
                 if r >= len(starts[i]):
                     continue             # finished: garbage row
@@ -655,14 +706,15 @@ class ContinuousRuntime:
                 last_idx[i] = min(max(L - 1 - c0, 0), C - 1)
                 ai[i] = adapter
                 tbl[i, : len(blocks)] = blocks
+                srows[i] = sid
                 for jj in range(nb_c):
                     j = c0 // bs + jj
                     # skip shared blocks (already hold these K/V) and
                     # out-of-range blocks (chunk-tail junk)
                     if cov <= j < len(blocks):
                         ids[i, jj] = blocks[j]
-            first = self._prefill(tok, start, last_idx, ai, ids, tbl, temp,
-                                  top_k, top_p, seed)
+            first = self._prefill(tok, start, last_idx, ai, ids, tbl, srows,
+                                  temp, top_k, top_p, seed)
             if r in final_rounds:
                 toks_by_round[r] = first
             self.stats["prefill_chunks"] += 1
@@ -801,9 +853,8 @@ class ContinuousRuntime:
                 if shared:
                     self.stats["resume_prefix_hits"] += 1
                 req.breakdown["resumed_covered_tokens"] = float(cov)
-                start_tok = min(cov, ((L - 1) // bs) * bs)
                 req.breakdown["resume_recomputed_tokens"] = \
-                    float(L - start_tok)
+                    float(L - self._start_token(L, cov))
             sid = sids[i]
             st = SlotState(sid=sid, req=req, adapter=adapter, prompt_len=L,
                            budget=max(req.output_len, 1), pos=L,
@@ -976,8 +1027,13 @@ class ContinuousRuntime:
         PREEMPTED (the caller requeues it), otherwise force-evicted
         terminally (``aborted_oom``); either way its completed blocks park
         cached.  Victim choice: lowest SLO class first, then closest to
-        completion (fewest remaining tokens = least wasted work)."""
+        completion (fewest remaining tokens = least wasted work).
+        Attention-free stacks never allocate and never stall."""
         scfg, aborted, preempted = self.scfg, [], []
+        if not self.needs_kv:
+            for s in self.slots.active():
+                s.stalled = False
+            return [], aborted, preempted
         while True:
             stalled = []
             for s in self.slots.active():
@@ -1025,13 +1081,16 @@ class ContinuousRuntime:
 
         # stalled slots run the chunk unmodified from (pending token, pos):
         # every position they write is re-written by the resumed chunk
-        # before it can be attended, and writes past the table clip to the
-        # garbage block — discarding their outputs is a true no-op
+        # before it can be attended, writes past the table clip to the
+        # garbage block, and their REC/SSD state row points at the garbage
+        # row — discarding their outputs is a true no-op
         t0 = self._timer()
         toks = self._decode(
             self.slots.tokens, self.slots.pos, self.slots.block_tbl,
-            self.slots.adapter, self.slots.temp, self.slots.top_k,
-            self.slots.top_p, self.slots.seed, self.slots.rng_counter)
+            self.slots.adapter,
+            self.slots.state_rows(self.garbage_state_row), self.slots.temp,
+            self.slots.top_k, self.slots.top_p, self.slots.seed,
+            self.slots.rng_counter)
         toks = toks.cpu().numpy()  # reprolint: sync-point — (B, K) token
         #   emission, the serving loop's one deliberate decode sync
         t1 = self._timer()
@@ -1174,9 +1233,10 @@ class ContinuousRuntime:
         return report
 
     def warmup(self) -> Dict[str, Any]:
-        """Run each dispatch twice on garbage rows (pool and slots stay
-        untouched: warmup writes only the garbage block) and record the
-        second run's wall time — the admission scheduler's Eq. 2 seed.
+        """Run each dispatch twice on garbage rows (pool, state rows and slots
+        stay untouched: warmup writes only the garbage block and the
+        garbage state row) and record the second run's wall time — the
+        admission scheduler's Eq. 2 seed.
         On the card the first run builds and loads the kernels and
         captures the dispatch; the second is a timed replay."""
         scfg, timings = self.scfg, {}
@@ -1185,16 +1245,18 @@ class ContinuousRuntime:
         tbl = np.full((G, scfg.max_blocks_per_slot), -1, np.int32)
         zeros = np.zeros((G,), np.int32)
         B = scfg.num_slots
+        g_pre = np.full((G,), self.garbage_state_row, np.int32)
+        g_dec = np.full((B,), self.garbage_state_row, np.int32)
         for _ in range(2):
             t0 = self._timer()
             self._prefill(np.zeros((G, C), np.int32), zeros, zeros, zeros,
-                          ids, tbl, np.zeros((G,), np.float32), zeros,
+                          ids, tbl, g_pre, np.zeros((G,), np.float32), zeros,
                           np.ones((G,), np.float32), zeros).cpu()
             timings["prefill_chunk_s"] = self._timer() - t0
         for _ in range(2):
             t0 = self._timer()
             self._decode(self.slots.tokens, self.slots.pos,
-                         self.slots.block_tbl, self.slots.adapter,
+                         self.slots.block_tbl, self.slots.adapter, g_dec,
                          np.zeros((B,), np.float32),
                          np.zeros((B,), np.int32), np.ones((B,), np.float32),
                          np.zeros((B,), np.int32),

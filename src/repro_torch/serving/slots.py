@@ -85,6 +85,19 @@ class SlotTable:
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.states) if s is None]
 
+    def state_rows(self, garbage_row: int) -> np.ndarray:
+        """Per-row REC/SSD state-row ids for the next decode dispatch: an
+        active, unstalled slot owns the row of its own sid; inactive AND
+        stalled rows point at the garbage row, so the chunk they run
+        (outputs discarded) cannot advance real recurrent state — KV
+        writes are re-written identically by the resume, but a recurrent
+        state would advance twice."""
+        rows = np.full((self.num_slots,), garbage_row, np.int32)
+        for s in self.active():
+            if not s.stalled:
+                rows[s.sid] = s.sid
+        return rows
+
     @property
     def num_active(self) -> int:
         return sum(1 for s in self.states if s is not None)
