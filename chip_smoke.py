@@ -12,17 +12,20 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    and nvcc's release;
 2. build: compile the kernels with nvcc for sm_90a; print ptxas's
    registers and spills of the tensor-core (bf16) prefill kernels and of
-   the float32 paged prefill at hd 256, and the registers, static and
-   dynamic shared memory and spills of the split-KV decode
-   instantiations and of the SGMV kernels;
+   the float32 flash and paged prefill at hd 192 and 256, and the
+   registers, static and dynamic shared memory and spills of the split-KV
+   decode instantiations and of the SGMV kernels; fail on any spill;
 3. kernels: each of the five hand-written kernels against its plain
    PyTorch version at the shapes the two serving paths give it at the
    widths of Llama-2-7B, in bfloat16 and float32 (and bfloat16 GQA and
    window cases of flash, ring decode, paged decode and paged prefill,
    SGMV at the row layouts of the two prefills, Mixtral-8x22B's shapes,
    and, timed in both dtypes, paged decode and prefill at
-   RecurrentGemma-9B's hd 256 and G = 16 and SGMV at Mamba2-780M's
-   sites),
+   RecurrentGemma-9B's hd 256 and G = 16 and at Nemotron-4-340B's hd 192
+   and G = 12, flash at hd 192 / G = 12, at hd 256 / G = 8 behind a
+   256-key image prefix and at hd 256 / G = 16 with a 2048-key window,
+   ring decode at the same three head shapes, and SGMV at Mamba2-780M's
+   and Nemotron-4-340B's sites),
    with its median device time, the plain version's, a library yardstick
    where one PyTorch call computes the same function, the least time the
    card could take for the work (``bound_ms``) and the share of it the
@@ -83,8 +86,11 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    the same tokens, greedy and sampled (temperature, top-k, top-p), and
    the sampled rows' Philox uniforms must be equal bit for bit on the two
    devices; and ``InferenceEngine.generate`` on the two devices must emit
-   the same greedy tokens; then the same for Mixtral SMOKE, and replays of
-   RecurrentGemma SMOKE and Mamba2 SMOKE (state rows);
+   the same greedy tokens; then the same for Mixtral SMOKE and Qwen2.5
+   SMOKE (QKV bias), replays of RecurrentGemma SMOKE and Mamba2 SMOKE
+   (state rows) and their ``generate`` over ring state, and PaliGemma
+   SMOKE's ``generate`` behind an image prefix (``make_prefill_step(
+   embeds=)`` and captured decode steps);
 8. Mixtral-8x22B at full width, its depth cut to 8 of 56 layers: window
    reclamation against its rule and against a run without it, the
    telemetry exporters, the breakdown beside its bound;
@@ -99,9 +105,32 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
 10. Mamba2-780M at full width and depth (48 SSD layers): no pool block
    charged, exact SGMV launches, tokens equal to an eager runtime's, the
    breakdown beside its bound (weights plus the state rows read and
-   written).
+   written);
+   phases 9 and 10 then also serve their model through
+   ``InferenceEngine.generate`` over ring caches on the same weights
+   (RecurrentGemma: 4 rows of 2112 prompt tokens, past its 2048-slot
+   ring; Mamba2: 4 rows of 1024; 32 new tokens): one capture per batch
+   size, exact flash and ring-decode launches, tokens equal to an
+   uncaptured decode loop's;
+11. Nemotron-4-340B at full width (LayerNorm, squared-ReLU MLP, 96 query
+   heads over 8 kv heads of 192, vocab 256000 untied), its depth cut to 4
+   of 96 layers, through the captured runtime: 8 requests of 1000-2000
+   prompt tokens, 32 output tokens; ``CompileGuard`` {1, 1}, exact
+   launches, tokens equal to an eager runtime's, the breakdown beside its
+   bound;
+12. PaliGemma-3B at full width and depth: 4 rows of 256 random patch
+   embeddings and 256 text tokens through ``make_prefill_step(embeds=)``
+   and 31 captured ring decode steps (exact launches, tokens equal to an
+   uncaptured loop's), then 8 text-only requests through the captured
+   runtime;
+13. the warm-function launcher (``launch/serve.py --full --requests 8
+   --prompt-len 256 --max-new 16``) at full width and depth on
+   Qwen2.5-3B, SmolLM-360M, Phi-3-medium-14B and Llama-2-13B: one capture
+   per batch size, exact launches, a batch's tokens equal to an
+   uncaptured decode loop's.
 
-Phases 8-10 each run in a child process of the script (``isolated``).
+Phases 8-13 each run in a child process of the script (``isolated``; one
+child per model in phase 13).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
 eager run of it (``serving/graphs.py``), whose launches count.  The last
@@ -113,6 +142,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -136,9 +166,13 @@ ROOT = Path(__file__).resolve().parent
 # the CUDA cores (no TF32).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# Kernel vs plain version: max |diff| <= TOL * max(1, max |plain|).  Both
-# sides compute in float32; float32 differs only in summation order, and
-# bfloat16 outputs may round one unit (2^-8 relative) apart: 2^-7 allows two.
+# Kernel vs plain version: max |diff| <= TOL * max(1, max |plain|), and in
+# every output row (the last axis: a head's hd values, an SGMV row's O) the
+# RMS of the difference <= TOL * the row's RMS, so that rows far smaller
+# than the largest (flash rows over 2048 keys beside row 0 over one) are
+# held at their own scale.  Both sides compute in float32; float32 differs
+# only in summation order, and bfloat16 outputs may round one unit (2^-8
+# relative) apart: 2^-7 allows two.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SLEEP_CYCLES = 2_000_000     # ~1 ms of device sleep ahead of a timed launch
 FLUSH_BYTES = 256 << 20      # > the 50 MB L2: every timed launch starts cold
@@ -222,6 +256,48 @@ MAMBA_SERVE = dict(num_slots=8, block_size=16, num_blocks=8,
 MAMBA_PROMPT = (1000, 4000)
 MAMBA_OUTPUT = 64
 MAMBA_BREAKDOWN_PROMPT = 1024
+
+# The warm-function engine on phases 9 and 10's weights: rows, prompt
+# tokens (RecurrentGemma's past its 2048-slot ring) and new tokens.
+RING_ROWS = 4
+RGEMMA_RING_PROMPT = 2112
+MAMBA_RING_PROMPT = 1024
+RING_NEW = 32
+
+# Phase 11: Nemotron-4-340B at full width, depth cut from 96 to 4 layers
+# (a layer is 3.45 B parameters, 6.9 GB of bf16; with the 9.4 GB embedding
+# and 9.4 GB LM head, 4 layers are 46.5 GB).  A pool block holds 16
+# tokens x 8 kv heads x 192 x K and V: 96 KB per layer, so 1100 blocks are
+# 433 MB over 4 layers; 132 blocks per slot hold 2112 tokens.
+NEMOTRON = "nemotron_4_340b"
+NEMOTRON_LAYERS = 4
+NEMOTRON_SERVE = dict(num_slots=8, block_size=16, num_blocks=1100,
+                      max_blocks_per_slot=132, prefill_chunk=64,
+                      prefill_rows=4, decode_chunk=4)
+NEMOTRON_PROMPT = (1000, 2000)
+NEMOTRON_OUTPUT = 32
+NEMOTRON_BREAKDOWN_PROMPT = 1024
+
+# Phase 12: PaliGemma-3B at full width and depth (18 layers, 8 query heads
+# over 1 kv head of 256, vocab 257216 tied, 5.0 GB).  The
+# warm path: 4 rows of 256 patch embeddings (the reference's stub
+# frontend: random, at the token embeddings' N(0, 0.02) scale) and 256
+# text tokens, 32 new tokens; the runtime: text-only prompts.
+PALIGEMMA = "paligemma_3b"
+PALI_ROWS, PALI_TEXT, PALI_NEW = 4, 256, 32
+PALI_SERVE = dict(num_slots=8, block_size=16, num_blocks=400,
+                  max_blocks_per_slot=40, prefill_chunk=64, prefill_rows=4,
+                  decode_chunk=4)
+PALI_PROMPT = (256, 512)
+PALI_OUTPUT = 32
+
+# Phase 13: the launcher at full width and depth on four decoders, one
+# child process each.
+ZOO_LAUNCH = ("qwen2_5_3b", "smollm_360m", "phi3_medium_14b", "llama2_13b")
+ZOO_PROMPT, ZOO_NEW = 256, 16
+ZOO_ROWS = 8                 # the launcher's largest batch (max_batch)
+ZOO_FLAGS = ["--full", "--requests", "8", "--prompt-len", str(ZOO_PROMPT),
+             "--max-new", str(ZOO_NEW)]
 
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
@@ -338,11 +414,12 @@ def build_phase() -> Dict:
           f"{len(usage)} kernel instantiations, "
           f"{sum(u.get('spill_stores', 0) for u in usage)} bytes of spill "
           f"stores in all")
-    # the tensor-core prefill steps (bf16) and the float32 paged prefill
-    # at hd 256: registers and spills
+    # the tensor-core prefill steps (bf16) and the float32 flash and
+    # paged prefill at hd 192 and 256: registers and spills
     for u in usage:
-        if "_bf16" in u["function"] or \
-                "paged_prefill_f32ILi256" in u["function"]:
+        if "_bf16" in u["function"] or re.search(
+                r"(flash_kernel|paged_prefill)_f32ILi(192|256)E",
+                u["function"]):
             print(f"ptxas {u['function']}: {u['registers']} registers, "
                   f"spill stores {u.get('spill_stores')} B, spill loads "
                   f"{u.get('spill_loads')} B")
@@ -373,7 +450,12 @@ def build_phase() -> Dict:
                   f"{u.get('stack_frame')} B, spill stores "
                   f"{u.get('spill_stores')} B, spill loads "
                   f"{u.get('spill_loads')} B")
-    print(f"phase 2 ok ({time.perf_counter() - t0:.1f} s)")
+    spilled = [u["function"] for u in usage
+               if u.get("spill_stores", 0) or u.get("spill_loads", 0)]
+    if spilled:
+        fail(f"ptxas spilled registers in {spilled}")
+    print(f"phase 2 ok: 0 bytes of spills in all {len(usage)} "
+          f"instantiations ({time.perf_counter() - t0:.1f} s)")
     return {"seconds": info.seconds, "fresh": info.built, "ptxas": usage}
 
 
@@ -589,17 +671,19 @@ def prefill_case(gen, dtype, K: int = 32, G: int = 1,
 
 
 def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
-               window: Optional[int] = None) -> Dict:
+               window: Optional[int] = None, hd: int = 128,
+               prefix: int = 0) -> Dict:
     """Ring-engine prefill: causal attention of B rows of T tokens over
-    their own keys, at Llama-2-7B head widths."""
+    their own keys, at Llama-2-7B head widths by default; the first
+    ``prefix`` keys are visible to every query (a VLM's image prefix)."""
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_ref
-    hd, H = 128, K * G
+    H = K * G
     q = _randn(gen, B, T, H, hd, dtype=dtype)
     k = _randn(gen, B, T, K, hd, dtype=dtype)
     v = _randn(gen, B, T, K, hd, dtype=dtype)
     i = torch.arange(T, device="cuda")
-    ok = i[None, :] <= i[:, None]
+    ok = (i[None, :] <= i[:, None]) | (i[None, :] < prefix)
     if window is not None:
         ok = ok & (i[None, :] > i[:, None] - window)
     pairs = int(ok.sum())
@@ -609,18 +693,21 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
     q4 = q.transpose(1, 2).contiguous()
     k4 = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     v4 = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    if window is None:
+    if window is None and not prefix:
         library = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4, is_causal=True)
     else:
         library = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4, attn_mask=ok)
     return dict(
-        shape=f"B={B} T={T} H={H} K={K} hd={hd} causal window={window}",
-        kernel=lambda: flash_mha(q, k, v, causal=True, window=window),
+        shape=f"B={B} T={T} H={H} K={K} hd={hd} causal window={window} "
+              f"prefix={prefix}",
+        kernel=lambda: flash_mha(q, k, v, causal=True, window=window,
+                                 prefix_len=prefix),
         plain=lambda: flash_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=True,
-                                window=window).transpose(1, 2),
+                                window=window,
+                                prefix_len=prefix).transpose(1, 2),
         library=library,
         library_label="scaled_dot_product_attention over (B, H, T, hd) "
                       "copies" + (", K/V repeated per head" if G > 1
@@ -631,14 +718,14 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
 
 
 def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
-                     window: Optional[int] = None) -> Dict:
+                     window: Optional[int] = None, hd: int = 128) -> Dict:
     """Ring-engine decode: one token per row over a ring of S slots that
     has seen positions 0..pos (slot = position % S; wrapped when pos >=
-    S)."""
+    S), at Llama-2-7B head widths by default."""
     from repro_torch.kernels.decode_attention.ops import decode_gqa
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_ref
-    hd, H = 128, K * G
+    H = K * G
     q = _randn(gen, B, H, hd, dtype=dtype)
     k = _randn(gen, B, S, K, hd, dtype=dtype)
     v = _randn(gen, B, S, K, hd, dtype=dtype)
@@ -774,6 +861,103 @@ def kernels_phase() -> Dict[str, Dict]:
                     gen, d, MAMBA_SERVE["prefill_rows"]
                     * MAMBA_SERVE["prefill_chunk"],
                     run=MAMBA_SERVE["prefill_chunk"], D=D, O=O))]
+    # phases 11-13 and the ring runs of 9 and 10: Nemotron-4-340B's 96
+    # query heads over 8 kv heads of 192 (G = 12) in both paged kernels (8
+    # rows at ~2000-2030 keys, 4 x 64 queries at ~1900-2000) and its LoRA
+    # sites (q and o: 18432 -> 18432; k and v: 18432 -> 1536); flash at
+    # Nemotron's heads, at PaliGemma-3B's (hd 256, G = 8) behind its
+    # 256-token image prefix over 512 keys, and at RecurrentGemma-9B's
+    # (hd 256, G = 16) over 2112 tokens under its 2048-key window; ring
+    # decode at the same three head shapes (PaliGemma's and Nemotron's
+    # 552-slot rings, RecurrentGemma's 2048-slot ring wrapped)
+    nm, nms = get_config(NEMOTRON), NEMOTRON_SERVE
+    nK, nG, nhd = nm.num_kv_heads, nm.num_heads // nm.num_kv_heads, \
+        nm.head_dim_
+    nhi, pali = NEMOTRON_PROMPT[1], get_config(PALIGEMMA)
+    pG = pali.num_heads // pali.num_kv_heads
+    ring = pali.num_image_tokens + PALI_TEXT + PALI_NEW + 8
+    ppos = pali.num_image_tokens + PALI_TEXT + PALI_NEW - 2
+    rT = RGEMMA_RING_PROMPT
+    nrows = nms["prefill_rows"] * nms["prefill_chunk"]
+    for dtype in (torch.bfloat16, torch.float32):
+        makers += [
+            ("paged_attention", dtype, lambda d=dtype: decode_case(
+                gen, d, K=nK, G=nG, hd=nhd, serve=nms,
+                positions=(nhi, nhi + NEMOTRON_OUTPUT))),
+            ("paged_prefill", dtype, lambda d=dtype: prefill_case(
+                gen, d, K=nK, G=nG, hd=nhd, serve=nms,
+                starts=(nhi - 2 * nms["prefill_chunk"],
+                        nhi - nms["prefill_chunk"]))),
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, RING_ROWS, 512, nK, nG, hd=nhd)),
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, PALI_ROWS, pali.num_image_tokens + PALI_TEXT,
+                pali.num_kv_heads, pG, hd=pali.head_dim_,
+                prefix=pali.num_image_tokens)),
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, RING_ROWS, rT, rg.num_kv_heads, G16,
+                hd=rg.head_dim_, window=rw)),
+            ("decode_attention", dtype, lambda d=dtype: ring_decode_case(
+                gen, d, RING_ROWS, ring, nK, nG, ppos, hd=nhd)),
+            ("decode_attention", dtype, lambda d=dtype: ring_decode_case(
+                gen, d, PALI_ROWS, ring, pali.num_kv_heads, pG, ppos,
+                hd=pali.head_dim_)),
+            ("decode_attention", dtype, lambda d=dtype: ring_decode_case(
+                gen, d, RING_ROWS, rw, rg.num_kv_heads, G16,
+                rT + RING_NEW - 2, window=rw, hd=rg.head_dim_))]
+        for O in (nm.d_model, nK * nhd):
+            makers += [
+                ("sgmv", dtype, lambda d=dtype, O=O: sgmv_case(
+                    gen, d, nms["num_slots"], D=nm.d_model, O=O)),
+                ("sgmv", dtype, lambda d=dtype, O=O: sgmv_case(
+                    gen, d, nrows, run=nms["prefill_chunk"], D=nm.d_model,
+                    O=O))]
+    # phase 13's launcher shapes (its largest batch of 256-token prompts,
+    # 280-slot rings): flash and ring decode at SmolLM-360M's 15 query
+    # heads over 5 kv heads of 64 (G = 3: ring decode's group of 4 with a
+    # masked fourth head) and Qwen2.5-3B's 16 over 2 of 128 (G = 8); SGMV
+    # at every LoRA site of phases 12 and 13 (q: D -> H hd, k and v: D ->
+    # K hd, o: H hd -> D) at 8 decode rows and the launcher's prefill rows
+    # of one adapter, plus the runtime's 4 x 64 rows at PaliGemma-3B's;
+    # then flash behind prefixes that end inside a 64-row tile: 77 of 300
+    # keys at PaliGemma's heads, and 100 of 150 under a 40-key window
+    zS, zpos = ZOO_PROMPT + ZOO_NEW + 8, ZOO_PROMPT + ZOO_NEW - 2
+    zoo_heads = [(c.num_kv_heads, c.num_heads // c.num_kv_heads, c.head_dim_)
+                 for c in map(get_config, ("smollm_360m", "qwen2_5_3b"))]
+    sites = {}
+    for arch in ZOO_LAUNCH + (PALIGEMMA,):
+        c = get_config(arch)
+        qw, kvw = c.num_heads * c.head_dim_, c.num_kv_heads * c.head_dim_
+        for D, O in ((c.d_model, qw), (c.d_model, kvw), (qw, c.d_model)):
+            sites[D, O] = sites.get((D, O), False) or arch == PALIGEMMA
+    for dtype in (torch.bfloat16, torch.float32):
+        for zK, zG, zhd in zoo_heads:
+            makers += [
+                ("flash_attention", dtype,
+                 lambda d=dtype, K=zK, G=zG, hd=zhd: flash_case(
+                     gen, d, ZOO_ROWS, ZOO_PROMPT, K, G, hd=hd)),
+                ("decode_attention", dtype,
+                 lambda d=dtype, K=zK, G=zG, hd=zhd: ring_decode_case(
+                     gen, d, ZOO_ROWS, zS, K, G, zpos, hd=hd))]
+        for (D, O), paged in sorted(sites.items()):
+            makers += [
+                ("sgmv", dtype, lambda d=dtype, D=D, O=O: sgmv_case(
+                    gen, d, ZOO_ROWS, D=D, O=O)),
+                ("sgmv", dtype, lambda d=dtype, D=D, O=O: sgmv_case(
+                    gen, d, ZOO_ROWS * ZOO_PROMPT, run=ZOO_PROMPT,
+                    adapters=1, D=D, O=O))]
+            if paged:
+                makers.append(
+                    ("sgmv", dtype, lambda d=dtype, D=D, O=O: sgmv_case(
+                        gen, d, PALI_SERVE["prefill_rows"]
+                        * PALI_SERVE["prefill_chunk"],
+                        run=PALI_SERVE["prefill_chunk"], D=D, O=O)))
+        makers += [
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, 2, 300, pali.num_kv_heads, pG, hd=pali.head_dim_,
+                prefix=77)),
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, 2, 150, 2, 4, window=40, prefix=100))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for i, (name, dtype, make) in enumerate(makers):
@@ -786,14 +970,22 @@ def kernels_phase() -> Dict[str, Dict]:
                  f"{got.dtype}, plain {tuple(want.shape)} {want.dtype}")
         if not torch.isfinite(got).all():
             fail(f"{name} {c['shape']} {dtype}: non-finite kernel output")
-        err = float((got.float() - want.float()).abs().max())
+        diff = got.float() - want.float()
+        err = float(diff.abs().max())
         scale = max(1.0, float(want.float().abs().max()))
         tol = TOL[dtype] * scale
+        # per row: RMS of the difference over RMS of the plain row (an
+        # all-zero plain row must come out exact)
+        rms = want.float().pow(2).mean(-1).sqrt()
+        row_err = float((diff.pow(2).mean(-1).sqrt()
+                         / rms.clamp(min=torch.finfo(torch.float32).tiny)
+                         ).max())
         for row in c["zero_rows"]:
             if bool(got[row].any()):
                 fail(f"{name}: row {row} must be exact zeros")
         row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
                "shape": c["shape"], "max_abs_err": err, "tol": tol,
+               "max_row_rel_rms": row_err,
                "bytes": c["bytes"], "ops": c["ops"],
                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                "library": c["library_label"]}
@@ -807,6 +999,10 @@ def kernels_phase() -> Dict[str, Dict]:
         if not err <= tol:
             fail(f"{name} {c['shape']} {dtype}: max |kernel - plain| = "
                  f"{err:.3e} > {tol:.3e}")
+        if not row_err <= TOL[dtype]:
+            fail(f"{name} {c['shape']} {dtype}: a row's RMS |kernel - "
+                 f"plain| is {row_err:.3e} of its plain RMS > "
+                 f"{TOL[dtype]:.3e}")
         results.append(row)
         summary.setdefault(name, row)
         del c, got, want
@@ -2107,30 +2303,45 @@ def replay_on_both(label: str, cfg, params, scfg: Dict, trace,
     return runs
 
 
-def generate_on_both(label: str, cfg, params, T: int, new: int) -> Dict:
+def engine_launches(cfg, calls: int, steps: int) -> Dict[str, int]:
+    """Launches of ``calls`` ring prefills and ``steps`` ring decode
+    steps: one flash or ring-decode kernel per ATTN layer, one SGMV per
+    LoRA site (q/k/v/o of an ATTN layer, in/out of a REC or SSD block)."""
+    paged = expected_launches(cfg, calls, steps)
+    attn = cfg.layer_kinds.count("attn")
+    return {"flash_attention": attn * calls,
+            "decode_attention": attn * steps, "sgmv": paged["sgmv"],
+            "paged_attention": 0, "paged_prefill": 0}
+
+
+def generate_on_both(label: str, cfg, params, T: int, new: int,
+                     prefix: int = 0) -> Dict:
     """``InferenceEngine.generate`` of 3 rows of T tokens, one adapter
-    each, ``new`` greedy tokens, on the card and on the CPU: equal tokens,
-    and on the card one flash prefill per layer and a decode step per
-    token (captured once, after one eager run: graphs.py)."""
+    each, ``new`` greedy tokens, on the card and on the CPU, behind
+    ``prefix`` random image-patch embeddings where it is > 0: equal
+    tokens, and on the card one flash prefill per ATTN layer and a decode
+    step per token (captured once, after one eager run: graphs.py)."""
     from repro_torch import kernels
     from repro_torch.core.engine import InferenceEngine
     B = 3
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (B, T)).astype(np.int32))
+    embeds = torch.from_numpy((rng.standard_normal(
+        (B, prefix, cfg.d_model)) * 0.02).astype(np.float32)) \
+        if prefix else None
     out = {}
     for device in ("cuda", "cpu"):
         eng = InferenceEngine(cfg, _to(params, device), max_context=40,
                               device=device)
         kernels.reset_launches()
-        got, _ = eng.generate(toks.to(device), new,
-                              adapter_idx=torch.arange(
-                                  B, dtype=torch.int32, device=device))
+        got, _ = eng.generate(
+            toks.to(device), new, adapter_idx=torch.arange(
+                B, dtype=torch.int32, device=device),
+            embeds=None if embeds is None else embeds.to(device))
         out[device] = {"tokens": got.cpu().tolist(),
                        "launches": kernels.launch_counts()}
-    L = cfg.num_layers
-    want = {"flash_attention": L, "decode_attention": L * new,
-            "sgmv": len(cfg.lora.targets) * L * (new + 1),
-            "paged_attention": 0, "paged_prefill": 0}
+    want = engine_launches(cfg, 1, new)
     if out["cuda"]["launches"] != want or \
             max(out["cpu"]["launches"].values()) != 0:
         fail(f"{label} engine launches: card {out['cuda']['launches']} "
@@ -2139,8 +2350,10 @@ def generate_on_both(label: str, cfg, params, T: int, new: int) -> Dict:
         fail(f"{label} engine tokens differ: card {out['cuda']['tokens']}, "
              f"CPU {out['cpu']['tokens']}")
     print(f"{label} engine generate: {B} rows x {new} greedy tokens over "
-          f"{T}-token prompts (window {cfg.sliding_window}) equal on card "
-          f"and CPU; card launches {out['cuda']['launches']}")
+          f"{T}-token prompts (window {cfg.sliding_window}"
+          + (f", behind {prefix} image-prefix embeddings" if prefix else "")
+          + f") equal on card and CPU; card launches "
+          f"{out['cuda']['launches']}")
     return out["cuda"]
 
 
@@ -2166,8 +2379,9 @@ def parity_phase() -> Dict:
 
     t0 = phase("phase 7: SMOKE float32, card (kernels) vs CPU (plain "
                "versions): runtime replay, greedy and sampled; engine "
-               "generate; Llama, then Mixtral (MoE, window 16), then "
-               "RecurrentGemma and Mamba2 (state rows)")
+               "generate; Llama, then Mixtral (MoE, window 16), Qwen2.5 "
+               "(QKV bias), RecurrentGemma and Mamba2 (state rows and "
+               "ring state), PaliGemma (image prefix)")
     scfg = dict(num_slots=4, block_size=8, num_blocks=24,
                 max_blocks_per_slot=6, prefill_chunk=16, decode_chunk=4)
     cfg, params = smoke_params("llama2_7b", seed=1)
@@ -2218,15 +2432,34 @@ def parity_phase() -> Dict:
     rgemma = replay_on_both(
         "RecurrentGemma SMOKE", cfg, params, scfg,
         shared_prefix_trace(9, 3, 16, 30, 12, cfg.vocab_size, seed=9))
+    # ... and their generate over ring state: 29-token prompts, past
+    # RecurrentGemma's 16-slot ring and not a multiple of the scans' chunk
+    rgemma["cuda"]["engine"] = generate_on_both(
+        "RecurrentGemma SMOKE", cfg, params, T=29, new=8)
     cfg, params = smoke_params(MAMBA, seed=4)
     mamba = replay_on_both(
         "Mamba2 SMOKE", cfg, params, scfg,
         shared_prefix_trace(9, 3, 16, 60, 12, cfg.vocab_size, seed=10),
         kernels_used=("sgmv",))
+    mamba["cuda"]["engine"] = generate_on_both("Mamba2 SMOKE", cfg, params,
+                                               T=29, new=8)
+
+    # Qwen2.5 SMOKE: QKV biases (drawn nonzero by init_params)
+    cfg, params = smoke_params("qwen2_5_3b", seed=5)
+    qwen = replay_on_both(
+        "Qwen2.5 SMOKE", cfg, params, scfg,
+        shared_prefix_trace(9, 3, 16, 30, 8, cfg.vocab_size, seed=11))
+    qwen["cuda"]["engine"] = generate_on_both("Qwen2.5 SMOKE", cfg, params,
+                                              T=24, new=8)
+    # PaliGemma SMOKE behind its 8 image-prefix embeddings (prefix-LM)
+    cfg, params = smoke_params(PALIGEMMA, seed=6)
+    pali = generate_on_both("PaliGemma SMOKE", cfg, params, T=12, new=8,
+                            prefix=cfg.num_image_tokens)
     print(f"phase 7 ok ({time.perf_counter() - t0:.1f} s)")
     return {**runs["cuda"], "engine": engine, "mixtral_smoke": moe["cuda"],
             "recurrentgemma_smoke": rgemma["cuda"],
-            "mamba2_smoke": mamba["cuda"]}
+            "mamba2_smoke": mamba["cuda"], "qwen2_5_smoke": qwen["cuda"],
+            "paligemma_smoke": pali}
 
 
 # -------------------------------------------------------------- 8. Mixtral
@@ -2511,18 +2744,23 @@ def state_model(arch: str, layers: Optional[int] = None):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
-    cfg = get_config(arch)
-    cfg = cfg.with_(lora=dataclasses.replace(cfg.lora,
-                                             num_adapters=ADAPTERS))
+    full = get_config(arch)
+    cfg = full.with_(num_layers=layers or full.num_layers,
+                     lora=dataclasses.replace(full.lora,
+                                              num_adapters=ADAPTERS))
     kinds = {k: cfg.layer_kinds.count(k) for k in sorted(set(
         cfg.layer_kinds))}
-    print(f"model: {cfg.name}, {cfg.num_layers} layers {kinds} (no depth "
-          f"cut), d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+    cut = "no depth cut" if cfg.num_layers == full.num_layers else \
+        f"depth cut from {full.num_layers}"
+    print(f"model: {cfg.name}, {cfg.num_layers} layers {kinds} ({cut}), "
+          f"d_model {cfg.d_model}, "
           + (f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv heads x "
              f"{cfg.head_dim_}, window {cfg.sliding_window}, d_ff "
-             f"{cfg.d_ff}, " if "attn" in kinds else
-             f"{cfg.ssm_num_heads} SSD heads x {cfg.ssm_head_dim}, state "
-             f"{cfg.ssm_state_dim}, ")
+             f"{cfg.d_ff} ({cfg.mlp_for}, {cfg.norm_type}"
+             + (", QKV bias" if cfg.qkv_bias else "")
+             + f"), d_inner {cfg.d_inner}, " if "attn" in kinds else
+             f"d_inner {cfg.d_inner}, {cfg.ssm_num_heads} SSD heads x "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, ")
           + f"vocab {cfg.vocab_size}, {cfg.dtype}; LoRA rank "
           f"{cfg.lora.rank} on {'/'.join(cfg.lora.targets)}, bank of "
           f"{ADAPTERS}")
@@ -2702,6 +2940,68 @@ def serve_state_model(label: str, cfg, params, scfg, work, prompts,
                     "recomputed_tokens": rt.stats["recomputed_tokens"]}}
 
 
+def ring_generate(label: str, cfg, params, T: int, device: Dict,
+                  rows: int = RING_ROWS, new: int = RING_NEW,
+                  embeds: Optional[torch.Tensor] = None) -> Dict:
+    """``InferenceEngine.generate`` over ring caches on these weights:
+    ``rows`` prompts of T tokens (behind ``embeds`` where given), one
+    adapter a row, ``new`` greedy tokens.  The decode step is captured
+    once for the batch size, every ATTN layer launches one flash prefill
+    and one ring decode a step (the eager run before the capture
+    included), and the tokens equal an uncaptured ``decode_one`` loop's
+    from a fresh prefill of the same prompts."""
+    from repro_torch import kernels
+    from repro_torch.core.engine import InferenceEngine
+    P = 0 if embeds is None else embeds.shape[1]
+    ctx = P + T + new + 8
+    eng = InferenceEngine(cfg, params, max_context=ctx)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, T), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    ai = (torch.arange(rows, device="cuda") % ADAPTERS).to(torch.int32)
+    with FiniteLogits() as finite:
+        kernels.reset_launches()
+        t_run = time.perf_counter()
+        got, cache = eng.generate(prompts, new, ai, embeds=embeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = kernels.launch_counts()
+        logits, cache = eng.prefill(prompts, ai, embeds=embeds)  # fresh
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        want = [tok]
+        for i in range(new - 1):
+            logits, cache = eng.decode_one(tok, cache, P + T + i, ai)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            want.append(tok)
+    captures = eng.captures()
+    expected = engine_launches(cfg, 1, new)
+    print(f"{label} engine: {rows} rows x {T} prompt tokens"
+          + (f" behind {P} image-prefix embeddings" if P else "")
+          + f", {new} new tokens over rings of "
+          f"{min(ctx, cfg.sliding_window or ctx)} slots: generate "
+          f"{wall:.2f} s host wall; captures "
+          f"{ {str(k): n for k, n in captures.items()} }; launches "
+          f"{launches}, expected {expected}")
+    if captures != {(rows, ctx): 1}:
+        fail(f"{label} engine: expected one capture for batch {rows}")
+    if launches != expected:
+        fail(f"{label} engine launches differ from layers x calls x sites")
+    if not finite.ok():
+        fail(f"non-finite logits in the {label} engine run")
+    if not torch.equal(got, torch.stack(want, dim=1)):
+        fail(f"{label} engine: captured generate and an eager decode loop "
+             f"emit different tokens")
+    print(f"{label} engine: tokens of the captured generate equal to an "
+          f"eager decode_one loop's")
+    del eng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "prompt": T, "prefix": P, "new": new,
+            "generate_wall_s": wall, "launches": launches,
+            "captures": {str(k): n for k, n in captures.items()}}
+
+
 def state_breakdown(label: str, run: Dict, cfg, params, device: Dict,
                     prompt_len: int) -> Dict:
     """Phase 4's breakdown round at ``prompt_len``-token prompts, each
@@ -2786,6 +3086,8 @@ def recurrentgemma_phase(device: Dict) -> Dict:
           f"{sample_ms:.3f} ms device (CUDA events, L2 flushed)")
     out.update(state_breakdown("RecurrentGemma", run, cfg, params, device,
                                RGEMMA_BREAKDOWN_PROMPT))
+    out["engine"] = ring_generate("RecurrentGemma", cfg, params,
+                                  RGEMMA_RING_PROMPT, device)
     out.update({"weights_gb": n_bytes / 1e9, "reclaimed_blocks": got,
                 "reclaimed_rule": per_req, "second_wave": len(again_sink),
                 "state_row_chunks_checked": watch.rows_checked,
@@ -2825,6 +3127,8 @@ def mamba_phase(device: Dict) -> Dict:
           f"row-chunks of unserved slots kept their state bits")
     out.update(state_breakdown("Mamba2", run, cfg, params, device,
                                MAMBA_BREAKDOWN_PROMPT))
+    out["engine"] = ring_generate("Mamba2", cfg, params, MAMBA_RING_PROMPT,
+                                  device)
     out.update({"weights_gb": n_bytes / 1e9,
                 "state_mb_per_slot": state_bytes_per_slot(cfg) / 1e6,
                 "phase_s": time.perf_counter() - t0})
@@ -2835,9 +3139,136 @@ def mamba_phase(device: Dict) -> Dict:
     return out
 
 
+# ---------------------------------------------- 11-13. the rest of the zoo
+def nemotron_phase(device: Dict) -> Dict:
+    from repro_torch.serving import ServingConfig
+
+    t0 = phase(f"phase 11: serve Nemotron-4-340B at full width "
+               f"({NEMOTRON_LAYERS} of 96 layers) on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, n_bytes = state_model(NEMOTRON, layers=NEMOTRON_LAYERS)
+    scfg = ServingConfig(**NEMOTRON_SERVE)
+    work, prompts = system_prompt_trace(
+        cfg.vocab_size, MIXTRAL_REQUESTS, NEMOTRON_PROMPT, NEMOTRON_OUTPUT,
+        seed=2)
+    run = serve_state_model("Nemotron", cfg, params, scfg, work, prompts,
+                            device)
+    out = run["out"]
+    out.update(state_breakdown("Nemotron", run, cfg, params, device,
+                               NEMOTRON_BREAKDOWN_PROMPT))
+    out.update({"weights_gb": n_bytes / 1e9,
+                "phase_s": time.perf_counter() - t0})
+    del run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
+def paligemma_phase(device: Dict) -> Dict:
+    from repro_torch.serving import ServingConfig
+
+    t0 = phase("phase 12: PaliGemma-3B at full width and depth on the "
+               "card: image prefix on ring caches, then text-only through "
+               "the runtime")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, n_bytes = state_model(PALIGEMMA)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    embeds = _randn(gen, PALI_ROWS, cfg.num_image_tokens, cfg.d_model,
+                    dtype=cfg.torch_dtype, scale=0.02)
+    out = {"engine": ring_generate("PaliGemma", cfg, params, PALI_TEXT,
+                                   device, rows=PALI_ROWS, new=PALI_NEW,
+                                   embeds=embeds)}
+    scfg = ServingConfig(**PALI_SERVE)
+    work, prompts = system_prompt_trace(
+        cfg.vocab_size, MIXTRAL_REQUESTS, PALI_PROMPT, PALI_OUTPUT, seed=3)
+    run = serve_state_model("PaliGemma", cfg, params, scfg, work, prompts,
+                            device)
+    out.update(run["out"])
+    out.update({"weights_gb": n_bytes / 1e9,
+                "phase_s": time.perf_counter() - t0})
+    del run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
+def zoo_launch_phase(arch: str, device: Dict) -> Dict:
+    """The warm-function launcher on ``arch`` at full width and depth:
+    every request served, one capture per batch size, exact launches;
+    then a batch of its largest size against an uncaptured decode loop
+    (``ring_generate``)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as tf
+
+    argv = ["--arch", arch] + ZOO_FLAGS
+    t0 = phase(f"phase 13: launch/serve.py {' '.join(argv)} on the card")
+    args = launcher.build_parser().parse_args(argv)
+    cfg = get_config(arch)
+    print(f"model: {cfg.name}, {cfg.num_layers} layers (no depth cut), "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} kv heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size} "
+          f"({'tied' if cfg.tie_embeddings else 'untied'}"
+          f"{', QKV bias' if cfg.qkv_bias else ''}, rope theta "
+          f"{cfg.rope_theta:g}), {cfg.dtype}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = tf.init_params(cfg, gen, "cuda", lora_adapters=args.adapters)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    with FiniteLogits() as finite:
+        kernels.reset_launches()
+        res = launcher.serve(cfg, params, args)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    sizes = [b for _, b in res["schedule"]]
+    new, ctx = args.max_new, args.prompt_len + args.max_new + 8
+    if res["served"] != args.requests or \
+            res["shapes"] != [(b, new) for b in sizes]:
+        fail(f"{arch}: served {res['served']} of {args.requests}, shapes "
+             f"{res['shapes']}")
+    if not finite.ok():
+        fail(f"non-finite logits in the {arch} launcher run")
+    captures = res["captures"]
+    if sorted(captures) != sorted((b, ctx) for b in set(sizes)) or \
+            set(captures.values()) != {1}:
+        fail(f"{arch}: expected one capture per batch size "
+             f"{sorted(set(sizes))}, got {captures}")
+    calls = len(sizes)
+    steps = calls * (new - 1) + len(captures)
+    expected = engine_launches(cfg, calls, steps)
+    print(f"batches {sizes}; {res['tokens']} tokens in {res['wall_s']:.2f} s "
+          f"({res['tokens'] / res['wall_s']:.1f} tokens/s, host clock) on "
+          f"{_smi(device)}; launches {launches}, expected {expected}")
+    if launches != expected or res["launches"] != expected:
+        fail(f"{arch}: launch counts differ from layers x calls x sites")
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "weights_gb": n_bytes / 1e9, "schedule": res["schedule"],
+           "tokens": res["tokens"], "wall_s": res["wall_s"],
+           "launches": launches,
+           "captures": {str(k): n for k, n in captures.items()}}
+    out["engine"] = ring_generate(arch, cfg, params, args.prompt_len, device,
+                                  rows=max(sizes), new=new)
+    out["phase_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13 {arch} ok ({out['phase_s']:.1f} s)")
+    return out
+
+
 # phases run in a child process each (see ``isolated``)
 ISOLATED = {"8": mixtral_phase, "9": recurrentgemma_phase,
-            "10": mamba_phase}
+            "10": mamba_phase, "11": nemotron_phase,
+            "12": paligemma_phase,
+            **{f"13-{arch}": functools.partial(zoo_launch_phase, arch)
+               for arch in ZOO_LAUNCH}}
 
 
 def isolated(phase_id: str, device: Dict) -> Dict:
@@ -2891,6 +3322,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     mixtral = isolated("8", device)
     rgemma = isolated("9", device)
     mamba = isolated("10", device)
+    nemotron = isolated("11", device)
+    paligemma = isolated("12", device)
+    zoo = {arch: isolated(f"13-{arch}", device) for arch in ZOO_LAUNCH}
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2912,6 +3346,8 @@ def main(argv: Optional[List[str]] = None) -> int:
              "serve": serve, "launcher": launch, "overload": overload,
              "parity": parity, "mixtral": mixtral,
              "recurrentgemma": rgemma, "mamba2": mamba,
+             "nemotron": nemotron, "paligemma": paligemma,
+             "launcher_zoo": zoo,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -1,11 +1,14 @@
 """Architecture config registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-Port of ``repro/configs``.  Ported so far: the paper's primary serving
-backbone, Llama-2-7B, the two sparse-MoE configs (Mixtral-8x22B, with
-its sliding window, and Grok-1), and the two stacks with recurrent
-state (RecurrentGemma-9B, hybrid RG-LRU + local attention, and
-Mamba2-780M, attention-free SSD); the other configs follow with the model
-families they need.
+Port of ``repro/configs``: every decoder-only config of the reference,
+in its order — the paper's two serving backbones (Llama-2-7B and 13B),
+the dense decoders (Phi-3-medium, Qwen2.5-3B with QKV bias, Nemotron-4-340B
+with LayerNorm and a squared-ReLU MLP, SmolLM-360M), the two sparse-MoE
+configs (Mixtral-8x22B, with its sliding window, and Grok-1), the two
+stacks with recurrent state (RecurrentGemma-9B, hybrid RG-LRU + local
+attention, and Mamba2-780M, attention-free SSD) and PaliGemma-3B (a Gemma
+decoder behind a prefix of image-patch embeddings).  The encoder-decoder
+Whisper-medium is not ported.
 """
 from __future__ import annotations
 
@@ -14,8 +17,20 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["recurrentgemma_9b", "mixtral_8x22b", "grok_1_314b",
-                       "mamba2_780m", "llama2_7b"]
+ARCH_IDS: List[str] = [
+    "recurrentgemma_9b",
+    "phi3_medium_14b",
+    "qwen2_5_3b",
+    "nemotron_4_340b",
+    "mixtral_8x22b",
+    "grok_1_314b",
+    "smollm_360m",
+    "mamba2_780m",
+    "paligemma_3b",
+    # the paper's own evaluation models
+    "llama2_7b",
+    "llama2_13b",
+]
 
 
 def _norm(arch: str) -> str:

@@ -1,7 +1,7 @@
 """Multi-LoRA inference steps over a shared backbone (port of
 ``repro/core/engine.py``): the warm-function ``InferenceEngine`` over ring
-caches (attention-only stacks), the serving steps over the paged pools and
-slot-state rows, and the slot-wise REC/SSD state ops.
+caches (attention rings and REC/SSD ring state), the serving steps over the
+paged pools and slot-state rows, and the slot-wise REC/SSD state ops.
 
 The reference builds pure functions that it jits; the factories here
 return plain functions that update the caches in place (the stand-in for
@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ATTN, ModelConfig
 
@@ -22,15 +23,17 @@ Params = Dict[str, Any]
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, tokens, cache [, adapter_idx, last_pos]) -> (last-token
-    logits (B, V), filled ring cache).  last_pos: (B,) per-row index of the
-    true last prompt token; without it the last position's logit feeds the
-    LM head alone."""
+    """(params, tokens, cache [, embeds, adapter_idx, last_pos]) ->
+    (last-token logits (B, V), filled ring cache).  embeds: (B, P, D) a
+    VLM's image-prefix embeddings before the tokens (prefix-LM mask);
+    last_pos: (B,) per-row index of the true last prompt token (counted
+    from the first prefix position); without it the last position's logit
+    feeds the LM head alone."""
 
-    def prefill_step(params, tokens, cache, *, adapter_idx=None,
+    def prefill_step(params, tokens, cache, *, embeds=None, adapter_idx=None,
                      last_pos=None):
         logits, cache = tf.forward(params, cfg, tokens, cache=cache,
-                                   adapter_idx=adapter_idx,
+                                   embeds=embeds, adapter_idx=adapter_idx,
                                    last_only=last_pos is None,
                                    last_pos=last_pos)
         return logits[:, -1], cache
@@ -124,7 +127,9 @@ def make_state_reset_fn(cfg: ModelConfig):
 
 
 class InferenceEngine:
-    """Warm-function inference over a shared backbone, on ring caches.
+    """Warm-function inference over a shared backbone, on ring caches
+    (K/V rings of the attention layers, the recurrent state of REC/SSD
+    layers).
 
     params: full tree whose LoRA leaves are stacked (N, ...) multi-adapter
     banks (``core.lora.stack_adapters``); requests carry adapter indices.
@@ -160,12 +165,14 @@ class InferenceEngine:
 
     def prefill(self, tokens: torch.Tensor,
                 adapter_idx: Optional[torch.Tensor] = None,
-                cache: Optional[List[Dict[str, Any]]] = None):
-        """tokens: (B, T) int; adapter_idx: (B,) int32 or None.  A given
-        cache must be fresh (``idx`` 0), else ValueError."""
+                cache: Optional[List[Dict[str, Any]]] = None, *,
+                embeds: Optional[torch.Tensor] = None):
+        """tokens: (B, T) int; adapter_idx: (B,) int32 or None; embeds:
+        (B, P, D) image-prefix embeddings or None.  A given cache must be
+        fresh (``idx`` 0), else ValueError."""
         if cache is None:
             cache = self.new_cache(tokens.shape[0])
-        return self._prefill(self.params, tokens, cache,
+        return self._prefill(self.params, tokens, cache, embeds=embeds,
                              adapter_idx=adapter_idx)
 
     @torch.no_grad()
@@ -183,7 +190,7 @@ class InferenceEngine:
 
     def ring(self, batch: int) -> Tuple[List[Dict[str, Any]], Any]:
         """The ring of this batch size, emptied to a fresh cache (idx 0,
-        every slot -1, K/V zero), and its decode step: a
+        every slot -1, K/V and REC/SSD state zero), and its decode step: a
         ``GraphedDispatch`` called as ``step(tok, pos, adapter_idx)`` and
         then ``step.replay()``, each call returning the next (B,) tokens
         and advancing ``tok`` and the 0-d ``pos`` in place."""
@@ -192,16 +199,15 @@ class InferenceEngine:
         key = (batch, self.max_context)
         if key not in self._rings:
             cache = self.new_cache(batch)
+            # the REC/SSD ring state that the step advances in place
+            state = [t for kind, layer in zip(self.cfg.layer_kinds, cache)
+                     if kind != ATTN for k, t in layer.items() if k != "idx"]
             self._rings[key] = (cache, GraphedDispatch(
                 functools.partial(self._ring_step, cache), self.device,
-                pool=self._pool))
+                pool=self._pool, keep=state))
             return self._rings[key]
         cache, step = self._rings[key]
-        for layer in cache:
-            layer["k"].zero_()
-            layer["v"].zero_()
-            layer["slot_pos"].fill_(-1)
-            layer["idx"] = 0
+        cache_lib.reset_ring(cache)
         return cache, step
 
     def captures(self) -> Dict[Tuple[int, int], int]:
@@ -209,9 +215,11 @@ class InferenceEngine:
         return {k: step._cache_size() for k, (_, step) in self._rings.items()}
 
     def generate(self, tokens: torch.Tensor, max_new_tokens: int,
-                 adapter_idx: Optional[torch.Tensor] = None
+                 adapter_idx: Optional[torch.Tensor] = None, *,
+                 embeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-        """Greedy generation.  Returns ((B, max_new_tokens) int32, cache);
+        """Greedy generation, after an image prefix ``embeds`` (B, P, D)
+        where one is given.  Returns ((B, max_new_tokens) int32, cache);
         the cache is the engine's ring for this batch size, valid until the
         next ``generate`` of that size.
 
@@ -220,9 +228,11 @@ class InferenceEngine:
         inputs (capturing the step on the card the first time), the rest
         replay it on the tokens and position it advanced itself, so the
         loop never waits on the card."""
-        B, T = tokens.shape
+        B = tokens.shape[0]
+        T = tokens.shape[1] + (embeds.shape[1] if embeds is not None else 0)
         cache, step = self.ring(B)
-        logits, cache = self.prefill(tokens, adapter_idx, cache=cache)
+        logits, cache = self.prefill(tokens, adapter_idx, cache=cache,
+                                     embeds=embeds)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok]
         if max_new_tokens > 1:

@@ -19,12 +19,16 @@
 //     wrote to the garbage block, ring slots past pos hold a stale lap;
 //  3. waits for the K group only and computes the scores from shared
 //     memory while V is in flight.  A key row of CH = hd * sizeof(T) / 16
-//     chunks of 16 bytes is split over LPR = min(CH, 32) lanes (16 at hd
-//     128 in bf16, 32 in float32 and at hd 256), each lane holding CPL =
-//     CH / LPR chunks (2 at hd 256 in float32, else 1); each lane reads
-//     its chunks once for all G heads, whose q chunks it holds in float32
-//     registers, and the G dot products are reduced over the LPR lanes
-//     with log2(LPR) shuffles;
+//     chunks of 16 bytes is split over LPR lanes, CH rounded up to a power
+//     of two and at most 32 (16 at hd 128 in bf16, 32 in float32 and at
+//     hd 192 and 256), lane c holding chunks c, c + LPR, ... below CH:
+//     CPL = ceil(CH / LPR) of them (2 at hd 192 and 256 in float32, else
+//     1).  At hd 192 the row is ragged: in bf16 its 24 chunks leave lanes
+//     24-31 empty, in float32 lanes 16-31 hold one chunk where 0-15 hold
+//     two; an empty chunk counts as zeros.  Each lane reads its chunks
+//     once for all G heads, whose q chunks it holds in float32 registers,
+//     and the G dot products are reduced over the LPR lanes with
+//     log2(LPR) shuffles;
 //  4. takes the partition softmax, one warp a head: float32 max and sum,
 //     probability exactly 0 for a slot that is not attended;
 //  5. waits for V and forms P V from shared memory: thread (j, c) owns
@@ -40,11 +44,13 @@
 // step runs on the CUDA cores in float32 and its design is about keeping
 // bytes in flight.  G is a template bound (GP = 1, 2, 4 or 8, the least
 // power of two >= G), so the G = 1 path carries no registers for 8 heads.
-// A CTA takes at most kMaxG = 8 query heads: at hd 256 a lane holds 8
-// floats of q and 8 of the output per head (128 registers at 8 heads), so
-// 16 heads would spill.  A kernel whose kv heads carry more query heads
-// (RecurrentGemma-9B: 16 over 1) gives each group of at most 8 its own
-// CTA, which reads the partition's K/V again (twice at G = 16).
+// A CTA takes at most kMaxG = 8 query heads: at hd 192 and 256 a lane
+// holds 8 floats of q and 8 of the output per head (128 registers at 8
+// heads), so 16 heads would spill.  Both kernels give a kv head with more
+// query heads (Nemotron-4-340B: 12 over 1, RecurrentGemma-9B: 16 over 1)
+// groups of at most 8 on the grid's third axis, up to kMaxGroups of
+// them; each group's CTA reads the partition's K/V again (twice at G = 12
+// or 16), and the last group masks the heads past G.
 #pragma once
 
 #include <type_traits>
@@ -58,18 +64,26 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPart = kThreads;  // slots per partition: one thread each
 constexpr int kMaxG = 8;            // query heads per CTA
+constexpr int kMaxGroups = 2;       // head groups of kMaxG per kv head
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one CTA
 
-// A row of HD elements as 16-byte chunks over the lanes of a warp.
+// The least power of two >= n (n >= 1).
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
+// A row of HD elements as 16-byte chunks over the lanes of a warp: lane c
+// (c < LPR) holds chunks c, c + LPR, ... below CH.
 template <typename T, int HD>
 struct RowLayout {
-  static constexpr int EPC = 16 / sizeof(T);     // elements per chunk
-  static constexpr int CH = HD / EPC;            // chunks per row
-  static constexpr int LPR = CH < 32 ? CH : 32;  // lanes per row
-  static constexpr int CPL = CH / LPR;           // chunks per lane
-  static constexpr int EPL = CPL * EPC;          // elements per lane
-  static_assert(CH >= 1 && 32 % LPR == 0 && CH % LPR == 0,
-                "a row spans 1..32 lanes, whole chunks each");
+  static constexpr int EPC = 16 / sizeof(T);  // elements per chunk
+  static constexpr int CH = HD / EPC;         // chunks per row
+  static constexpr int LPR = CH < 32 ? pow2_ceil(CH) : 32;  // lanes per row
+  static constexpr int CPL = (CH + LPR - 1) / LPR;  // chunk slots per lane
+  static constexpr int EPL = CPL * EPC;             // elements per lane
+  static constexpr bool kRagged = CH % LPR != 0;    // some slots are empty
+  static_assert(HD % EPC == 0 && CH >= 1 && 32 % LPR == 0,
+                "a row spans 1..32 lanes of whole 16-byte chunks");
 };
 
 // Bytes of dynamic shared memory: K and V rows, slot offsets, scores
@@ -111,8 +125,15 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p,
   }
 }
 
+// Whether chunk slot j of lane slot c holds a chunk of the row.
+template <typename T, int HD>
+__device__ __forceinline__ bool holds(int c, int j) {
+  using L = RowLayout<T, HD>;
+  return !L::kRagged || c + j * L::LPR < L::CH;
+}
+
 // The EPL elements of row `row` that lane slot c holds: chunks c, c +
-// LPR, ..., as float32.
+// LPR, ..., as float32; an empty slot reads as zeros.
 template <typename T, int HD>
 __device__ __forceinline__ void load_lane(const T* row, int c,
                                           float (&f)[RowLayout<T, HD>::EPL]) {
@@ -120,7 +141,12 @@ __device__ __forceinline__ void load_lane(const T* row, int c,
 #pragma unroll
   for (int j = 0; j < L::CPL; ++j) {
     float t[L::EPC];
-    load16(row + (c + j * L::LPR) * L::EPC, t);
+    if (holds<T, HD>(c, j)) {
+      load16(row + (c + j * L::LPR) * L::EPC, t);
+    } else {
+#pragma unroll
+      for (int e = 0; e < L::EPC; ++e) t[e] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < L::EPC; ++e) f[j * L::EPC + e] = t[e];
   }
@@ -299,11 +325,13 @@ __device__ __forceinline__ void partition_step(
     for (int g = 0; g < GP; ++g) {
       if (g >= G) break;
 #pragma unroll
-      for (int j = 0; j < L::CPL; ++j)
+      for (int j = 0; j < L::CPL; ++j) {
+        if (!holds<T, HD>(c, j)) continue;
 #pragma unroll
         for (int e = 0; e < EPC; ++e)
           red[(warp * G + g) * HD + (c + j * LPR) * EPC + e] =
               acc[g][j * EPC + e];
+      }
     }
   }
   __syncthreads();
@@ -334,7 +362,7 @@ int dispatch_g(int G, F& f) {
   return f(type_tag<T>{}, int_tag<HD>{}, int_tag<8>{});
 }
 
-template <typename T, int MaxHD, typename F>
+template <typename T, typename F>
 int dispatch_hd(int hd, int G, F& f) {
   switch (hd) {
     case 32:
@@ -343,21 +371,21 @@ int dispatch_hd(int hd, int G, F& f) {
       return dispatch_g<T, 64>(G, f);
     case 128:
       return dispatch_g<T, 128>(G, f);
+    case 192:
+      return dispatch_g<T, 192>(G, f);
     case 256:
-      if constexpr (MaxHD >= 256) return dispatch_g<T, 256>(G, f);
-      return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_g<T, 256>(G, f);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// G: query heads of one CTA (1..kMaxG).  MaxHD: the largest head dim
-// instantiated (the ring kernel stops at 128, the paged one at 256).
-template <int MaxHD, typename F>
+// G: query heads of one CTA (1..kMaxG).
+template <typename F>
 int dispatch(int dtype, int hd, int G, F&& f) {
   if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == DTYPE_BF16 ? dispatch_hd<__nv_bfloat16, MaxHD>(hd, G, f)
-                             : dispatch_hd<float, MaxHD>(hd, G, f);
+  return dtype == DTYPE_BF16 ? dispatch_hd<__nv_bfloat16>(hd, G, f)
+                             : dispatch_hd<float>(hd, G, f);
 }
 
 }  // namespace decode

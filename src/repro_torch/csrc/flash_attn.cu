@@ -37,6 +37,21 @@
 //    synchronously into float32 rows.
 // Split-KV is not used: at the serving shapes the grid already holds
 // 6 or more CTAs per SM (768 at 3 rows x 500 tokens).
+//
+// Prefix-LM (PaliGemma's image prefix, the reference's mask kind
+// "prefix"): with prefix > 0 a key at position < prefix is visible to
+// every query, so under causality query i sees keys j <= max(i,
+// prefix - 1), and the window, where there is one, still applies after
+// that.  A tile's walk then ends at max(its last query, prefix - 1), and
+// tiles wholly inside the prefix attend bidirectionally over it.  The
+// rule is a template flag (PREFIX), so the causal kernels without a
+// prefix compile to the code they had without the rule.
+//
+// hd 192 and 256 (Nemotron-4-340B, PaliGemma-3B, RecurrentGemma-9B) take
+// the hd-256 route of the tensor-core step (prefill_tile.cuh, q_in_smem:
+// Q's fragments reloaded per stage from a buffer of their own) with the
+// same two ring stages: 125 KB at hd 192, 165 KB at hd 256, one CTA an
+// SM.  float32: 164 KB and 212 KB.
 #include <cmath>
 
 #include "prefill_tile.cuh"
@@ -48,11 +63,11 @@ using rt::tile::kM;
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------- float32
-template <int HD>
+template <int HD, bool PREFIX>
 __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Tq, int Tk,
-    int K, int G, int causal, int window, float scale) {
+    int K, int G, int causal, int window, int prefix, float scale) {
   using rt::tile::kLDP;
   using rt::tile::kRPT;
   using rt::tile::kThreads;
@@ -94,7 +109,9 @@ __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
   rows_st.init();
 
   const int t_lo = window > 0 ? max(0, q_first - window + 1) : 0;
-  const int t_hi = causal ? min(q_last, Tk - 1) : Tk - 1;  // inclusive
+  const int t_hi = causal ? min(PREFIX ? max(q_last, prefix - 1) : q_last,
+                               Tk - 1)
+                         : Tk - 1;  // inclusive
   for (int k0 = t_lo; k0 <= t_hi; k0 += kKT) {
     __syncthreads();  // the previous stage is done with Ks / Vs / Ps
     for (int i = tid; i < kKT * V4; i += kThreads) {
@@ -115,7 +132,7 @@ __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
         [&](int i, int j) {
           const int t = k0 + tx + 16 * j;
           bool ok = qp[i] >= 0 && t <= t_hi;
-          if (causal) ok = ok && t <= qp[i];
+          if (causal) ok = ok && (t <= qp[i] || (PREFIX && t < prefix));
           if (window > 0) ok = ok && t > qp[i] - window;
           return ok;
         },
@@ -136,12 +153,12 @@ __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
 // ------------------------------------------------------------ bfloat16
 constexpr int kStagesBf16 = 2;
 
-template <int HD>
+template <int HD, bool PREFIX>
 __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
     flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       int Tq, int Tk, int K, int G, int causal, int window,
-                      float scale_log2) {
+                      int prefix, float scale_log2) {
   namespace tc = rt::tile::tc;
   constexpr int NS = kStagesBf16, LD = tc::ld<HD>(), CH = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -172,8 +189,14 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
   const int q_first = r0 / G, q_last = (r_end - 1) / G;
   const int t_lo =
       window > 0 ? max(0, q_first - window + 1) / kKT * kKT : 0;
-  const int t_hi = causal ? min(q_last, Tk - 1) : Tk - 1;  // inclusive
+  const int t_hi = causal ? min(PREFIX ? max(q_last, prefix - 1) : q_last,
+                               Tk - 1)
+                         : Tk - 1;  // inclusive
   const int n = t_hi >= t_lo ? (t_hi - t_lo) / kKT + 1 : 0;
+  // under causality the warp's rows see keys up to these (the prefix
+  // widens each row's edge to at least prefix - 1)
+  const int edge_lo = PREFIX ? max(qw_lo, prefix - 1) : qw_lo;
+  const int edge_hi = PREFIX ? max(qw_hi, prefix - 1) : qw_hi;
 
   tc::Rows<HD> st;
 
@@ -192,17 +215,17 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
   };
   auto stage = [&](int s, int buf) {
     const int k0 = t_lo + s * kKT, k1 = k0 + kKT - 1;
-    if (!live || (causal && k0 > qw_hi) ||
+    if (!live || (causal && k0 > edge_hi) ||
         (window > 0 && k1 <= qw_lo - window))
       return;  // every key of the stage is masked for every row
-    const bool masked = k1 > t_hi || (causal && k1 > qw_lo) ||
+    const bool masked = k1 > t_hi || (causal && k1 > edge_lo) ||
                         (window > 0 && k0 <= qw_hi - window);
     tc::attend_stage<HD>(
         Ks + buf * kKT * LD, Vs + buf * kKT * LD, scale_log2, masked,
         [&](int i, int kk) {
           const int t = k0 + kk;
           bool ok = qp[i] >= 0 && t <= t_hi;
-          if (causal) ok = ok && t <= qp[i];
+          if (causal) ok = ok && (t <= qp[i] || (PREFIX && t < prefix));
           if (window > 0) ok = ok && t > qp[i] - window;
           return ok;
         },
@@ -213,43 +236,57 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
 }
 
 // ------------------------------------------------------------- launch
-template <int HD>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int Tq, int Tk, int K, int G, int causal, int window,
-           cudaStream_t s) {
+template <int HD, bool PREFIX>
+int launch_kernel(int dtype, const void* q, const void* k, const void* v,
+                  void* out, int B, int Tq, int Tk, int K, int G, int causal,
+                  int window, int prefix, cudaStream_t s) {
   const double scale = 1.0 / std::sqrt(static_cast<double>(HD));
   dim3 grid(B * K, (Tq * G + kM - 1) / kM);
   if (dtype == rt::DTYPE_BF16) {
     const size_t smem = rt::tile::tc::smem_bytes<HD, kStagesBf16>();
     static const cudaError_t attr =
-        rt::allow_smem(flash_kernel_bf16<HD>, smem);
+        rt::allow_smem(flash_kernel_bf16<HD, PREFIX>, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    flash_kernel_bf16<HD><<<grid, rt::tile::tc::kThreads, smem, s>>>(
+    flash_kernel_bf16<HD, PREFIX><<<grid, rt::tile::tc::kThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, K, G,
-        causal, window, static_cast<float>(rt::tile::tc::kLog2e * scale));
+        causal, window, prefix,
+        static_cast<float>(rt::tile::tc::kLog2e * scale));
     return 0;
   }
   const size_t smem = rt::tile::smem_floats<HD>() * sizeof(float);
   static const cudaError_t attr =
-      rt::allow_smem(flash_kernel_f32<HD>, smem);
+      rt::allow_smem(flash_kernel_f32<HD, PREFIX>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  flash_kernel_f32<HD><<<grid, rt::tile::kThreads, smem, s>>>(
+  flash_kernel_f32<HD, PREFIX><<<grid, rt::tile::kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Tq, Tk, K, G,
-      causal, window, static_cast<float>(scale));
+      causal, window, prefix, static_cast<float>(scale));
   return 0;
+}
+
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int Tq, int Tk, int K, int G, int causal, int window,
+           int prefix, cudaStream_t s) {
+  return causal && prefix > 0
+             ? launch_kernel<HD, true>(dtype, q, k, v, out, B, Tq, Tk, K, G,
+                                       causal, window, prefix, s)
+             : launch_kernel<HD, false>(dtype, q, k, v, out, B, Tq, Tk, K, G,
+                                        causal, window, prefix, s);
 }
 
 }  // namespace
 
 // q (B, Tq, K*G, hd); k/v (B, Tk, K, hd); out like q; all contiguous.
 // Query i and key j sit at positions i and j.  causal != 0 keeps keys
-// j <= i; window > 0 keeps keys j > i - window; window <= 0 means none.
+// j <= i, and also keys j < prefix (prefix <= 0 means none); window > 0
+// keeps keys j > i - window; window <= 0 means none.  hd 32, 64, 128, 192
+// or 256.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, int B, int Tq, int Tk, int K, int G,
-                          int hd, int causal, int window, int dtype,
-                          void* stream) {
+                          int hd, int causal, int window, int prefix,
+                          int dtype, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || K < 1 || G < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -257,15 +294,23 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32:
       bad = launch<32>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal, window,
-                       s);
+                       prefix, s);
       break;
     case 64:
       bad = launch<64>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal, window,
-                       s);
+                       prefix, s);
       break;
     case 128:
       bad = launch<128>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal,
-                        window, s);
+                        window, prefix, s);
+      break;
+    case 192:
+      bad = launch<192>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal,
+                        window, prefix, s);
+      break;
+    case 256:
+      bad = launch<256>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal,
+                        window, prefix, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -31,13 +31,14 @@
 //    holds what stalled rows wrote — and gets probability exactly 0.  A
 //    row with no live key (an inactive slot) yields exact zeros, finite as
 //    the runtime requires.
-// A kv head with more than kMaxG = 8 query heads (RecurrentGemma-9B: 16
-// over 1, at hd 256) splits them into groups of 8 on the grid's third
-// axis; each group's CTA stages the partition itself, so K/V are read once
-// per group.  At hd 256 a bf16 partition of 64 slots and 8 heads stages
-// 99 KB (float32: 163 KB), above the 48 KB default: the launcher raises
-// the limit once per instantiation (rt::allow_smem) to its largest
-// partition (dec::max_part).
+// A kv head with more than kMaxG = 8 query heads (Nemotron-4-340B: 12
+// over 1, at hd 192; RecurrentGemma-9B: 16 over 1, at hd 256) splits them
+// into groups of 8 on the grid's third axis; each group's CTA stages the
+// partition itself, so K/V are read once per group, and the last group
+// of Nemotron's holds 4 heads.  At hd 256 a bf16 partition of 64 slots
+// and 8 heads stages 99 KB (float32: 163 KB), above the 48 KB default:
+// the launcher raises the limit once per instantiation (rt::allow_smem)
+// to its largest partition (dec::max_part).
 #include <cmath>
 
 #include "decode_tile.cuh"
@@ -45,8 +46,6 @@
 namespace {
 
 namespace dec = rt::decode;
-
-constexpr int kMaxGroups = 2;  // head groups of kMaxG per kv head
 
 template <typename T, int HD, int GP>
 __global__ void __launch_bounds__(dec::kThreads) paged_decode_part_kernel(
@@ -114,18 +113,18 @@ int launch(const void* q, const void* kp, const void* vp, const void* tbl,
 // q (B, K*G, hd); kp/vp (K, NB, bs, hd); tbl (B, MB) int32; pos (B,) int32;
 // scratch acc (B, K, G, S, hd), m/l (B, K, G, S) float32 with
 // S = ceil(MB*bs / part); out (B, K*G, hd).  q, kp and vp start on 16-byte
-// boundaries.  window <= 0 means none.  hd 32, 64, 128 or 256; G up to
-// kMaxGroups * kMaxG = 16.
+// boundaries.  window <= 0 means none.  hd 32, 64, 128, 192 or 256; G up
+// to kMaxGroups * kMaxG = 16.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* tbl, const void* pos, void* acc,
                             void* m, void* l, void* out, int B, int K, int G,
                             int NB, int bs, int MB, int hd, int part,
                             int window, int dtype, void* stream) {
   if (part < 1 || part > dec::kMaxPart || G < 1 ||
-      G > kMaxGroups * dec::kMaxG)
+      G > dec::kMaxGroups * dec::kMaxG)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  const int bad = dec::dispatch<256>(
+  const int bad = dec::dispatch(
       dtype, hd, G < dec::kMaxG ? G : dec::kMaxG, [&](auto t, auto d, auto gp) {
         return launch<typename decltype(t)::type, decltype(d)::value,
                       decltype(gp)::value>(q, kp, vp, tbl, pos, acc, m, l,

@@ -52,6 +52,13 @@
 // tiles per (row, kv head), and each tile walks the window's keys itself:
 // the history is read 16 times, where the bound reads it once.
 //
+// hd 192 (Nemotron-4-340B: 96 query heads over 8 kv heads, G = 12) takes
+// the hd-256 route in bf16 (Q's fragments from shared memory, 96 output
+// registers) but keeps three ring stages: 2 x 3 x 64 x 200 x 2 bytes + Q's
+// 25 KB = 176 KB.  A key row is 24 chunks of 16 bytes, which do not
+// divide the 128 threads, so each thread copies 12 chunks of a stage at a
+// stride of 128 chunks (the copy loop below).  float32 at hd 192: 164 KB.
+//
 // Queries sit at start[b] + c.  The kernel also receives the positions
 // the plain version would take and asserts they are that contiguous run.
 #include <cmath>
@@ -63,6 +70,8 @@ namespace {
 using rt::tile::kKT;
 using rt::tile::kM;
 using bf16 = __nv_bfloat16;
+
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one CTA
 
 // ------------------------------------------------------------- float32
 template <int HD>
@@ -175,10 +184,14 @@ __global__ void __launch_bounds__(rt::tile::kThreads) paged_prefill_f32(
 }
 
 // ------------------------------------------------------------ bfloat16
-// Stages of the bf16 ring: three, two at hd 256 (the Q buffer's room).
+// Stages of the bf16 ring: three where they fit one CTA's shared memory
+// beside Q (hd 192: 176 KB), else two (hd 256).
 template <int HD>
 __host__ __device__ constexpr int stages_bf16() {
-  return rt::tile::tc::q_in_smem<HD>() ? 2 : 3;
+  return rt::tile::tc::smem_bytes<HD, 3>() + 3 * kKT * sizeof(int) <=
+                 kMaxSmem
+             ? 3
+             : 2;
 }
 
 template <int HD>
@@ -235,17 +248,31 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads) paged_prefill_bf16(
 
   tc::Rows<HD> st;
 
-  // A thread copies chunk tid % CH of keys tid / CH + i * KS of a stage,
-  // i < KPT.  The table entries of the next stage's keys are loaded while
-  // the current one computes (issue(s) ends with lookup(s + 1)).
-  constexpr int KS = tc::kThreads / CH, KPT = kKT / KS;
-  static_assert(tc::kThreads % CH == 0 && kKT % KS == 0, "chunk layout");
-  const int ch = tid % CH;
-  int phys[KPT];
+  // A thread copies chunks tid + i * kThreads of a stage's kKT * CH,
+  // i < CPT: chunk c is chunk c % CH of key c / CH.  Where CH divides the
+  // thread count (hd <= 128, 256) that is chunk tid % CH of keys
+  // tid / CH + i * (kThreads / CH); at hd 192 (CH = 24) a thread's chunks
+  // fall at other offsets of other keys.  The table entries of the next
+  // stage's keys are loaded while the current one computes (issue(s) ends
+  // with lookup(s + 1)).
+  constexpr int CPT = kKT * CH / tc::kThreads;
+  static_assert(kKT * CH % tc::kThreads == 0, "chunk layout");
+  // key and chunk of a thread's i-th chunk; where CH divides the thread
+  // count, the chunk is the same for every i and the key a fixed stride
+  auto key_of = [&](int i) {
+    if constexpr (tc::kThreads % CH == 0)
+      return tid / CH + i * (tc::kThreads / CH);
+    return (tid + i * tc::kThreads) / CH;
+  };
+  auto chunk_of = [&](int i) {
+    if constexpr (tc::kThreads % CH == 0) return tid % CH;
+    return (tid + i * tc::kThreads) % CH;
+  };
+  int phys[CPT];
   auto lookup = [&](int s) {
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int t = t_lo + s * kKT + tid / CH + i * KS;
+    for (int i = 0; i < CPT; ++i) {
+      const int t = t_lo + s * kKT + key_of(i);
       phys[i] = s < n && t <= t_hi ? tbl[b * MB + t / bs] : -1;
       assert(phys[i] < NB);
     }
@@ -254,8 +281,8 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads) paged_prefill_bf16(
     bf16* Kb = Ks + buf * kKT * LD;
     bf16* Vb = Vs + buf * kKT * LD;
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kk = tid / CH + i * KS, t = t_lo + s * kKT + kk;
+    for (int i = 0; i < CPT; ++i) {
+      const int kk = key_of(i), ch = chunk_of(i), t = t_lo + s * kKT + kk;
       const bool ok = phys[i] >= 0;
       const size_t off =
           ok ? ((static_cast<size_t>(h) * NB + phys[i]) * bs + t % bs) * HD +
@@ -330,7 +357,7 @@ int launch(int dtype, const void* q, const void* kp, const void* vp,
 
 // q (B, C, K*G, hd); kp/vp (K, NB, bs, hd); tbl (B, MB) int32; start (B,)
 // int32; q_pos (B, C) int32 (checked == start[b] + c); out like q.
-// window <= 0 means none.
+// window <= 0 means none.  hd 32, 64, 128, 192 or 256.
 extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,
                              const void* tbl, const void* start,
                              const void* q_pos, void* out, int B, int C,
@@ -351,6 +378,10 @@ extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,
       break;
     case 128:
       bad = launch<128>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
+                        NB, bs, MB, window, s);
+      break;
+    case 192:
+      bad = launch<192>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
                         NB, bs, MB, window, s);
       break;
     case 256:

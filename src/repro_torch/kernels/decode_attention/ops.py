@@ -12,6 +12,9 @@ reference's wrapper copies it to (B, K, S, hd) on every step.  ``pos`` is
 a Python int (the engine's decode loop holds it on the host) or a 0-d
 int32 tensor on the card; neither is read back to the host.
 
+A kv head with more than 8 query heads (up to ``MAX_GROUP``) is served
+by groups of 8 heads, each group in CTAs of its own.
+
 ``decode_gqa.launches`` counts calls that launched the kernel.
 """
 from __future__ import annotations
@@ -24,8 +27,8 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 PARTITION = 64           # slots per split-KV partition (kernel max 128)
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8            # query heads per kv head
+HEAD_DIMS = (32, 64, 128, 192, 256)
+MAX_GROUP = 16           # query heads per kv head
 
 
 def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

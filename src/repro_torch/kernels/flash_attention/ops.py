@@ -8,7 +8,9 @@ version (``ref.flash_ref``) only for CPU tensors.
 Unlike the reference's wrapper, which pads T to whole blocks and
 transposes to (B, H, T, hd), the kernel reads the model's layout in place
 and masks the ragged edge by length, causal or not (the reference leaves
-padded keys unmasked when ``causal=False``).
+padded keys unmasked when ``causal=False``).  ``prefix_len`` is the
+reference model's prefix-LM rule (``_scores_mask(kind="prefix")``, the VLM
+image prefix): keys at positions below it are visible to every query.
 
 ``flash_mha.launches`` counts calls that launched the kernel.
 """
@@ -21,25 +23,26 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ref import flash_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True,
-              window: Optional[int] = None) -> torch.Tensor:
+              causal: bool = True, window: Optional[int] = None,
+              prefix_len: int = 0) -> torch.Tensor:
     """q: (B, Tq, H, hd); k, v: (B, Tk, K, hd), H % K == 0.  Query i and
-    key j sit at positions i and j.  Returns (B, Tq, H, hd)."""
+    key j sit at positions i and j; with ``causal`` query i sees keys
+    j <= i and j < ``prefix_len``.  Returns (B, Tq, H, hd)."""
     B, Tq, H, hd = q.shape
     Bk, Tk, K, hd_k = k.shape
     if (v.shape != k.shape or Bk != B or hd_k != hd or H % K or Tk < 1
-            or (window is not None and window < 1)):
+            or (window is not None and window < 1) or prefix_len < 0):
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, window "
-                         f"{window}")
+                         f"{window}, prefix_len {prefix_len}")
     if not cuda_lib.on_cuda(q, k, v):
         return flash_ref(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), causal=causal,
-                         window=window).transpose(1, 2)
+                         v.transpose(1, 2), causal=causal, window=window,
+                         prefix_len=prefix_len).transpose(1, 2)
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_contiguous(q=q, k=k, v=v)
     cuda_lib.require_aligned(q=q, k=k, v=v)
@@ -52,7 +55,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cuda_lib.check(cuda_lib.library().flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
         K, H // K, hd, int(causal), window if window is not None else 0,
-        code, cuda_lib.stream_of(q)), "flash_attn")
+        prefix_len, code, cuda_lib.stream_of(q)), "flash_attn")
     flash_mha.launches += 1
     return out
 

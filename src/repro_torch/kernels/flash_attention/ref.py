@@ -2,7 +2,9 @@
 sliding-window masks (port of ``repro/kernels/flash_attention/ref.py``).
 
 Query ``i`` and key ``j`` sit at positions ``i`` and ``j``.  A key is kept
-when ``j <= i`` (causal) and ``j > i - window`` (with a window).  Masked
+when ``j <= i`` or ``j < prefix_len`` (causal; the reference model's
+prefix-LM mask, ``_scores_mask(kind="prefix")``) and ``j > i - window``
+(with a window).  Masked
 keys get probability exactly 0, as in the kernel; a query that keeps no
 key yields zeros (the reference's softmax over -1e30 would average every
 key there; no caller has such a row).
@@ -18,8 +20,8 @@ from repro_torch.kernels.paged_attention.ref import masked_attention
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True,
-              window: Optional[int] = None) -> torch.Tensor:
+              causal: bool = True, window: Optional[int] = None,
+              prefix_len: int = 0) -> torch.Tensor:
     """q: (B, H, Tq, hd); k, v: (B, K, Tk, hd).  Returns (B, H, Tq, hd) in
     q's dtype, computed in float32."""
     B, H, Tq, hd = q.shape
@@ -31,7 +33,7 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kp = torch.arange(Tk, device=q.device)[None, :]
     ok = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
     if causal:
-        ok = ok & (kp <= qp)
+        ok = ok & ((kp <= qp) | (kp < prefix_len))
     if window is not None:
         ok = ok & (kp > qp - window)
     o = masked_attention(s, ok, v.float()[:, :, None])

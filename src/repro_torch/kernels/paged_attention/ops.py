@@ -22,7 +22,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 PARTITION = 64           # tokens per split-KV partition (kernel max 128)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 MAX_GROUP = 16           # query heads per kv head
 
 

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

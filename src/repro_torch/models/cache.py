@@ -1,14 +1,17 @@
 """Decode caches (port of ``repro/models/cache.py``): ring caches of
-attention-only stacks for the warm-function engine, and for the serving
-runtime paged pools beside per-slot REC/SSD state rows.
+decoder stacks for the warm-function engine, and for the serving runtime
+paged pools beside per-slot REC/SSD state rows.
 
-Ring cache (``init_cache``): per layer ``{"k","v": (B, S, K, hd),
+Ring cache (``init_cache``): per ATTN layer ``{"k","v": (B, S, K, hd),
 "slot_pos": (S,) int32 (-1 = empty), "idx"}``.  Token t of a row is
 written at slot ``idx % S`` and ``slot_pos`` records its absolute
 position; ``idx`` counts tokens written.  ``idx`` is a host ``int``: the
 port runs eagerly, and keeping the counter on the host spares a device
 sync per step.  S is ``min(context_len, sliding_window)`` for windowed
-configs.
+configs.  A REC layer holds ``{"conv": (B, W-1, Di), "h": (B, Di)
+float32, "idx"}`` and an SSD layer ``{"conv", "ssm": (B, nh, hd, S)
+float32, "idx"}`` (the reference's ``rec_cache`` / ``ssd_cache``, plus
+the port's token counter, which marks every layer of a ring cache).
 
 Paged pools: the per-layer cache is a pool of fixed-size blocks shared by every decode
 slot.  A host-side block table (B, max_blocks) int32 maps each slot's
@@ -69,17 +72,38 @@ def effective_cache_len(cfg: ModelConfig, context_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, context_len: int,
                dtype: Optional[torch.dtype] = None, *,
                device="cuda") -> Cache:
-    """Full-model ring cache: one per attention layer (attention-only
-    stacks; the reference's REC/SSD and cross-attention caches are not
-    ported)."""
-    if any(kind != ATTN for kind in cfg.layer_kinds) or \
-            cfg.cross_attention or cfg.encoder_layers:
-        raise ValueError(f"{cfg.name}: ring caches are ported for "
-                         f"attention-only decoder stacks")
+    """Full-model ring cache, one entry per layer: a ring for each ATTN
+    layer, the zero recurrent state of each REC/SSD layer (``conv`` in
+    ``dtype``, ``h`` / ``ssm`` in float32).  Decoder stacks only: the
+    reference's cross-attention caches are not ported."""
+    if cfg.cross_attention or cfg.encoder_layers:
+        raise ValueError(f"{cfg.name}: ring caches are ported for decoder "
+                         f"stacks (no cross-attention)")
     dtype = dtype or cfg.torch_dtype
     clen = effective_cache_len(cfg, context_len)
-    return [attn_cache(cfg, batch, clen, dtype, device)
-            for _ in cfg.layer_kinds]
+    out: Cache = []
+    for kind in cfg.layer_kinds:
+        if kind == ATTN:
+            out.append(attn_cache(cfg, batch, clen, dtype, device))
+        else:
+            layer: Dict[str, Any] = slot_state_cache(kind, cfg, batch, dtype,
+                                                     device=device)
+            layer["idx"] = 0
+            out.append(layer)
+    return out
+
+
+def reset_ring(cache: Cache) -> None:
+    """Empty a ring cache in place, as ``init_cache`` made it: K/V zero,
+    every slot -1, REC/SSD state zero, every ``idx`` 0."""
+    for layer in cache:
+        for name, t in layer.items():
+            if name == "idx":
+                layer[name] = 0
+            elif name == "slot_pos":
+                t.fill_(-1)
+            else:
+                t.zero_()
 
 
 def paged_attn_cache(cfg: ModelConfig, num_blocks: int, block_size: int,

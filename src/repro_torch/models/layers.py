@@ -1,6 +1,8 @@
-"""Core layers (port of the serving subset of ``repro/models/layers.py``):
-dense + LoRA delta, RMSNorm, RoPE, SwiGLU, the ring and paged branches of
-attention, and the depthwise causal conv of the REC and SSD mixers.
+"""Core layers (port of the decoder subset of ``repro/models/layers.py``):
+dense (+ bias) + LoRA delta, RMSNorm and LayerNorm, RoPE, the SwiGLU and
+squared-ReLU MLPs, the ring and paged branches of attention (the ring
+branch with the prefix-LM rule of a VLM's image prefix), and the
+depthwise causal conv of the REC and SSD mixers.
 
 Parameters are plain dicts of tensors in the reference's layout
 (``x @ W`` with W of shape (d_in, d_out)), so weights carry over from the
@@ -21,16 +23,17 @@ from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
 from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
 from repro_torch.kernels.sgmv.ops import sgmv_tokens
-from repro_torch.models.config import SWIGLU, ModelConfig
+from repro_torch.models.config import SQRELU, SWIGLU, ModelConfig
 
 Params = Dict[str, Any]
 
 
 def _normal(gen: torch.Generator, shape, dtype, scale: float,
             device) -> torch.Tensor:
-    """N(0, scale^2) drawn in float32 from ``gen``, cast to ``dtype``."""
+    """N(0, scale^2) drawn in float32 from ``gen``, cast to ``dtype``
+    (scaled in place: one float32 copy of the leaf at a time)."""
     t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 # ------------------------------------------------------------------- dense/LoRA
@@ -105,10 +108,18 @@ def causal_conv1d(xs: torch.Tensor, w: torch.Tensor,
 # ----------------------------------------------------------------------- norms
 def apply_norm(x: torch.Tensor, p: Params, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm, computed in float32 and cast back to x's dtype."""
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet")
+    """RMSNorm, or LayerNorm (``p["bias"]`` beside ``p["scale"]``; mean
+    removed, biased variance), each step in float32 as the reference
+    computes it and cast once back to x's dtype."""
+    if kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"norm {kind!r}")
     xf = x.float()
+    if kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        d = xf - mu
+        var = torch.mean(d * d, dim=-1, keepdim=True)
+        y = d * torch.rsqrt(var + eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
@@ -152,7 +163,8 @@ def _write_decode_kv(pool: torch.Tensor, new: torch.Tensor,
 
 def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, positions: torch.Tensor,
-                    window: Optional[int]) -> torch.Tensor:
+                    window: Optional[int],
+                    prefix_len: int = 0) -> torch.Tensor:
     """Ring-cache write, then attention (the warm-function engine).
 
     T > 1 is prefill into a fresh cache (``idx == 0``): the T new K/V go to
@@ -161,6 +173,9 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
     ring is causal attention over the T new keys: the flash kernel.  A
     prompt longer than the ring (T > S) attends over all T keys and keeps
     the last S (the reference's ring overflow, transformer.py:193-224).
+    ``prefix_len`` > 0 is the reference's prefix-LM mask (``_scores_mask``
+    kind "prefix"): prefill keys below it are visible to every query, as
+    a VLM's image prefix is; a decode query sits past them anyway.
     T == 1 is decode: write at slot ``idx % S`` — computed on the device
     as ``position % S``, since the decode position equals ``idx``
     (``transformer.decode_step``) — then attend over the ring by
@@ -173,7 +188,8 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
                          f"{idx}): queries at positions [0, T) would "
                          f"attend to older slots")
     if T > S:
-        out = flash_mha(q, k, v, causal=True, window=window)
+        out = flash_mha(q, k, v, causal=True, window=window,
+                        prefix_len=prefix_len)
         cache["k"].copy_(k[:, -S:])
         cache["v"].copy_(v[:, -S:])
         cache["slot_pos"].copy_(positions[0, -S:])
@@ -181,7 +197,8 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
         cache["k"][:, :T] = k.to(cache["k"].dtype)
         cache["v"][:, :T] = v.to(cache["v"].dtype)
         cache["slot_pos"][:T] = positions[0]
-        out = flash_mha(q, k, v, causal=True, window=window)
+        out = flash_mha(q, k, v, causal=True, window=window,
+                        prefix_len=prefix_len)
     else:
         slot = torch.remainder(positions[0], S).long()           # (1,)
         cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
@@ -199,14 +216,16 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                     block_tbl: Optional[torch.Tensor] = None,
                     adapter_idx: Optional[torch.Tensor] = None,
                     chunk_ids: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """GQA attention over one layer's cache, updated IN PLACE.
 
     x: (B, T, D); positions: (B, T) absolute positions.  The cache's kind
     picks the branch, as in the reference:
 
     Ring cache {"k","v": (B, S, K, hd), "slot_pos", "idx"} (the engine):
-    every row shares the positions of row 0 (``_ring_attention``).
+    every row shares the positions of row 0 (``_ring_attention``, with
+    the prefix-LM bound ``prefix_len`` at prefill).
 
     Paged pools {"kp","vp"}: (K, NB, bs, hd) (serving), with block_tbl:
     (B, MB) int32 logical -> physical block map (-1 = unallocated).
@@ -228,7 +247,7 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     k = rope(k.reshape(B, T, K, hd), positions, cfg.rope_theta)
     v = v.reshape(B, T, K, hd)
     if "k" in cache:
-        out = _ring_attention(cache, q, k, v, positions, window)
+        out = _ring_attention(cache, q, k, v, positions, window, prefix_len)
         return dense(out.reshape(B, T, H * hd), p["wo"], lora.get("o"),
                      scaling=s, adapter_idx=adapter_idx)
     kp, vp = cache["kp"], cache["vp"]
@@ -260,8 +279,14 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
 # ------------------------------------------------------------------------ MLPs
 def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x @ Wg) * (x @ Wi)) @ Wo."""
-    if cfg.mlp_for != SWIGLU:
-        raise ValueError(f"mlp {cfg.mlp_for!r} is not ported yet")
-    h = F.silu(x @ p["wg"]["w"]) * (x @ p["wi"]["w"])
+    """SwiGLU: (silu(x @ Wg) * (x @ Wi)) @ Wo; squared ReLU:
+    relu(x @ Wi)^2 @ Wo, the relu and then the square each rounded in the
+    activation dtype, as the reference's ``jnp.square(jax.nn.relu(.))``."""
+    if cfg.mlp_for == SWIGLU:
+        h = F.silu(x @ p["wg"]["w"]) * (x @ p["wi"]["w"])
+    elif cfg.mlp_for == SQRELU:
+        h = torch.relu(x @ p["wi"]["w"])
+        h = h * h
+    else:
+        raise ValueError(f"mlp {cfg.mlp_for!r} is not ported")
     return h @ p["wo"]["w"]

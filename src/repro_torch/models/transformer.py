@@ -1,18 +1,22 @@
-"""Causal LM (port of the serving subset of ``repro/models/transformer.py``)
+"""Causal LM (port of the decoder subset of ``repro/models/transformer.py``)
 for stacks of attention, RG-LRU (REC) and Mamba-2 (SSD) layers with a
-SwiGLU or MoE MLP (none after SSD), over ring caches (the warm-function
-engine; attention-only stacks) or paged pools with per-slot REC/SSD state
-rows (the serving runtime).
+SwiGLU, squared-ReLU or MoE MLP (none after SSD) and RMSNorm or LayerNorm,
+over ring caches with REC/SSD ring state (the warm-function engine) or
+paged pools with per-slot REC/SSD state rows (the serving runtime).  A
+VLM's image prefix (``forward(embeds=)``) attends bidirectionally under
+the prefix-LM mask on the ring path.
 
 A plain loop over layers replaces the reference's period ``lax.scan``;
 parameters are a dict with one entry per layer in ``params["layers"]``
 (the weight bridge, ``checkpoint/bridge.py``, unstacks the reference's
-period-stacked layout into it).  The cache's kind (``"k"`` ring vs
-``"kp"`` paged) picks the branch, as in the reference.
+period-stacked layout into it).  The cache's kind picks the branch, as in
+the reference: every layer of a ring cache carries the token counter
+``"idx"``; an attention layer of the paged cache holds ``"kp"`` pools.
 
 Entry points:
   * ``forward``     — ring: prefill of a fresh cache at positions
-                      ``[0, T)``; paged: one chunk of prefill at
+                      ``[0, T)`` (``[0, P + T)`` behind P prefix
+                      embeddings); paged: one chunk of prefill at
                       ``start_pos + [0, T)``, logits at ``last_pos``.
   * ``decode_step`` — ONE token per row: a scalar position on a ring
                       cache, per-row positions on the paged pools.
@@ -28,8 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.config import (ATTN, MOE, NONE, REC, SSD, SWIGLU,
-                                       ModelConfig)
+from repro_torch.models.config import (ATTN, MOE, NONE, REC, SQRELU, SSD,
+                                       SWIGLU, ModelConfig)
 from repro_torch.models.layers import (_normal, apply_attention, apply_mlp,
                                        apply_norm)
 from repro_torch.models.moe import apply_moe, moe_init
@@ -44,29 +48,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", *, lora_adapters: int = 1,
                 lora_b_scale: float = 0.02) -> Params:
     """Seeded random parameters with the reference's init scales (dense
-    N(0, 1/d_in), embeddings and LM head N(0, 0.02), norms at 1, LoRA A
-    N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo`` N(0, 1/F);
-    REC and SSD blocks as ``rglru_init`` / ``ssd_init``) and a stacked
-    bank of ``lora_adapters`` adapters on the config's targets: q/k/v/o of
-    attention, in/out of the REC and SSD blocks.  Unlike the reference,
-    whose LoRA B starts at zero, B is drawn N(0, ``lora_b_scale``) so every
-    adapter's delta is real.  ``generator`` must live on ``device``."""
+    N(0, 1/d_in), embeddings and LM head N(0, 0.02), norm scales at 1,
+    LoRA A N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo``
+    N(0, 1/F); REC and SSD blocks as ``rglru_init`` / ``ssd_init``) and a
+    stacked bank of ``lora_adapters`` adapters on the config's targets:
+    q/k/v/o of attention, in/out of the REC and SSD blocks.  Unlike the
+    reference, whose LoRA B, QKV biases (``qkv_bias``) and LayerNorm
+    biases start at zero, B is drawn N(0, ``lora_b_scale``) and the biases
+    N(0, 0.02), so every adapter's delta and every bias is real.
+    ``generator`` must live on ``device``."""
     if cfg.cross_attention or cfg.encoder_layers or \
-            cfg.mlp_for not in (SWIGLU, MOE, NONE):
-        raise ValueError(f"{cfg.name}: only decoder stacks with a SwiGLU "
-                         f"or MoE MLP (or none) are ported")
+            cfg.mlp_for not in (SWIGLU, SQRELU, MOE, NONE):
+        raise ValueError(f"{cfg.name}: only decoder stacks with a SwiGLU, "
+                         f"squared-ReLU or MoE MLP (or none) are ported")
     dt = cfg.torch_dtype
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, K, hd, r = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, \
         cfg.lora.rank
     N = lora_adapters
 
-    def w(d_in, d_out):
-        return {"w": _normal(generator, (d_in, d_out), dt,
-                             1.0 / math.sqrt(d_in), device)}
+    def w(d_in, d_out, bias=False):
+        p = {"w": _normal(generator, (d_in, d_out), dt,
+                          1.0 / math.sqrt(d_in), device)}
+        if bias:
+            p["b"] = _normal(generator, (d_out,), dt, 0.02, device)
+        return p
 
     def ones(d):
-        return {"scale": torch.ones((d,), dtype=dt, device=device)}
+        p = {"scale": torch.ones((d,), dtype=dt, device=device)}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = _normal(generator, (d,), dt, 0.02, device)
+        return p
 
     def bank(shapes):
         return {t: {"a": _normal(generator, (N, shapes[t][0], r), dt,
@@ -84,8 +96,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for kind in cfg.layer_kinds:
         layer: Params = {"norm1": ones(D)}
         if kind == ATTN:
-            attn = {"wq": w(D, H * hd), "wk": w(D, K * hd),
-                    "wv": w(D, K * hd), "wo": w(H * hd, D)}
+            qb = cfg.qkv_bias
+            attn = {"wq": w(D, H * hd, qb), "wk": w(D, K * hd, qb),
+                    "wv": w(D, K * hd, qb), "wo": w(H * hd, D)}
             if cfg.lora:
                 attn["lora"] = bank(attn_shapes)
             layer["attn"] = attn
@@ -102,6 +115,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layer["moe"] = moe_init(generator, cfg, dt, device)
         elif cfg.mlp_for == SWIGLU:
             layer["mlp"] = {"wi": w(D, F), "wg": w(D, F), "wo": w(F, D)}
+        elif cfg.mlp_for == SQRELU:
+            layer["mlp"] = {"wi": w(D, F), "wo": w(F, D)}
         layers.append(layer)
     p: Params = {
         "embed": _normal(generator, (V, D), dt, 0.02, device),
@@ -146,14 +161,40 @@ def _state_mixer(apply, p: Params, cfg: ModelConfig, h: torch.Tensor,
     return mix
 
 
+def _ring_state_mixer(apply, p: Params, cfg: ModelConfig, h: torch.Tensor,
+                      layer_cache: Dict[str, Any],
+                      adapter_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """A REC/SSD block over its ring state (the warm-function engine), as
+    the reference's ``_apply_layer`` runs it on ``rec_cache`` /
+    ``ssd_cache``: prefill (T > 1) of a fresh cache from the zero state,
+    decode (T == 1) from the carried one.  The new state is copied into
+    the cache's own tensors, so a captured decode step replays on the same
+    addresses."""
+    T = h.shape[1]
+    if T > 1 and layer_cache["idx"] != 0:
+        raise ValueError(f"ring prefill needs a fresh cache (idx 0, got "
+                         f"{layer_cache['idx']})")
+    names = [k for k in layer_cache if k != "idx"]
+    state = None if T > 1 else {k: layer_cache[k] for k in names}
+    mix, upd = apply(p, cfg, h, state=state, lora=p.get("lora"),
+                     lora_scaling=cfg.lora.scaling, adapter_idx=adapter_idx)
+    for k in names:
+        layer_cache[k].copy_(upd[k])
+    layer_cache["idx"] += T
+    return mix
+
+
 def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                positions: torch.Tensor, cache: List[Dict[str, Any]],
                adapter_idx: Optional[torch.Tensor],
                block_tbl: Optional[torch.Tensor] = None,
                chunk_ids: Optional[torch.Tensor] = None,
                state_rows: Optional[torch.Tensor] = None,
-               state_seq: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Residual blocks in stack order; the caches update in place."""
+               state_seq: Optional[torch.Tensor] = None,
+               prefix_len: int = 0) -> torch.Tensor:
+    """Residual blocks in stack order; the caches update in place.  A
+    REC/SSD layer runs over slot-state rows when ``state_rows`` is given
+    (the paged runtime), else over its ring state."""
     B, T = x.shape[:2]
     if adapter_idx is not None and T > 1:
         # per-token adapter ids, once per dispatch for every LoRA site
@@ -167,15 +208,19 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             x = x + apply_attention(
                 lp["attn"], cfg, h, positions=positions, cache=layer_cache,
                 block_tbl=block_tbl, adapter_idx=adapter_idx,
-                chunk_ids=chunk_ids, window=cfg.sliding_window)
-        elif kind == REC:
-            x = x + _state_mixer(apply_rglru_block, lp["rec"], cfg, h,
-                                 layer_cache, positions, state_rows,
-                                 state_seq, adapter_idx)
+                chunk_ids=chunk_ids, window=cfg.sliding_window,
+                prefix_len=prefix_len)
         else:
-            x = x + _state_mixer(apply_ssd, lp["ssd"], cfg, h, layer_cache,
-                                 positions, state_rows, state_seq,
-                                 adapter_idx)
+            apply, name = (apply_rglru_block, "rec") if kind == REC else \
+                (apply_ssd, "ssd")
+            if state_rows is None and "idx" in layer_cache:
+                mix = _ring_state_mixer(apply, lp[name], cfg, h,
+                                        layer_cache, adapter_idx)
+            else:
+                mix = _state_mixer(apply, lp[name], cfg, h, layer_cache,
+                                   positions, state_rows, state_seq,
+                                   adapter_idx)
+            x = x + mix
         if cfg.mlp_for == NONE:
             continue
         h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
@@ -194,11 +239,13 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _is_ring(cache: List[Dict[str, Any]]) -> bool:
-    return "k" in cache[0]
+    """Every layer of a ring cache carries the host token counter."""
+    return "idx" in cache[0]
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: List[Dict[str, Any]],
+            embeds: Optional[torch.Tensor] = None,
             adapter_idx: Optional[torch.Tensor] = None,
             last_only: bool = False,
             start_pos: Optional[torch.Tensor] = None,
@@ -212,7 +259,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     Ring cache: tokens (B, T) at positions [0, T) fill a FRESH cache
     (``idx`` 0; anything else raises ValueError — the reference would let
     the new queries attend to older slots).  A prompt longer than the ring
-    keeps its last S keys.
+    keeps its last S keys.  ``embeds`` (B, P, D): a VLM's image-patch
+    embeddings (the reference's stub frontend) placed before the tokens at
+    positions [0, P), the tokens then at [P, P + T), under the prefix-LM
+    mask: the P prefix keys are visible to every query.  REC/SSD layers
+    start from the zero state.
 
     Paged pools: one chunk at positions ``start_pos[b] + [0, T)``;
     chunk_ids: (B, T//bs) pool blocks this chunk writes; block_tbl: (B, MB)
@@ -221,14 +272,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     the carried state, and ``last_pos`` doubles as the in-chunk bound of
     valid tokens, so chunk-tail padding never advances the state.
 
-    Logits: at the per-row in-chunk index ``last_pos`` (B,) if given, else
-    at the last position with ``last_only``, else at every position.
+    Logits: at the per-row index ``last_pos`` (B,) if given (counted from
+    the first prefix position, as the reference does), else at the last
+    position with ``last_only``, else at each of the T token positions.
     Returns (logits (B, 1 or T, V), cache)."""
     B, T = tokens.shape
     x = _embed(params, tokens)
-    offs = torch.arange(T, device=tokens.device)[None, :]
+    prefix_len = 0
+    if embeds is not None:
+        if not _is_ring(cache):
+            raise ValueError("an image prefix (embeds) is served on ring "
+                             "caches only: the paged runtime carries none")
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        prefix_len = embeds.shape[1]
+    Ttot = x.shape[1]
+    offs = torch.arange(Ttot, device=tokens.device)[None, :]
     if _is_ring(cache):
-        positions = offs.expand(B, T).to(torch.int32)
+        positions = offs.expand(B, Ttot).to(torch.int32)
     else:
         positions = (start_pos[:, None] + offs).to(torch.int32)
     state_seq = None
@@ -237,13 +297,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
                    adapter_idx=adapter_idx, block_tbl=block_tbl,
                    chunk_ids=chunk_ids, state_rows=state_rows,
-                   state_seq=state_seq)
+                   state_seq=state_seq, prefix_len=prefix_len)
     if last_pos is not None:
         idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
         return _logits(params, cfg, torch.gather(x, 1, idx)), cache
     if last_only:
         return _logits(params, cfg, x[:, -1:]), cache
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x[:, prefix_len:]), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,

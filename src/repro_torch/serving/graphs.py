@@ -13,7 +13,12 @@ across) and then runs the step:
   kernels' shared-memory attributes and loads lazily loaded modules
   outside any capture — then captures it into a ``torch.cuda.CUDAGraph``
   and replays it.  Later calls with the key only stage and replay.
-  Nothing falls back to eager: a capture that fails raises.
+  Nothing falls back to eager: a capture that fails raises.  The tensors
+  named in ``keep`` are put back as they were before that eager run: a
+  step that advances a recurrent state in place (the ring engine's REC
+  and SSD layers) would otherwise advance it twice, once eagerly and
+  once in the replay; a K/V write at the step's own slot is the same
+  write twice and needs no keeping.
 * on the CPU it runs the function and records the key.
 
 ``_cache_size()`` is the number of keys, the probe ``CompileGuard`` reads
@@ -31,6 +36,7 @@ a graph's pool is read after the next replay except the clones.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -114,15 +120,18 @@ class GraphedDispatch:
     """A step function run as one captured graph per input signature (see
     the module docstring).  ``device`` is where the step's tensors live;
     ``pool`` is a ``torch.cuda.graph_pool_handle()`` shared with the
-    owner's other dispatches."""
+    owner's other dispatches; ``keep`` the tensors that the eager run
+    before a capture must leave as it found them."""
 
     captures = 0               # every new key of every dispatch, process-wide
     capture_seconds = 0.0
 
-    def __init__(self, fn: Callable[..., Any], device, *, pool=None):
+    def __init__(self, fn: Callable[..., Any], device, *, pool=None,
+                 keep: Sequence[torch.Tensor] = ()):
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
+        self.keep = tuple(keep)
         self._graphs: Dict[Key, _Graph] = {}
         self._last: Optional[_Graph] = None
 
@@ -177,16 +186,31 @@ class GraphedDispatch:
         static = g.inputs.static
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
+        saved = [t.clone() for t in self.keep]
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self.fn(*static)
         cur.wait_stream(side)
+        for t, was in zip(self.keep, saved):
+            t.copy_(was)
+        del saved
         # the eager run may have advanced inputs in place: stage again
         g.inputs.stage(args)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = self.fn(*static)
+        # A graph left unreachable in a reference cycle (say, an engine
+        # that owned it) must not be freed by the collector mid-capture:
+        # destroying a graph while a stream captures invalidates the
+        # capture.  So collect first, and let nothing collect during it.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self.fn(*static)
+        finally:
+            if collecting:
+                gc.enable()
         after = kernels.launch_counts()
         g.launches = {k: after[k] - before[k] for k in after}
         kernels.add_launches({k: -n for k, n in g.launches.items()})

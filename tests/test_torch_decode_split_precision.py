@@ -128,6 +128,7 @@ RING_CASES = [
     pytest.param(2, 150, 2, 1, 64, 2 * 150 + 17, None, id="wrapped"),
     pytest.param(1, 200, 2, 1, 128, 150, 20, id="window-empties-parts"),
     pytest.param(2, 100, 2, 4, 32, 90, None, id="gqa-G4"),
+    pytest.param(1, 150, 1, 12, 192, 170, None, id="wrapped-G12-hd192"),
 ]
 
 
@@ -186,6 +187,8 @@ PAGED_CASES = [
     pytest.param(1, 4, 128, 16, 12, [181, 40], [], None, id="gqa-G4"),
     pytest.param(2, 1, 64, 24, 8, [170, 100], [(0, 1)], 90,
                  id="boundary-inside-block-window90"),
+    pytest.param(1, 12, 192, 16, 10, [140, 0], [(0, 4)], None,
+                 id="G12-hd192-inactive-row"),
 ]
 
 
@@ -226,3 +229,63 @@ def test_emulation_merge_is_exact_for_one_partition():
                                 ok[:, :RING_PARTITION], RING_PARTITION)
     assert bool((m[..., 1] == NEG_INF).all())
     assert torch.equal(two, one)
+
+
+# ------------------------------------------------------- the lane layout
+def row_layout(hd: int, elem_bytes: int):
+    """``RowLayout`` of ``csrc/decode_tile.cuh``: a row of hd elements as
+    16-byte chunks over LPR lanes (the chunk count rounded up to a power
+    of two, at most 32), lane c holding chunks c, c + LPR, ... below the
+    chunk count.  Returns (LPR, the chunks of each lane)."""
+    ch = hd * elem_bytes // 16
+    lpr = 32 if ch >= 32 else 1 << (ch - 1).bit_length()
+    return lpr, [list(range(c, ch, lpr)) for c in range(lpr)]
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192, 256])
+def test_row_layout_covers_each_chunk_once(hd, elem_bytes):
+    lpr, lanes = row_layout(hd, elem_bytes)
+    ch = hd * elem_bytes // 16
+    assert 32 % lpr == 0
+    assert sorted(c for lane in lanes for c in lane) == list(range(ch))
+    if hd == 192:                   # ragged: a power-of-two lane count
+        assert lpr == 32
+        counts = [len(lane) for lane in lanes]
+        assert counts == ([1] * 24 + [0] * 8 if elem_bytes == 2
+                          else [2] * 16 + [1] * 16)
+
+
+def lane_scores(q: torch.Tensor, k: torch.Tensor, elem_bytes: int):
+    """A partition's scores q . k_i in the kernel's order: each lane sums
+    the products of its chunks' elements in float32 (an empty slot adds
+    zeros), then the lanes' partial sums meet in the xor butterfly of
+    ``score_rows`` (offsets LPR / 2, ..., 1).  q (hd,), k (n, hd)."""
+    hd = q.shape[-1]
+    lpr, lanes = row_layout(hd, elem_bytes)
+    epc = 16 // elem_bytes
+    part = torch.zeros((lpr, k.shape[0]), dtype=torch.float32)
+    for c, chunks in enumerate(lanes):
+        for chunk in chunks:
+            for e in range(chunk * epc, (chunk + 1) * epc):
+                part[c] = part[c] + q[e].float() * k[:, e].float()
+    o = lpr // 2
+    while o:
+        part = part + part[torch.arange(lpr) ^ o]
+        o //= 2
+    return part[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lane_order_scores_match_plain_at_hd192(dtype):
+    """Scores summed in the hd-192 lane order agree with the plain float32
+    product within the float32 tolerance (1e-5 relative): the layout moves
+    no element and drops none."""
+    rng = np.random.default_rng(192)
+    q = _inputs(rng, dtype, 192)
+    k = _inputs(rng, dtype, 16, 192)
+    got = lane_scores(q, k, 2 if dtype == torch.bfloat16 else 4)
+    want = k.double() @ q.double()
+    scale = float((k.double().abs() @ q.double().abs()).max())
+    assert float((got.double() - want).abs().max()) <= 1e-5 * max(1.0,
+                                                                  scale)

@@ -99,6 +99,7 @@ FLASH_CASES = [
     pytest.param(1, 130, 8, 2, 128, None, id="gqa-G4-hd128-ragged-T130"),
     pytest.param(2, 150, 2, 2, 64, 48, id="window48-hd64-T150"),
     pytest.param(1, 260, 4, 1, 128, 100, id="gqa-G4-window100-hd128"),
+    pytest.param(1, 90, 12, 1, 192, None, id="gqa-G12-hd192-T90"),
 ]
 
 
@@ -167,6 +168,7 @@ PAGED_CASES = [
     pytest.param(64, 2, 1, 64, None, id="hd64"),
     pytest.param(32, 1, 4, 128, None, id="gqa-G4-hd128"),
     pytest.param(48, 2, 1, 128, 40, id="window40-hd128"),
+    pytest.param(16, 1, 12, 192, None, id="gqa-G12-hd192"),
 ]
 
 
