@@ -127,9 +127,30 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    --prompt-len 256 --max-new 16``) at full width and depth on
    Qwen2.5-3B, SmolLM-360M, Phi-3-medium-14B and Llama-2-13B: one capture
    per batch size, exact launches, a batch's tokens equal to an
-   uncaptured decode loop's.
+   uncaptured decode loop's;
+14. a LoRA function's cold start at Llama-2-7B's full width, stage by
+   stage as the reference's ``Simulator._dispatch`` charges it, each
+   timing repeated 3 times: ``library_load`` and ``runtime_init`` in
+   fresh processes (with the device memory of a process's CUDA context);
+   ``kernel_compile`` (the kernel library's load, the first prefill's
+   excess, a batch-1 decode-step capture); ``backbone_load`` with
+   ``serverless/loading.py::pipelined_device_put`` from one pinned
+   HOST-tier buffer and from pageable memory through its staging ring,
+   beside a per-leaf ``.to("cuda")``, the PCIe bound and the ring's
+   overlap, every leaf equal bit for bit; ``adapter_load``; then the
+   first function cold (``BackboneStore`` over the loaded tree, a
+   ``FunctionInstance`` with its loaded adapter, a batch from the
+   fill-or-expire queue through ``InferenceEngine.generate``: exact
+   launches, tokens equal to the drawn tree's), its cold TTFT against the
+   warm one, a second function on the same backbone (shared
+   ``data_ptr``s, its device memory within its adapter, rings and the
+   first engine's extra state), a captured engine dropped and rebuilt in
+   one process (equal tokens, every replayed launch seen by the
+   profiler), and the port's ``Simulator`` over ``tests/test_system.py``'s
+   paper setup under ``SLICE_HW`` and under the measured stages
+   (simulator outputs, not gated).
 
-Phases 8-13 each run in a child process of the script (``isolated``; one
+Phases 8-14 each run in a child process of the script (``isolated``; one
 child per model in phase 13).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
@@ -146,6 +167,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -175,6 +197,8 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # relative) apart: 2^-7 allows two.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SLEEP_CYCLES = 2_000_000     # ~1 ms of device sleep ahead of a timed launch
+MARKERS = 512                # spin kernels around a profiled run (F7)
+PROFILER_SETTLE_S = 0.25     # wait after a profiler session starts (F7)
 FLUSH_BYTES = 256 << 20      # > the 50 MB L2: every timed launch starts cold
 
 # Phase 4: Llama-2-7B serving shapes
@@ -298,6 +322,14 @@ ZOO_PROMPT, ZOO_NEW = 256, 16
 ZOO_ROWS = 8                 # the launcher's largest batch (max_batch)
 ZOO_FLAGS = ["--full", "--requests", "8", "--prompt-len", str(ZOO_PROMPT),
              "--max-new", str(ZOO_NEW)]
+
+# Phase 14: a LoRA function's cold start at Llama-2-7B's full width, stage
+# by stage, each timing repeated COLD_REPEATS times; the cold batch is
+# phase 5's prompt length, COLD_FNS the adapters of the two functions.
+COLD_REPEATS = 3
+COLD = dict(rows=4, prompt_len=500, max_new=16)
+COLD_FNS = (1, 2)
+PCIE_GT_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
 
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
@@ -1478,18 +1510,41 @@ def profiled(fn: Callable[[], object]) -> Dict:
     activity and device time by kind (the profiler's host wall time is
     kept too; it is inflated by the tracing itself).  SGMV's expand is
     resident while its shrink runs, so the two kinds overlap:
-    ``sgmv_union_ms`` counts their time once."""
+    ``sgmv_union_ms`` counts their time once.
+
+    The profiler drops records at a session's ends, in a process that
+    has launched no port kernel too (``tools/profiler_record_loss.py``;
+    ROADMAP section 3, F7): in some processes that have run phase 3 the
+    first 3-4 records of every session, and in 1-2% of sessions up to
+    ~460 records at the start, ~90 at the end, or all of them.  So ``fn``
+    runs PROFILER_SETTLE_S after the session starts, between two runs of
+    MARKERS zero-cycle spin kernels, each synchronised, which take the
+    losses at the ends; the markers are left out of every number, and
+    ``markers_lost`` counts those the profiler dropped."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def markers() -> None:
+        for _ in range(MARKERS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_SETTLE_S)
+        markers()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+        markers()
     spans, sgmv, by_kind, count = [], [], {}, {}
+    seen = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            continue
+        if "spin_kernel" in e.name:
+            seen += 1
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -1498,14 +1553,15 @@ def profiled(fn: Callable[[], object]) -> Dict:
         count[kind] = count.get(kind, 0) + 1
         if kind.startswith("sgmv"):
             sgmv.append((start, end))
+    lost = 2 * MARKERS - seen
     if not spans:
         return {"profiled_wall_ms": host_ms, "device_busy_ms": None,
-                "device_ms_by_kind": None,
+                "device_ms_by_kind": None, "markers_lost": lost,
                 "note": "the profiler saw no device events: not measured"}
     return {"profiled_wall_ms": host_ms, "device_busy_ms": _union_ms(spans),
             "device_ms_by_kind": dict(sorted(by_kind.items())),
             "kernels_by_kind": dict(sorted(count.items())),
-            "sgmv_union_ms": _union_ms(sgmv)}
+            "sgmv_union_ms": _union_ms(sgmv), "markers_lost": lost}
 
 
 # kernels the profiler shows for one launch of each wrapper (SGMV and the
@@ -1532,7 +1588,8 @@ def cross_check(label: str, launches: Dict[str, int], prof: Dict) -> Dict:
     got = {k: seen.get(k, 0) for k in want}
     match = got == want
     print(f"{label} launch cross-check: wrappers {want}, profiler {got}: "
-          + ("equal" if match else "NOT equal"))
+          + ("equal" if match else "NOT equal") + f" (the profiler dropped "
+          f"{prof.get('markers_lost')} of {2 * MARKERS} markers)")
     if not match and all(v > 0 for v in got.values()):
         fail(f"{label}: the profiler sees the kernels but not as many as "
              f"the wrappers launched")
@@ -3263,10 +3320,568 @@ def zoo_launch_phase(arch: str, device: Dict) -> Dict:
     return out
 
 
+# ------------------------------------------ 14. a LoRA function's cold start
+RUNTIME_PROBE = """
+import json, time
+t0 = time.perf_counter()
+import torch, repro_torch
+import repro_torch.core.engine, repro_torch.core.sharing
+import repro_torch.serverless.loading
+t1 = time.perf_counter()
+torch.cuda.init()
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+free, total = torch.cuda.mem_get_info()
+print(json.dumps({"import_s": t1 - t0, "runtime_init_s": t2 - t1,
+                  "free": free, "total": total}))
+"""
+
+
+def _spread(xs: List[float]) -> Dict:
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "runs": list(xs)}
+
+
+def _fmt(s: Dict, unit: str = "s", scale: float = 1.0) -> str:
+    return (f"{s['median'] * scale:.4f} {unit} (spread "
+            f"{s['min'] * scale:.4f}-{s['max'] * scale:.4f}, "
+            f"{len(s['runs'])} runs)")
+
+
+def _timed(fn: Callable[[], object]) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
+               if t is not None)
+
+
+def _equal_trees(a, b) -> bool:
+    from repro_torch.core.lora import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x, y.to(x.device)) for x, y in zip(la, lb))
+
+
+def runtime_stage() -> Dict:
+    """``library_load`` and ``runtime_init``: COLD_REPEATS fresh processes
+    each time the imports a function runs and then ``torch.cuda.init()``
+    with a first 1-element allocation.  The device memory their CUDA context
+    and first allocation take: this process's free memory before the
+    probe starts against the probe's own reading after its allocation."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for _ in range(COLD_REPEATS):
+        free_before, _ = torch.cuda.mem_get_info()
+        out = subprocess.run([sys.executable, "-c", RUNTIME_PROBE],
+                             capture_output=True, text=True, env=env,
+                             timeout=300, check=False)
+        if out.returncode:
+            fail(f"runtime probe failed ({out.returncode}): "
+                 f"{out.stderr[-2000:]}")
+        r = json.loads(out.stdout.strip().splitlines()[-1])
+        r["context_bytes"] = free_before - r["free"]
+        runs.append(r)
+    res = {"library_load_s": _spread([r["import_s"] for r in runs]),
+           "runtime_init_s": _spread([r["runtime_init_s"] for r in runs]),
+           "context_bytes": _spread([r["context_bytes"] for r in runs])}
+    print(f"library_load (import torch, repro_torch and the engine, "
+          f"sharing and loading modules; first run may read a cold file "
+          f"cache): {_fmt(res['library_load_s'])}")
+    print(f"runtime_init (torch.cuda.init() + a first 1-element "
+          f"allocation): {_fmt(res['runtime_init_s'])}; a process's "
+          f"context + first allocation on the card: "
+          f"{_fmt(res['context_bytes'], 'MB', 1e-6)} (the port's "
+          f"counterpart of the simulator's KERNEL_BYTES, 0.50 GB)")
+    return res
+
+
+def kernel_stage(cfg, params) -> Dict:
+    """``kernel_compile``, the port's KERNEL artifact with the kernel
+    library already built: load it (dlopen; once per process), the first
+    eager flash prefill of a 1-row prompt over a warm one (lazily loaded
+    modules, first launches), and the eager run + capture of the ring
+    decode step at batch 1 (``GraphedDispatch.capture_seconds``; the first
+    engine also loads the decode kernels' modules), on COLD_REPEATS fresh
+    engines."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serving.graphs import GraphedDispatch
+    if cuda_lib.library.cache_info().currsize:
+        fail("the kernel library was loaded before phase 14 timed its load")
+    t_lib = _timed(cuda_lib.library)
+    T = COLD["prompt_len"]
+    ctx = T + COLD["max_new"] + 8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ai = torch.zeros(1, dtype=torch.int32, device="cuda")
+    eng = InferenceEngine(cfg, params, max_context=ctx)
+    first = _timed(lambda: eng.prefill(prompt, ai))
+    warm = _spread([_timed(lambda: eng.prefill(prompt, ai))
+                    for _ in range(COLD_REPEATS)])
+    captures = []
+    for _ in range(COLD_REPEATS):
+        eng = InferenceEngine(cfg, params, max_context=ctx)
+        cache, step = eng.ring(1)
+        logits, _ = eng.prefill(prompt, ai, cache=cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        pos = torch.full((), T, dtype=torch.int32, device="cuda")
+        before = GraphedDispatch.capture_seconds
+        step(tok, pos, ai)
+        torch.cuda.synchronize()
+        captures.append(GraphedDispatch.capture_seconds - before)
+        del eng, cache, step
+        gc.collect()
+    cap = _spread(captures)
+    total = t_lib + max(first - warm["median"], 0.0) + captures[0]
+    res = {"library_s": t_lib, "prefill_first_s": first,
+           "prefill_warm_s": warm, "capture_s": cap,
+           "kernel_compile_s": total}
+    print(f"kernel_compile: kernel library load {t_lib:.4f} s (once a "
+          f"process); first eager flash prefill of 1 x {T} tokens "
+          f"{first:.4f} s against {_fmt(warm)} warm; eager run + capture "
+          f"of the batch-1 ring decode step {_fmt(cap)} (the first loads "
+          f"the decode modules) -> {total:.4f} s a cold process (library + "
+          f"first-launch excess + first capture)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def pcie_bound(nbytes: int) -> Dict:
+    """Least time of a host-to-device copy of ``nbytes`` over the card's
+    PCIe link, at its maximum generation and width as nvidia-smi reports
+    them; where it reports none, the H100 SXM data sheet's Gen5 x16."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=False)
+    parts = [p.strip() for p in q.stdout.strip().split(",")]
+    if len(parts) == 2 and all(p.isdigit() for p in parts):
+        gen, width, source = int(parts[0]), int(parts[1]), "nvidia-smi"
+    else:
+        gen, width = 5, 16
+        source = (f"nvidia-smi reports {q.stdout.strip() or 'nothing'}; "
+                  f"the H100 SXM data sheet's Gen5 x16")
+    coding = 0.8 if gen <= 2 else 128 / 130
+    rate = PCIE_GT_S[gen] * 1e9 * width * coding / 8
+    return {"gen": gen, "width": width, "source": source,
+            "bytes_per_s": rate, "bound_s": nbytes / rate}
+
+
+def backbone_stage(cfg, params) -> Dict:
+    """``backbone_load``: the drawn backbone into one flat pinned HOST-tier
+    buffer (the device-to-host copy an offload makes), then
+    ``pipelined_device_put`` from it COLD_REPEATS times, and from a
+    pageable copy through the staging ring COLD_REPEATS times, beside a
+    per-leaf ``.to("cuda")`` from the pageable copy and the PCIe bound.
+    The staging ring's overlap, in ``estimate_load_seconds``'s terms:
+    its host copies alone (the same chunks into two pinned buffers, no
+    DMA) h, the pinned path's DMA alone d and both together t give
+    overlap = 1 - (t - max(h, d)) / min(h, d).  Every loaded leaf must
+    equal its source bit for bit."""
+    from repro_torch.core.lora import partition_lora, tree_leaves
+    from repro_torch.serverless.latency import LatencyModel
+    from repro_torch.serverless.loading import (STAGE_CHUNK_BYTES,
+                                                pin_host_tier,
+                                                pipelined_device_put,
+                                                stage_plan)
+    backbone, _ = partition_lora(params)
+    nbytes = _nbytes(backbone)
+    counted = LatencyModel().backbone_bytes(cfg)
+    tier = pin_host_tier(backbone)
+    if not _equal_trees(backbone, tier.params):
+        fail("the HOST tier differs from the device tree")
+    print(f"backbone: {len(tree_leaves(backbone))} leaves, "
+          f"{nbytes / 1e9:.3f} GB "
+          f"(LatencyModel.backbone_bytes counts {counted / 1e9:.3f} GB); "
+          f"HOST tier: {tier.nbytes_pinned / 1e9:.3f} GB pinned with "
+          f"cudaHostRegister in one buffer: allocate + register "
+          f"{tier.register_s:.3f} s, then the copy from the card (an "
+          f"offload's direction) {tier.copy_s:.3f} s "
+          f"({nbytes / tier.copy_s / 1e9:.2f} GB/s)")
+
+    def loads(tree) -> List[float]:
+        secs = []
+        for _ in range(COLD_REPEATS):
+            got, s = pipelined_device_put(tree)
+            if not _equal_trees(backbone, got):
+                fail("a loaded backbone leaf differs from its source")
+            secs.append(s)
+            del got
+        return secs
+
+    res = {"bytes": nbytes, "backbone_bytes": counted,
+           "pinned_bytes": tier.nbytes_pinned,
+           "register_s": tier.register_s, "offload_copy_s": tier.copy_s,
+           "pinned_load_s": _spread(loads(tier))}
+    t0 = time.perf_counter()
+    pageable = _map_clone(tier.params)
+    res["pageable_copy_s"] = time.perf_counter() - t0
+    if any(x.is_pinned() for x in tree_leaves(pageable)):
+        fail("the pageable copy is pinned")
+    res["staged_load_s"] = _spread(loads(pageable))
+
+    srcs = [x.reshape(-1).view(torch.uint8) for x in tree_leaves(pageable)]
+    plan = stage_plan([s.numel() for s in srcs], STAGE_CHUNK_BYTES)
+    bufs = [torch.empty(STAGE_CHUNK_BYTES, dtype=torch.uint8,
+                        pin_memory=True) for _ in range(2)]
+
+    def host_copies() -> None:
+        for k, pieces in enumerate(plan):
+            for i, off, at, n in pieces:
+                bufs[k % 2][at:at + n].copy_(srcs[i][off:off + n])
+
+    res["host_copy_s"] = _spread([_timed(host_copies)
+                                  for _ in range(COLD_REPEATS)])
+    del bufs, srcs
+
+    def per_leaf():
+        got = [x.to("cuda") for x in tree_leaves(pageable)]
+        torch.cuda.synchronize()
+        return got
+
+    yard = []
+    for _ in range(COLD_REPEATS):
+        t0 = time.perf_counter()
+        got = per_leaf()
+        yard.append(time.perf_counter() - t0)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(backbone), got)):
+            fail("a per-leaf .to('cuda') copy differs from its source")
+        del got
+    res["per_leaf_to_s"] = _spread(yard)
+    del pageable
+    h, d = res["host_copy_s"]["median"], res["pinned_load_s"]["median"]
+    t = res["staged_load_s"]["median"]
+    res["overlap"] = 1.0 - (t - max(h, d)) / min(h, d)
+    res["pcie"] = pcie_bound(nbytes)
+    res["h2d_bw"] = nbytes / d
+    print(f"backbone_load, pinned HOST tier -> card (pipelined_device_put, "
+          f"one non_blocking copy a leaf on a side stream): "
+          f"{_fmt(res['pinned_load_s'])}, {nbytes / d / 1e9:.2f} GB/s")
+    print(f"backbone_load, pageable -> card through the staging ring "
+          f"(2 x {STAGE_CHUNK_BYTES >> 20} MiB pinned, {len(plan)} chunks): "
+          f"{_fmt(res['staged_load_s'])}; its host copies alone "
+          f"{_fmt(res['host_copy_s'])}; overlap {res['overlap']:.3f} "
+          f"(the reference assumes 0.85)")
+    print(f"yardstick, per-leaf .to('cuda') from pageable memory: "
+          f"{_fmt(res['per_leaf_to_s'])}")
+    p = res["pcie"]
+    print(f"PCIe bound: Gen{p['gen']} x{p['width']} "
+          f"({p['bytes_per_s'] / 1e9:.1f} GB/s; {p['source']}): "
+          f"{p['bound_s']:.4f} s for {nbytes / 1e9:.3f} GB; the stand-in "
+          f"h2d_bw of 32 GB/s gives {nbytes / 32e9:.4f} s; every loaded "
+          f"leaf equal to its source bit for bit")
+    res["tier"] = tier
+    return res
+
+
+def one_adapter(params, i: int):
+    """Adapter ``i`` of the stacked bank as a bank of one (leaves (L, 1,
+    D, r) / (L, 1, r, O)): one function's ADAPTER artifact."""
+    from repro_torch.core.lora import partition_lora
+    return _tree_map(lambda x: x.narrow(-3, i, 1).contiguous(),
+                     partition_lora(params)[1])
+
+
+def adapter_stage(cfg, params, i: int):
+    """``adapter_load``: adapter ``i`` from a pinned HOST tier to the card
+    by ``pipelined_device_put``, COLD_REPEATS times, bit for bit.  Returns
+    (its numbers, the last loaded tree)."""
+    from repro_torch.core.lora import adapter_bytes
+    from repro_torch.serverless.loading import (pin_host_tier,
+                                                pipelined_device_put)
+    src = one_adapter(params, i)
+    tier = pin_host_tier(src)
+    secs, got = [], None
+    for _ in range(COLD_REPEATS):
+        got, s = pipelined_device_put(tier)
+        if not _equal_trees(src, got):
+            fail(f"adapter {i}: a loaded leaf differs from its source")
+        secs.append(s)
+    res = {"adapter": i, "bytes": _nbytes(src),
+           "adapter_bytes": adapter_bytes(cfg), "load_s": _spread(secs)}
+    print(f"adapter_load, adapter {i} ({res['bytes'] / 1e6:.2f} MB; "
+          f"adapter_bytes counts {res['adapter_bytes'] / 1e6:.2f} MB) from "
+          f"pinned memory: {_fmt(res['load_s'], 'ms', 1e3)}, bit for bit")
+    return res, got
+
+
+def function_batch(cfg, seed: int):
+    """A batch of COLD["rows"] requests for one function, formed by the
+    fill-or-expire queue, and its random prompts."""
+    from repro_torch.serverless.batching import (FunctionQueue, Request,
+                                                 profile_function)
+    from repro_torch.serverless.latency import SLICE_HW, LatencyModel
+    T, rows = COLD["prompt_len"], COLD["rows"]
+    q = FunctionQueue("fn", profile_function(cfg, T, 2.5,
+                                             LatencyModel(SLICE_HW),
+                                             mem_cap_batch=rows))
+    for r in range(rows + 1):
+        q.push(Request(r, "fn", 0.01 * r, T, COLD["max_new"], 2.5))
+    batch = q.pop_batch()
+    if len(batch) != rows:
+        fail(f"the queue formed a batch of {len(batch)}, not {rows}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (rows, T), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def ring_bytes(eng) -> int:
+    """Device bytes of an engine's rings, each tensor rounded up to the
+    caching allocator's 512-byte blocks."""
+    return sum(-(-t.numel() * t.element_size() // 512) * 512
+               for cache, _ in eng._rings.values() for layer in cache
+               for t in layer.values() if isinstance(t, torch.Tensor))
+
+
+def cold_phase(device: Dict) -> Dict:
+    """Phase 14 (see the module docstring)."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.lora import partition_lora, tree_leaves
+    from repro_torch.core.sharing import BackboneStore, FunctionInstance
+    from repro_torch.serverless.latency import H100_HW
+    from repro_torch.serverless.loading import pipelined_device_put
+    from repro_torch.serving.graphs import GraphedDispatch
+
+    t_phase = phase("phase 14: a LoRA function's cold start, Llama-2-7B "
+                    "full width, stage by stage")
+    torch.cuda.mem_get_info()          # this process's context first
+    out: Dict = {"runtime": runtime_stage()}
+    cfg, params = model_params()
+    torch.cuda.reset_peak_memory_stats()
+    out["kernel"] = kernel_stage(cfg, params)
+    bb = backbone_stage(cfg, params)
+    tier = bb.pop("tier")
+    out["backbone"] = bb
+    first, second = COLD_FNS
+    ad1, ad1_dev = adapter_stage(cfg, params, first)
+    out["adapter"] = ad1
+    loaded, _ = pipelined_device_put(tier)
+    tier.close()
+    del tier
+
+    # 5. the first function, cold: its backbone and adapter as loaded
+    T, new, rows = COLD["prompt_len"], COLD["max_new"], COLD["rows"]
+    ctx = T + new + 8
+    store = BackboneStore()
+    store.register("llama2-7b", cfg, loaded)
+    fn1 = FunctionInstance(f"fn{first}", store.open("llama2-7b"), ad1_dev, 0)
+    prompts = function_batch(cfg, seed=9)
+    zeros = torch.zeros(rows, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    mem_e0 = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, fn1.params, max_context=ctx)
+
+    def first_token() -> None:
+        cache, _ = eng.ring(rows)
+        logits, _ = eng.prefill(prompts, zeros, cache=cache)
+        torch.argmax(logits, dim=-1)
+
+    cold_prefill = _timed(first_token)
+    with FiniteLogits() as finite:
+        kernels.reset_launches()
+        cap0 = GraphedDispatch.capture_seconds
+        got, _ = eng.generate(prompts, new, zeros)
+        torch.cuda.synchronize()
+        capture = GraphedDispatch.capture_seconds - cap0
+        launches = kernels.launch_counts()
+    # what the engine holds beside its rings (the captured step's staged
+    # inputs and outputs, the streams' library workspaces)
+    engine_extra = torch.cuda.memory_allocated() - mem_e0 - ring_bytes(eng)
+    warm = _spread([_timed(first_token) for _ in range(COLD_REPEATS)])
+    ref_eng = InferenceEngine(cfg, params, max_context=ctx)
+    want, _ = ref_eng.generate(prompts, new, torch.full_like(zeros, first))
+    expected = engine_launches(cfg, 1, new)
+    if launches != expected:
+        fail(f"cold function launches {launches}, expected {expected}")
+    if not finite.ok():
+        fail("non-finite logits in the cold function's batch")
+    if not torch.equal(got, want):
+        fail("the cold function's tokens differ from the same batch on the "
+             "tree drawn on the card")
+    r, k = out["runtime"], out["kernel"]
+    stages = {"library_load": r["library_load_s"]["median"],
+              "runtime_init": r["runtime_init_s"]["median"],
+              "kernel_compile": k["kernel_compile_s"],
+              "backbone_load": bb["pinned_load_s"]["median"],
+              "adapter_load": ad1["load_s"]["median"],
+              "prefill_first_token": cold_prefill}
+    cold_ttft = sum(stages.values())
+    out["cold"] = {"stages": stages, "cold_ttft_s": cold_ttft,
+                   "warm_ttft_s": warm, "capture_s": capture,
+                   "launches": launches}
+    print(f"cold function fn{first}: {rows} x {T}-token prompts from the "
+          f"fill-or-expire queue, {new} new tokens; launches {launches} = "
+          f"expected; tokens equal to the same batch on the drawn tree "
+          f"(adapter {first} of the bank)")
+    print(f"cold TTFT {cold_ttft:.4f} s = "
+          + " + ".join(f"{n} {v:.4f}" for n, v in stages.items())
+          + f"; warm TTFT of the same batch {_fmt(warm)}; the batch's "
+          f"decode-step capture {capture:.4f} s (not on the TTFT path) on "
+          f"{_smi(device)}")
+
+    # 6. a second function on the same backbone
+    ad2_src = one_adapter(params, second)
+    from repro_torch.serverless.loading import pin_host_tier
+    ad2_tier = pin_host_tier(ad2_src)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ad2, t_ad2 = pipelined_device_put(ad2_tier)
+    fn2 = FunctionInstance(f"fn{second}", store.open("llama2-7b"), ad2, 0)
+    eng2 = InferenceEngine(cfg, fn2.params, max_context=ctx)
+    prompts2 = function_batch(cfg, seed=10)
+    cap0 = GraphedDispatch.capture_seconds
+    got2, _ = eng2.generate(prompts2, new, zeros)
+    torch.cuda.synchronize()
+    capture2 = GraphedDispatch.capture_seconds - cap0
+    delta = torch.cuda.memory_allocated() - mem0
+    want2, _ = ref_eng.generate(prompts2, new,
+                                torch.full_like(zeros, second))
+    ptrs = [[t.data_ptr() for t in tree_leaves(partition_lora(f.params)[0])]
+            for f in (fn1, fn2)]
+    allowed = ad1["bytes"] + ring_bytes(eng2) + max(engine_extra, 0) + \
+        (1 << 20)
+    if ptrs[0] != ptrs[1] or store.refcount("llama2-7b") != 2:
+        fail("the second function does not read the first one's backbone")
+    if delta > allowed:
+        fail(f"the second function took {delta} bytes of device memory, "
+             f"over its adapter + rings + the first engine's state beside "
+             f"its rings + 1 MiB ({allowed})")
+    if not torch.equal(got2, want2):
+        fail("the second function's tokens differ from the drawn tree's")
+    out["second"] = {"adapter_load_s": t_ad2, "capture_s": capture2,
+                     "memory_delta_bytes": delta, "allowed_bytes": allowed,
+                     "ring_bytes": ring_bytes(eng2),
+                     "first_engine_extra_bytes": engine_extra}
+    print(f"second function fn{second} on the same backbone: adapter load "
+          f"{t_ad2 * 1e3:.3f} ms + decode-step capture {capture2:.4f} s "
+          f"charged; its {len(ptrs[1])} backbone leaves share data_ptrs "
+          f"with fn{first}'s; device memory +{delta / 1e6:.3f} MB, within "
+          f"its adapter {ad1['bytes'] / 1e6:.3f} MB + rings "
+          f"{ring_bytes(eng2) / 1e6:.3f} MB + what fn{first}'s engine held "
+          f"beside its rings {engine_extra / 1e6:.3f} MB + 1 MiB; tokens "
+          f"equal to the drawn tree's")
+
+    # 7. F7: a captured engine built, dropped and collected, then rebuilt,
+    # in this process; the rebuilt one's replays seen by the profiler
+    del eng2
+    gc.collect()
+    eng3 = InferenceEngine(cfg, fn2.params, max_context=ctx)
+    again, _ = eng3.generate(prompts2, new, zeros)
+    if not torch.equal(again, got2):
+        fail("a rebuilt engine's tokens differ from the dropped one's")
+    cache, step = eng3.ring(rows)
+    logits, _ = eng3.prefill(prompts2, zeros, cache=cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step(tok, torch.full((), T, dtype=torch.int32, device="cuda"), zeros)
+    before = kernels.launch_counts()
+    prof = profiled(lambda: [step.replay() for _ in range(8)])
+    after = kernels.launch_counts()
+    check = cross_check("rebuilt engine replays",
+                        {k: after[k] - before[k] for k in after
+                         if after[k] > before[k]}, prof)
+    if not check["equal"]:
+        fail("the profiler lost records of a rebuilt engine's replays")
+    out["rebuild"] = check
+    print("rebuilt engine: tokens equal to the dropped engine's; 8 replays "
+          "profiled with every launch seen")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 14 peak device memory {out['peak_memory_gb']:.2f} GB "
+          f"(the drawn and the loaded 7B trees, rings, caches)")
+    for f in (fn1, fn2):
+        f.close()
+    ad2_tier.close()
+    del eng, eng3, ref_eng, store, loaded, params, cache, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the simulator under SLICE_HW and under H100_HW from steps 1-4
+    measured = dataclasses.replace(
+        H100_HW, h2d_bw=bb["h2d_bw"],
+        runtime_init_s=r["runtime_init_s"]["median"],
+        library_load_s=r["library_load_s"]["median"],
+        kernel_compile_s=k["kernel_compile_s"])
+    out["h100_hw"] = dataclasses.asdict(measured)
+    out["simulator"] = simulate(cfg, measured, stages)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
+def simulate(cfg, measured, stages: Dict) -> Dict:
+    """The port's ``Simulator`` over ``tests/test_system.py``'s paper setup
+    (4 x 7B + 4 x 13B functions, bursty, 1200 s, seed 0): the five
+    policies and the NBS/NPL ablations under SLICE_HW and under
+    ``measured``; then one fully cold 7B request's predicted stages (the
+    NPL ablation, nothing pre-loaded) beside the measured ones.  Simulator
+    outputs under measured constants: no time is gated on them."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.serverless import baselines as B
+    from repro_torch.serverless.cluster import Cluster
+    from repro_torch.serverless.latency import SLICE_HW
+    from repro_torch.serverless.simulator import FunctionDef, Simulator
+    from repro_torch.serverless.traces import TraceSpec, make_workload
+    l13 = get_config("llama2_13b")
+    fns = ([FunctionDef(f"fn7-{i}", "llama2-7b", cfg) for i in range(4)]
+           + [FunctionDef(f"fn13-{i}", "llama2-13b", l13)
+              for i in range(4)])
+    wl = make_workload(
+        [TraceSpec(f"fn7-{i}", "bursty", 0.02, 1200.0, 512, 48, 2.5)
+         for i in range(4)]
+        + [TraceSpec(f"fn13-{i}", "bursty", 0.012, 1200.0, 512, 48, 4.0)
+           for i in range(4)], seed=0)
+    policies = [B.SERVERLESS_LORA, B.SERVERLESS_LLM, B.INSTAINFER, B.VLLM,
+                B.DLORA, B.variant_nbs(), B.variant_npl()]
+    res: Dict = {}
+    for label, hw in (("SLICE_HW (the reference's TPU stand-ins)",
+                       SLICE_HW),
+                      ("H100_HW (this run's steps 1-4)", measured)):
+        rows = {}
+        for pol in policies:
+            cl = Cluster(1, 4, 2, hw.hbm_bytes, hw.host_mem_bytes)
+            sim = Simulator(fns, pol, cluster=cl, hw=hw).run(
+                copy.deepcopy(wl))
+            rows[pol.name] = {
+                "mean_ttft_s": sim.mean_ttft, "p99_ttft_s": sim.p99_ttft,
+                "dollars": sim.dollars,
+                "breakdown_totals": sim.breakdown_totals()}
+            print(f"simulator output, {label}, {pol.name}: mean TTFT "
+                  f"{sim.mean_ttft:.4f} s, p99 {sim.p99_ttft:.4f} s, "
+                  f"${sim.dollars:.6f}; breakdown totals "
+                  + json.dumps({k: round(v, 4) for k, v in
+                                sim.breakdown_totals().items()}))
+        one = Simulator([fns[0]], B.variant_npl(), hw=hw).run(
+            [dict(req_id=0, fn_id="fn7-0", arrival=0.0,
+                  prompt_len=COLD["prompt_len"],
+                  output_len=COLD["max_new"], slo_ttft=2.5)])
+        bd = one.requests[0].breakdown
+        rows["cold_7b_breakdown"] = bd
+        print(f"simulator output, {label}: one cold 7B request's stages "
+              + json.dumps({k: round(v, 4) for k, v in bd.items()})
+              + "; measured: " + json.dumps(
+                  {k: round(v, 4) for k, v in stages.items()}))
+        res[label.split()[0]] = rows
+    return res
+
+
 # phases run in a child process each (see ``isolated``)
 ISOLATED = {"8": mixtral_phase, "9": recurrentgemma_phase,
             "10": mamba_phase, "11": nemotron_phase,
-            "12": paligemma_phase,
+            "12": paligemma_phase, "14": cold_phase,
             **{f"13-{arch}": functools.partial(zoo_launch_phase, arch)
                for arch in ZOO_LAUNCH}}
 
@@ -3325,6 +3940,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     nemotron = isolated("11", device)
     paligemma = isolated("12", device)
     zoo = {arch: isolated(f"13-{arch}", device) for arch in ZOO_LAUNCH}
+    cold = isolated("14", device)
+    built = "fresh" if build["fresh"] else "cached"
+    print(f"kernel_compile with no built library: phase 2's nvcc build "
+          f"{build['seconds']:.1f} s ({built}) + "
+          f"{cold['kernel']['kernel_compile_s']:.4f} s")
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3347,7 +3967,7 @@ def main(argv: Optional[List[str]] = None) -> int:
              "parity": parity, "mixtral": mixtral,
              "recurrentgemma": rgemma, "mamba2": mamba,
              "nemotron": nemotron, "paligemma": paligemma,
-             "launcher_zoo": zoo,
+             "launcher_zoo": zoo, "cold_start": cold,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -1,11 +1,21 @@
 """Analytic latency model: loading tiers + roofline inference times.
 
-A copy of the reference's model (``repro/serverless/latency.py``), kept
-so ``batching.profile_function`` works in the port.  Its ``Hardware``
-defaults are the reference's TPU v5e stand-in constants: they seed an
-offline batching profile and are not measurements of the port's card.
-The serving replay never reads them — it profiles the prefill step it
-actually runs (``ContinuousRuntime.warmup``).
+A copy of the reference's model (``repro/serverless/latency.py``): it
+feeds ``batching.profile_function`` and the simulator's cold-start stages.
+Three hardware profiles:
+
+* ``DEFAULT_HW`` and ``SLICE_HW`` are the reference's TPU v5e stand-in
+  constants, kept as they are so the port's simulator reproduces the
+  reference's results; they are not measurements of any card.
+* ``H100_HW`` is one NVIDIA H100: ``peak_flops``, ``hbm_bw`` and
+  ``hbm_bytes`` from its data sheet, and ``h2d_bw``, ``runtime_init_s``,
+  ``library_load_s`` and ``kernel_compile_s`` measured by
+  ``chip_smoke.py`` phase 14.  ``remote_bw``, ``ici_bw``,
+  ``container_init_s`` and ``host_mem_bytes`` stay the reference's
+  stand-ins: nothing in the port measures them.
+
+The serving replay never reads these profiles — it profiles the prefill
+step it actually runs (``ContinuousRuntime.warmup``).
 """
 from __future__ import annotations
 
@@ -38,6 +48,23 @@ DEFAULT_HW = Hardware()
 # host a 13B backbone plus KV. Roofline terms scale linearly in chips.
 SLICE_HW = Hardware(
     peak_flops=4 * 197e12, hbm_bw=4 * 819e9, hbm_bytes=64 * 2 ** 30)
+
+# One NVIDIA H100 80GB HBM3.  The measured fields are the medians of one
+# run of chip_smoke.py phase 14 on one NVIDIA H100 80GB HBM3 whose
+# nvidia-smi power limit read 700.00 W; PERF.md section 5 names the run
+# and gives its spread beside another run's.
+H100_HW = Hardware(
+    peak_flops=989e12,            # bf16 dense, data sheet (at 700 W)
+    hbm_bw=3.35e12,               # HBM3, data sheet
+    hbm_bytes=80 * 2 ** 30,
+    h2d_bw=38.72e9,               # measured: 13.477 GB pinned tier -> card
+    runtime_init_s=0.4487,        # measured: CUDA init + 1st allocation
+    library_load_s=10.7275,       # measured: import torch + repro_torch
+    kernel_compile_s=1.0184,      # measured: kernel library, 1st prefill
+                                  # excess, batch-1 decode-step capture
+    # stand-ins, the reference's values (nothing here measures them):
+    # remote_bw, ici_bw, container_init_s, host_mem_bytes
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -54,6 +54,13 @@ def gen_arrivals(spec: TraceSpec, seed: int = 0) -> np.ndarray:
     return t[keep]
 
 
+def measured_cov(arrivals: np.ndarray) -> float:
+    gaps = np.diff(arrivals)
+    if len(gaps) < 2:
+        return 0.0
+    return float(np.std(gaps) / max(np.mean(gaps), 1e-12))
+
+
 def make_workload(specs: Sequence[TraceSpec], seed: int = 0
                   ) -> List[Dict]:
     """Merged, time-sorted request dicts for the simulator."""
