@@ -24,8 +24,10 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    RecurrentGemma-9B's hd 256 and G = 16 and at Nemotron-4-340B's hd 192
    and G = 12, flash at hd 192 / G = 12, at hd 256 / G = 8 behind a
    256-key image prefix and at hd 256 / G = 16 with a 2048-key window,
-   ring decode at the same three head shapes, and SGMV at Mamba2-780M's
-   and Nemotron-4-340B's sites),
+   ring decode at the same three head shapes, SGMV at Mamba2-780M's
+   and Nemotron-4-340B's sites, and Whisper-medium's 1500 encoder keys:
+   flash not causal over 1500 x 1500 and 32 x 1500, ring decode over 1500
+   static slots),
    with its median device time, the plain version's, a library yardstick
    where one PyTorch call computes the same function, the least time the
    card could take for the work (``bound_ms``) and the share of it the
@@ -88,9 +90,10 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    devices; and ``InferenceEngine.generate`` on the two devices must emit
    the same greedy tokens; then the same for Mixtral SMOKE and Qwen2.5
    SMOKE (QKV bias), replays of RecurrentGemma SMOKE and Mamba2 SMOKE
-   (state rows) and their ``generate`` over ring state, and PaliGemma
+   (state rows) and their ``generate`` over ring state, PaliGemma
    SMOKE's ``generate`` behind an image prefix (``make_prefill_step(
-   embeds=)`` and captured decode steps);
+   embeds=)`` and captured decode steps) and Whisper SMOKE's over frame
+   embeddings (``generate(frame_embeds=)``: encoder, cross caches);
 8. Mixtral-8x22B at full width, its depth cut to 8 of 56 layers: window
    reclamation against its rule and against a run without it, the
    telemetry exporters, the breakdown beside its bound;
@@ -148,9 +151,18 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    one process (equal tokens, every replayed launch seen by the
    profiler), and the port's ``Simulator`` over ``tests/test_system.py``'s
    paper setup under ``SLICE_HW`` and under the measured stages
-   (simulator outputs, not gated).
+   (simulator outputs, not gated);
+15. Whisper-medium at full width and depth (24 encoder and 24 decoder
+   layers, 1.62 GB) through ``InferenceEngine.generate(frame_embeds=)``:
+   4 rows of 1500 random frame embeddings and 32-token prompts, one
+   adapter a row, 64 new tokens, then the first row alone (a second
+   capture): exact launches (flash 72 per prefill call, ring decode 48
+   and SGMV 96 per decode step), tokens equal to an uncaptured decode
+   loop's, no non-finite logit, the rows' cross caches pairwise
+   different; then one prefill call and 16 captured decode steps under
+   the profiler, beside their bounds.
 
-Phases 8-14 each run in a child process of the script (``isolated``; one
+Phases 8-15 each run in a child process of the script (``isolated``; one
 child per model in phase 13).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
@@ -330,6 +342,15 @@ COLD_REPEATS = 3
 COLD = dict(rows=4, prompt_len=500, max_new=16)
 COLD_FNS = (1, 2)
 PCIE_GT_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
+
+# Phase 15: Whisper-medium at full width and depth (24 encoder + 24
+# decoder layers, 16 heads x 64, 1.62 GB) on the warm-function path: 4
+# rows of 1500 random frame embeddings (the reference's stub frontend),
+# 32-token prompts and 64 new tokens (inside real Whisper's 448-token
+# decoder context), then one row alone; breakdown decode steps.
+WHISPER = "whisper_medium"
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_NEW = 4, 32, 64
+WHISPER_STEPS = 16
 
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
@@ -704,20 +725,25 @@ def prefill_case(gen, dtype, K: int = 32, G: int = 1,
 
 def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
                window: Optional[int] = None, hd: int = 128,
-               prefix: int = 0) -> Dict:
+               prefix: int = 0, Tk: Optional[int] = None,
+               causal: bool = True) -> Dict:
     """Ring-engine prefill: causal attention of B rows of T tokens over
     their own keys, at Llama-2-7B head widths by default; the first
-    ``prefix`` keys are visible to every query (a VLM's image prefix)."""
+    ``prefix`` keys are visible to every query (a VLM's image prefix).
+    Without ``causal``, T queries over ``Tk`` keys (T by default), every
+    key visible: Whisper's encoder and cross-attention prefill."""
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_ref
-    H = K * G
+    H, Tk = K * G, T if Tk is None else Tk
     q = _randn(gen, B, T, H, hd, dtype=dtype)
-    k = _randn(gen, B, T, K, hd, dtype=dtype)
-    v = _randn(gen, B, T, K, hd, dtype=dtype)
-    i = torch.arange(T, device="cuda")
-    ok = (i[None, :] <= i[:, None]) | (i[None, :] < prefix)
+    k = _randn(gen, B, Tk, K, hd, dtype=dtype)
+    v = _randn(gen, B, Tk, K, hd, dtype=dtype)
+    i = torch.arange(T, device="cuda")[:, None]
+    j = torch.arange(Tk, device="cuda")[None, :]
+    ok = (j <= i) | (j < prefix) if causal else \
+        torch.ones((T, Tk), dtype=torch.bool, device="cuda")
     if window is not None:
-        ok = ok & (i[None, :] > i[:, None] - window)
+        ok = ok & (j > i - window)
     pairs = int(ok.sum())
     es = q.element_size()
     # library yardstick: SDPA over (B, H, T, hd) copies, K/V repeated to H
@@ -727,17 +753,19 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
     v4 = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     if window is None and not prefix:
         library = lambda: F.scaled_dot_product_attention(     # noqa: E731
-            q4, k4, v4, is_causal=True)
+            q4, k4, v4, is_causal=causal)
     else:
         library = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4, attn_mask=ok)
     return dict(
-        shape=f"B={B} T={T} H={H} K={K} hd={hd} causal window={window} "
-              f"prefix={prefix}",
-        kernel=lambda: flash_mha(q, k, v, causal=True, window=window,
+        shape=f"B={B} T={T}" + (f" Tk={Tk}" if Tk != T else "")
+              + f" H={H} K={K} hd={hd} "
+              + ("causal" if causal else "non-causal")
+              + f" window={window} prefix={prefix}",
+        kernel=lambda: flash_mha(q, k, v, causal=causal, window=window,
                                  prefix_len=prefix),
         plain=lambda: flash_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True,
+                                v.transpose(1, 2), causal=causal,
                                 window=window,
                                 prefix_len=prefix).transpose(1, 2),
         library=library,
@@ -745,15 +773,17 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
                       "copies" + (", K/V repeated per head" if G > 1
                                   else ""),
         zero_rows=[],
-        **bound(es * (2 * B * T * H * hd + 2 * B * T * K * hd),
+        **bound(es * (2 * B * T * H * hd + 2 * B * Tk * K * hd),
                 4 * hd * H * B * pairs, dtype))
 
 
 def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
-                     window: Optional[int] = None, hd: int = 128) -> Dict:
+                     window: Optional[int] = None, hd: int = 128,
+                     sdpa_mask: bool = True) -> Dict:
     """Ring-engine decode: one token per row over a ring of S slots that
     has seen positions 0..pos (slot = position % S; wrapped when pos >=
-    S), at Llama-2-7B head widths by default."""
+    S), at Llama-2-7B head widths by default.  Without ``sdpa_mask`` the
+    library yardstick takes no mask (every slot valid: a cross cache)."""
     from repro_torch.kernels.decode_attention.ops import decode_gqa
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_ref
@@ -782,10 +812,11 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
         kernel=lambda: decode_gqa(q, k, v, slot_pos, pos, window=window),
         plain=lambda: decode_attention_ref(q, k, v, slot_pos, pos,
                                            window=window),
-        library=lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                       attn_mask=mask),
+        library=lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask if sdpa_mask else None),
         library_label="scaled_dot_product_attention over K/V already "
-                      "transposed to (B, H, S, hd)",
+                      "transposed to (B, H, S, hd)"
+                      + ("" if sdpa_mask else ", no mask"),
         zero_rows=[],
         **bound(es * (2 * B * valid * K * hd + 2 * B * H * hd) + 4 * S,
                 4 * hd * H * B * valid, dtype))
@@ -990,6 +1021,24 @@ def kernels_phase() -> Dict[str, Dict]:
                 prefix=77)),
             ("flash_attention", dtype, lambda d=dtype: flash_case(
                 gen, d, 2, 150, 2, 4, window=40, prefix=100))]
+    # phase 15's shapes: Whisper-medium's 16 heads of 64 (G = 1) over its
+    # 1500 encoder frames, not a whole number of 64-key tiles or 64-slot
+    # partitions: the encoder's non-causal self-attention (1500 x 1500),
+    # cross-attention prefill (the 32-token prompts over 1500 keys) and
+    # cross-attention decode (one query a row over 1500 static slots, all
+    # visible: slot positions [0, 1500), the query at 1499)
+    wh = get_config(WHISPER)
+    wS, wK, whd = wh.encoder_seq, wh.num_kv_heads, wh.head_dim_
+    for dtype in (torch.bfloat16, torch.float32):
+        makers += [
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, WHISPER_ROWS, wS, wK, 1, hd=whd, causal=False)),
+            ("flash_attention", dtype, lambda d=dtype: flash_case(
+                gen, d, WHISPER_ROWS, WHISPER_PROMPT, wK, 1, hd=whd,
+                Tk=wS, causal=False)),
+            ("decode_attention", dtype, lambda d=dtype: ring_decode_case(
+                gen, d, WHISPER_ROWS, wS, wK, 1, wS - 1, hd=whd,
+                sdpa_mask=False))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for i, (name, dtype, make) in enumerate(makers):
@@ -1785,15 +1834,81 @@ def launcher_phase(cfg, params, device: Dict) -> Dict:
     return out
 
 
-def engine_breakdown(cfg, params, device: Dict, steps: int = 16) -> Dict:
-    """One warm batch: first its captured ``generate`` against an eager
-    loop of ``decode_one`` over a fresh ring (equal tokens), then where
-    its time goes: a prefill of LAUNCH_BATCH fresh prompts and ``steps``
-    replays of the captured decode step, first on the host clock alone,
-    then again from the same state (the ring emptied, the same prompts)
-    under the profiler for device busy.  Idle share = 1 - device busy /
-    unprofiled host wall; a busy time above that wall fails."""
+def eager_tokens(eng, prompts: torch.Tensor, ai: torch.Tensor, new: int,
+                 **inputs) -> torch.Tensor:
+    """The captured ``generate``'s oracle: the greedy tokens of a prefill
+    of ``prompts`` (behind ``embeds``, over ``frame_embeds``: ``inputs``)
+    on a fresh ring, then ``new - 1`` uncaptured ``decode_one`` steps.
+    Returns (B, new) int32."""
+    logits, cache = eng.prefill(prompts, ai, **inputs)
+    pos = prompts.shape[1] + (inputs["embeds"].shape[1]
+                              if inputs.get("embeds") is not None else 0)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok]
+    for i in range(new - 1):
+        logits, cache = eng.decode_one(tok, cache, pos + i, ai)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def ring_breakdown(label: str, eng, prompts: torch.Tensor, ai: torch.Tensor,
+                   device: Dict, steps: int = 16, **inputs) -> Dict:
+    """Where a warm batch's time goes: a prefill of ``prompts`` (over
+    ``inputs``, e.g. ``frame_embeds``) on the engine's emptied ring and
+    ``steps`` replays of its captured decode step, first on the host clock
+    alone (the eager prefill's wall varies from call to call: the median
+    of three rounds, each kept), then again from the same state under the
+    profiler for device busy, each round's wrapper launches held against
+    the profiler's kernels.  Idle share = 1 - device busy / unprofiled
+    host wall; a busy time above the profiled round's wall fails."""
     from repro_torch import kernels
+    B, T = prompts.shape
+    state: Dict = {}
+
+    def prefill() -> None:
+        cache, state["step"] = eng.ring(B)
+        logits, _ = eng.prefill(prompts, ai, cache=cache, **inputs)
+        state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def decode() -> None:
+        step = state["step"]
+        step(state["tok"], torch.full((), T, dtype=torch.int32,
+                                      device="cuda"), ai)
+        for _ in range(steps - 1):
+            step.replay()
+
+    counts: Dict[str, Dict[str, int]] = {}
+
+    def counted(name: str, fn):
+        def run():
+            before = kernels.launch_counts()
+            fn()
+            after = kernels.launch_counts()
+            counts[name] = {k: after[k] - before[k] for k in after
+                            if after[k] > before[k]}
+        return run
+
+    walls = [wall_ms(prefill) for _ in range(3)]
+    res = {"prefill": {"rows": B, "tokens": T,
+                       "wall_ms": statistics.median(walls),
+                       "wall_ms_rounds": walls},
+           "decode": {"rows": B, "steps": steps, "wall_ms": wall_ms(decode)}}
+    res["prefill"].update(profiled(counted("prefill", prefill)))
+    res["decode"].update(profiled(counted("decode", decode)))
+    report_rounds(f"{label} breakdown", res)
+    for name, r in res.items():
+        r["cross_check"] = cross_check(f"{label} {name}", counts[name], r)
+    per_step(f"{label} decode step, {B} rows at positions {T}-"
+             f"{T + steps - 1} (captured)", res["decode"]["wall_ms"],
+             res["decode"], steps, device)
+    return res
+
+
+def engine_breakdown(cfg, params, device: Dict, steps: int = 16) -> Dict:
+    """One warm batch of LAUNCH_BATCH fresh prompts: first its captured
+    ``generate`` against an eager loop of ``decode_one`` over a fresh ring
+    (equal tokens), then where its time goes (``ring_breakdown``)."""
     from repro_torch.core.engine import InferenceEngine
     eng = InferenceEngine(cfg, params, max_context=LAUNCH_CONTEXT)
     gen = torch.Generator(device="cuda")
@@ -1805,56 +1920,13 @@ def engine_breakdown(cfg, params, device: Dict, steps: int = 16) -> Dict:
 
     new = LAUNCH["max_new"]
     got, _ = eng.generate(prompts, new, ai)
-    logits, cache = eng.prefill(prompts, ai)          # a fresh ring
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    want = [tok]
-    for i in range(new - 1):
-        logits, cache = eng.decode_one(tok, cache, T + i, ai)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        want.append(tok)
-    if not torch.equal(got, torch.stack(want, dim=1)):
+    if not torch.equal(got, eager_tokens(eng, prompts, ai, new)):
         fail("captured generate and an eager decode loop emit different "
              "tokens")
     print(f"engine: {B} rows x {new} tokens of the captured generate equal "
           f"to an eager decode_one loop's; captures "
           f"{ {str(k): n for k, n in eng.captures().items()} }")
-
-    state: Dict = {}
-
-    def prefill() -> None:
-        cache, state["step"] = eng.ring(B)
-        logits, _ = eng.prefill(prompts, ai, cache=cache)
-        state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
-
-    def decode() -> None:
-        step = state["step"]
-        step(state["tok"], torch.full((), T, dtype=torch.int32,
-                                      device="cuda"), ai)
-        for _ in range(steps - 1):
-            step.replay()
-
-    counts: List[Dict[str, int]] = []
-
-    def counted(fn):
-        def run():
-            before = kernels.launch_counts()
-            fn()
-            after = kernels.launch_counts()
-            counts.append({k: after[k] - before[k] for k in after
-                           if after[k] > before[k]})
-        return run
-
-    res = {"prefill": {"rows": B, "tokens": T, "wall_ms": wall_ms(prefill)},
-           "decode": {"rows": B, "steps": steps, "wall_ms": wall_ms(decode)}}
-    res["prefill"].update(profiled(prefill))
-    res["decode"].update(profiled(counted(decode)))
-    report_rounds("engine breakdown", res)
-    res["decode"]["cross_check"] = cross_check("engine decode", counts[0],
-                                               res["decode"])
-    per_step(f"decode step, {B} rows at positions {T}-{T + steps - 1} "
-             f"(captured)", res["decode"]["wall_ms"], res["decode"], steps,
-             device)
-    return res
+    return ring_breakdown("engine", eng, prompts, ai, device, steps)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -2363,21 +2435,27 @@ def replay_on_both(label: str, cfg, params, scfg: Dict, trace,
 def engine_launches(cfg, calls: int, steps: int) -> Dict[str, int]:
     """Launches of ``calls`` ring prefills and ``steps`` ring decode
     steps: one flash or ring-decode kernel per ATTN layer, one SGMV per
-    LoRA site (q/k/v/o of an ATTN layer, in/out of a REC or SSD block)."""
+    LoRA site (q/k/v/o of an ATTN layer, in/out of a REC or SSD block).
+    An encoder-decoder's prefill (over frames) adds a flash per encoder
+    layer and per cross-attention, its decode step a ring decode per
+    cross-attention; neither carries LoRA."""
     paged = expected_launches(cfg, calls, steps)
     attn = cfg.layer_kinds.count("attn")
-    return {"flash_attention": attn * calls,
-            "decode_attention": attn * steps, "sgmv": paged["sgmv"],
-            "paged_attention": 0, "paged_prefill": 0}
+    cross = attn if cfg.cross_attention else 0
+    return {"flash_attention": (attn + cross + cfg.encoder_layers) * calls,
+            "decode_attention": (attn + cross) * steps,
+            "sgmv": paged["sgmv"], "paged_attention": 0, "paged_prefill": 0}
 
 
 def generate_on_both(label: str, cfg, params, T: int, new: int,
                      prefix: int = 0) -> Dict:
     """``InferenceEngine.generate`` of 3 rows of T tokens, one adapter
     each, ``new`` greedy tokens, on the card and on the CPU, behind
-    ``prefix`` random image-patch embeddings where it is > 0: equal
-    tokens, and on the card one flash prefill per ATTN layer and a decode
-    step per token (captured once, after one eager run: graphs.py)."""
+    ``prefix`` random image-patch embeddings where it is > 0, over
+    ``encoder_seq`` random frame embeddings on a cross-attention model:
+    equal tokens, and on the card one flash prefill per ATTN layer (and
+    per encoder layer and cross-attention) and a decode step per token
+    (captured once, after one eager run: graphs.py)."""
     from repro_torch import kernels
     from repro_torch.core.engine import InferenceEngine
     B = 3
@@ -2387,6 +2465,9 @@ def generate_on_both(label: str, cfg, params, T: int, new: int,
     embeds = torch.from_numpy((rng.standard_normal(
         (B, prefix, cfg.d_model)) * 0.02).astype(np.float32)) \
         if prefix else None
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)) \
+        if cfg.cross_attention else None
     out = {}
     for device in ("cuda", "cpu"):
         eng = InferenceEngine(cfg, _to(params, device), max_context=40,
@@ -2395,7 +2476,8 @@ def generate_on_both(label: str, cfg, params, T: int, new: int,
         got, _ = eng.generate(
             toks.to(device), new, adapter_idx=torch.arange(
                 B, dtype=torch.int32, device=device),
-            embeds=None if embeds is None else embeds.to(device))
+            embeds=None if embeds is None else embeds.to(device),
+            frame_embeds=None if frames is None else frames.to(device))
         out[device] = {"tokens": got.cpu().tolist(),
                        "launches": kernels.launch_counts()}
     want = engine_launches(cfg, 1, new)
@@ -2409,6 +2491,8 @@ def generate_on_both(label: str, cfg, params, T: int, new: int,
     print(f"{label} engine generate: {B} rows x {new} greedy tokens over "
           f"{T}-token prompts (window {cfg.sliding_window}"
           + (f", behind {prefix} image-prefix embeddings" if prefix else "")
+          + (f", over {cfg.encoder_seq} frame embeddings" if frames
+             is not None else "")
           + f") equal on card and CPU; card launches "
           f"{out['cuda']['launches']}")
     return out["cuda"]
@@ -2438,7 +2522,8 @@ def parity_phase() -> Dict:
                "versions): runtime replay, greedy and sampled; engine "
                "generate; Llama, then Mixtral (MoE, window 16), Qwen2.5 "
                "(QKV bias), RecurrentGemma and Mamba2 (state rows and "
-               "ring state), PaliGemma (image prefix)")
+               "ring state), PaliGemma (image prefix), Whisper (encoder, "
+               "cross-attention)")
     scfg = dict(num_slots=4, block_size=8, num_blocks=24,
                 max_blocks_per_slot=6, prefill_chunk=16, decode_chunk=4)
     cfg, params = smoke_params("llama2_7b", seed=1)
@@ -2512,11 +2597,14 @@ def parity_phase() -> Dict:
     cfg, params = smoke_params(PALIGEMMA, seed=6)
     pali = generate_on_both("PaliGemma SMOKE", cfg, params, T=12, new=8,
                             prefix=cfg.num_image_tokens)
+    # Whisper SMOKE over its 16 frame embeddings (encoder, cross caches)
+    cfg, params = smoke_params(WHISPER, seed=7)
+    whisper = generate_on_both("Whisper SMOKE", cfg, params, T=12, new=8)
     print(f"phase 7 ok ({time.perf_counter() - t0:.1f} s)")
     return {**runs["cuda"], "engine": engine, "mixtral_smoke": moe["cuda"],
             "recurrentgemma_smoke": rgemma["cuda"],
             "mamba2_smoke": mamba["cuda"], "qwen2_5_smoke": qwen["cuda"],
-            "paligemma_smoke": pali}
+            "paligemma_smoke": pali, "whisper_smoke": whisper}
 
 
 # -------------------------------------------------------------- 8. Mixtral
@@ -3024,13 +3112,7 @@ def ring_generate(label: str, cfg, params, T: int, device: Dict,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
         launches = kernels.launch_counts()
-        logits, cache = eng.prefill(prompts, ai, embeds=embeds)  # fresh
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        want = [tok]
-        for i in range(new - 1):
-            logits, cache = eng.decode_one(tok, cache, P + T + i, ai)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            want.append(tok)
+        want = eager_tokens(eng, prompts, ai, new, embeds=embeds)
     captures = eng.captures()
     expected = engine_launches(cfg, 1, new)
     print(f"{label} engine: {rows} rows x {T} prompt tokens"
@@ -3046,7 +3128,7 @@ def ring_generate(label: str, cfg, params, T: int, device: Dict,
         fail(f"{label} engine launches differ from layers x calls x sites")
     if not finite.ok():
         fail(f"non-finite logits in the {label} engine run")
-    if not torch.equal(got, torch.stack(want, dim=1)):
+    if not torch.equal(got, want):
         fail(f"{label} engine: captured generate and an eager decode loop "
              f"emit different tokens")
     print(f"{label} engine: tokens of the captured generate equal to an "
@@ -3878,10 +3960,169 @@ def simulate(cfg, measured, stages: Dict) -> Dict:
     return res
 
 
+# ----------------------------------------------------------- 15. Whisper
+def whisper_bounds(cfg, params, B: int, T: int, pos: int,
+                   adapters: int) -> Dict:
+    """Least times of one prefill call (B rows of ``encoder_seq`` frames
+    and T prompt tokens) and one decode step (B rows at position ``pos``)
+    on this card.  Prefill: every weight read once; operations: the
+    encoder's products and attention over its frames, the cross K/V
+    projections, and the decoder's products, self-attention and
+    cross-attention over its T tokens (LoRA at rank r), the LM head at
+    each row's last token.  Decode: the decoder's weights that a step
+    reads (self-attention, cross-attention's q and o, the MLP, norms, the
+    ``adapters`` adapters of the rows, the LM head; the embedding only
+    gathered), each row's
+    cross K/V and its ring's keys; operations: those products and both
+    attentions."""
+    D, F, V, S = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.encoder_seq
+    H, K, hd, r = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, \
+        cfg.lora.rank
+    L, E = cfg.num_layers, cfg.encoder_layers
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    weights = sum(t.numel() for t in _leaves(params)) * es
+    proj = 2 * D * H * hd + 2 * D * K * hd          # q, o; k, v
+    lora = 4 * 2 * D * r                            # q/k/v/o: A and B
+    enc_ops = E * (2 * S * (2 * D * H * hd + 2 * D * H * hd)
+                   + 4 * S * D * F + 4 * S * S * H * hd)
+    cross_kv = L * 2 * S * 2 * D * K * hd
+    dec_ops = L * (2 * T * (proj + lora) + 2 * T * 2 * D * H * hd
+                   + 4 * T * D * F + 4 * hd * H * T * (T + 1) / 2
+                   + 4 * hd * H * T * S)
+    pre_ops = B * (enc_ops + cross_kv + dec_ops + 2 * D * V)
+    pre_bytes = weights + B * S * D * es            # + the frames read
+    lp = params["layers"][0]
+    layer = sum(t.numel() for k, v in lp.items() if k != "xattn"
+                for t in _leaves(v)) - sum(
+        t.numel() for t in _leaves(lp["attn"]["lora"]))
+    layer += lp["xattn"]["wq"]["w"].numel() + lp["xattn"]["wo"]["w"].numel()
+    dec_weights = (L * (layer + adapters * lora)
+                   + params["lm_head"].numel() + B * D) * es
+    kv = L * B * (2 * S + 2 * (pos + 1)) * K * hd * es
+    dec_ops_step = B * (L * (2 * (proj + lora) + 2 * 2 * D * H * hd
+                             + 4 * D * F + 4 * hd * H * (pos + 1 + S))
+                        + 2 * D * V)
+    out = {}
+    for name, nbytes, ops in (("prefill_call", pre_bytes, pre_ops),
+                              ("decode_step", dec_weights + kv,
+                               dec_ops_step)):
+        b = bound(nbytes, ops, cfg.torch_dtype)
+        b["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        b["ops_ms"] = ops / PEAK_OPS_PER_S[cfg.torch_dtype] * 1e3
+        out[name] = b
+    out["prefill_call"]["encoder_ops"] = B * enc_ops
+    out["prefill_call"]["cross_kv_ops"] = B * cross_kv
+    out["decode_step"]["cross_kv_bytes"] = L * B * 2 * S * K * hd * es
+    return out
+
+
+def whisper_phase(device: Dict) -> Dict:
+    """Whisper-medium at full width and depth through
+    ``InferenceEngine.generate(frame_embeds=)``: WHISPER_ROWS rows of
+    ``encoder_seq`` random frame embeddings (the reference's stub
+    frontend: N(0, 1)) and WHISPER_PROMPT-token prompts, one adapter a
+    row, WHISPER_NEW greedy tokens; then the first row alone, a second
+    capture of the same engine.  Each run: exact launches (flash per
+    encoder layer, self- and cross-attention per prefill call; ring decode
+    per self- and cross-attention and SGMV per LoRA site per step), no
+    non-finite logit, tokens equal to an uncaptured ``decode_one`` loop's
+    from a fresh prefill; the rows' cross caches differ pairwise.  Then
+    one prefill call and WHISPER_STEPS captured decode steps
+    (``ring_breakdown``), beside their bounds."""
+    from repro_torch import kernels
+    from repro_torch.core.engine import InferenceEngine
+    t0 = phase("phase 15: Whisper-medium at full width and depth on the "
+               "card: encoder over 1500 frames, cross-attention, captured "
+               "ring decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, n_bytes = state_model(WHISPER)
+    print(f"encoder: {cfg.encoder_layers} layers over {cfg.encoder_seq} "
+          f"frames (bidirectional, RoPE, GELU MLP); cross-attention in each "
+          f"of the {cfg.num_layers} decoder layers; no LoRA on either")
+    B, T, new, S = WHISPER_ROWS, WHISPER_PROMPT, WHISPER_NEW, \
+        cfg.encoder_seq
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    frames = _randn(gen, B, S, cfg.d_model, dtype=cfg.torch_dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    ai = (torch.arange(B, device="cuda") % ADAPTERS).to(torch.int32)
+    ctx = T + new + 8
+    eng = InferenceEngine(cfg, params, max_context=ctx)
+    expected = engine_launches(cfg, 1, new)
+    runs = {}
+    with FiniteLogits() as finite:
+        for rows in (B, 1):
+            kernels.reset_launches()
+            t_run = time.perf_counter()
+            got, cache = eng.generate(prompts[:rows], new, ai[:rows],
+                                      frame_embeds=frames[:rows])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            launches = kernels.launch_counts()
+            if rows > 1:
+                for n in (0, cfg.num_layers - 1):
+                    xk = cache[n]["xk"]
+                    same = [(i, j) for i in range(rows)
+                            for j in range(i + 1, rows)
+                            if torch.equal(xk[i], xk[j])]
+                    if same or not bool(xk.any()):
+                        fail(f"Whisper: layer {n}'s cross caches of rows "
+                             f"{same} are equal (or all zero)")
+            want = eager_tokens(eng, prompts[:rows], ai[:rows], new,
+                                frame_embeds=frames[:rows])
+            print(f"Whisper engine: {rows} row(s) x {S} frames + {T} prompt "
+                  f"tokens, {new} new tokens over {ctx}-slot rings: "
+                  f"generate {wall:.2f} s host wall; launches {launches}, "
+                  f"expected {expected}")
+            if launches != expected:
+                fail("Whisper engine launches differ from (encoder layers + "
+                     "2 x decoder layers) flash per prefill, 2 x decoder "
+                     "layers ring decode and 4 x decoder layers SGMV per "
+                     "step")
+            if not torch.equal(got, want):
+                fail(f"Whisper engine, {rows} row(s): captured generate and "
+                     f"an eager decode loop emit different tokens")
+            print(f"Whisper engine: {rows} row(s): tokens of the captured "
+                  f"generate equal to an eager decode_one loop's")
+            runs[rows] = {"generate_wall_s": wall, "launches": launches,
+                          "tokens": got[:, :8].tolist()}
+        captures = eng.captures()
+        if captures != {(B, ctx): 1, (1, ctx): 1}:
+            fail(f"Whisper engine: expected one capture per batch size, got "
+                 f"{captures}")
+        print(f"Whisper engine: captures "
+              f"{ {str(k): n for k, n in captures.items()} }; the {B} rows' "
+              f"cross caches differ pairwise")
+
+        res = ring_breakdown("Whisper", eng, prompts, ai, device,
+                             WHISPER_STEPS, frame_embeds=frames)
+    if not finite.ok():
+        fail("non-finite logits in the Whisper runs")
+    bounds = whisper_bounds(cfg, params, B, T, T + WHISPER_STEPS - 1,
+                            int(ai.unique().numel()))
+    for name, b in bounds.items():
+        print(f"Whisper bound, {name}: {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']}: {b['bytes'] / 1e9:.3f} GB -> "
+              f"{b['bytes_ms']:.3f} ms, {b['ops'] / 1e12:.3f} TFLOP -> "
+              f"{b['ops_ms']:.3f} ms) on {_smi(device)}")
+    out = {"runs": {str(k): v for k, v in runs.items()},
+           "captures": {str(k): n for k, n in captures.items()},
+           "breakdown": res, "bounds": bounds, "weights_gb": n_bytes / 1e9}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 15 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
 # phases run in a child process each (see ``isolated``)
 ISOLATED = {"8": mixtral_phase, "9": recurrentgemma_phase,
             "10": mamba_phase, "11": nemotron_phase,
             "12": paligemma_phase, "14": cold_phase,
+            "15": whisper_phase,
             **{f"13-{arch}": functools.partial(zoo_launch_phase, arch)
                for arch in ZOO_LAUNCH}}
 
@@ -3941,6 +4182,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     paligemma = isolated("12", device)
     zoo = {arch: isolated(f"13-{arch}", device) for arch in ZOO_LAUNCH}
     cold = isolated("14", device)
+    whisper = isolated("15", device)
     built = "fresh" if build["fresh"] else "cached"
     print(f"kernel_compile with no built library: phase 2's nvcc build "
           f"{build['seconds']:.1f} s ({built}) + "
@@ -3967,7 +4209,7 @@ def main(argv: Optional[List[str]] = None) -> int:
              "parity": parity, "mixtral": mixtral,
              "recurrentgemma": rgemma, "mamba2": mamba,
              "nemotron": nemotron, "paligemma": paligemma,
-             "launcher_zoo": zoo, "cold_start": cold,
+             "launcher_zoo": zoo, "cold_start": cold, "whisper": whisper,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -10,7 +10,10 @@ holds the unrolled remainder layers.  A checkpoint is ``<path>.npz`` plus
 
 This module reads that format with numpy alone and unstacks it into the
 port's layout: ``{"embed", "lm_head", "final_norm", "layers": [layer 0,
-layer 1, ...]}``, each layer the reference's per-layer dict.
+layer 1, ...]}``, each layer the reference's per-layer dict.  An
+encoder-decoder's ``encoder/layers/...`` leaves, stacked over
+``encoder_layers``, unstack the same way into ``params["encoder"]
+["layers"]`` beside ``params["encoder"]["norm"]``.
 """
 from __future__ import annotations
 
@@ -93,10 +96,12 @@ def params_from_flat(flat: Dict[str, Any], cfg: ModelConfig, *,
     as the reference keeps them in a bf16 model (None keeps every stored
     dtype).  The layer index of ``periods/p{j}`` row n is
     ``n * len(pattern) + j``, whatever the layers' kinds (ATTN, REC,
-    SSD), and ``tail/#i`` follows the periods."""
+    SSD), and ``tail/#i`` follows the periods; ``encoder/layers`` row n
+    is encoder layer n."""
     pat = cfg.pattern
     n_per = len(pat)
     layers: List[Dict] = [dict() for _ in range(cfg.num_layers)]
+    enc_layers: List[Dict] = [dict() for _ in range(cfg.encoder_layers)]
     out: Params = {}
     for key, val in flat.items():
         parts = key.split(_SEP)
@@ -114,11 +119,20 @@ def params_from_flat(flat: Dict[str, Any], cfg: ModelConfig, *,
             i = int(parts[1][1:])                   # "#i"
             _set(layers[cfg.num_periods * n_per + i], parts[2:],
                  _to_tensor(val, dtype, device))
+        elif parts[:2] == ["encoder", "layers"]:
+            if _leading(val) != cfg.encoder_layers:
+                raise ValueError(f"{key}: leading axis {_leading(val)} != "
+                                 f"{cfg.encoder_layers} encoder layers")
+            for n in range(cfg.encoder_layers):
+                _set(enc_layers[n], parts[2:],
+                     _to_tensor(_index(val, n), dtype, device))
         else:
             _set(out, parts, _to_tensor(val, dtype, device))
-    if any(not lp for lp in layers):
+    if any(not lp for lp in layers + enc_layers):
         raise ValueError("checkpoint is missing layers for this config")
     out["layers"] = layers
+    if enc_layers:
+        out.setdefault("encoder", {})["layers"] = enc_layers
     return out
 
 

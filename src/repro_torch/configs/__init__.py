@@ -1,14 +1,15 @@
 """Architecture config registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-Port of ``repro/configs``: every decoder-only config of the reference,
-in its order — the paper's two serving backbones (Llama-2-7B and 13B),
+Port of ``repro/configs``: every config of the reference, in its
+order — the paper's two serving backbones (Llama-2-7B and 13B),
 the dense decoders (Phi-3-medium, Qwen2.5-3B with QKV bias, Nemotron-4-340B
 with LayerNorm and a squared-ReLU MLP, SmolLM-360M), the two sparse-MoE
 configs (Mixtral-8x22B, with its sliding window, and Grok-1), the two
 stacks with recurrent state (RecurrentGemma-9B, hybrid RG-LRU + local
-attention, and Mamba2-780M, attention-free SSD) and PaliGemma-3B (a Gemma
-decoder behind a prefix of image-patch embeddings).  The encoder-decoder
-Whisper-medium is not ported.
+attention, and Mamba2-780M, attention-free SSD), PaliGemma-3B (a Gemma
+decoder behind a prefix of image-patch embeddings) and the
+encoder-decoder Whisper-medium (a bidirectional encoder over stub frame
+embeddings, cross-attention in every decoder layer; ring caches only).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ ARCH_IDS: List[str] = [
     "nemotron_4_340b",
     "mixtral_8x22b",
     "grok_1_314b",
+    "whisper_medium",
     "smollm_360m",
     "mamba2_780m",
     "paligemma_3b",

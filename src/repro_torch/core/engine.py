@@ -23,17 +23,19 @@ Params = Dict[str, Any]
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, tokens, cache [, embeds, adapter_idx, last_pos]) ->
-    (last-token logits (B, V), filled ring cache).  embeds: (B, P, D) a
-    VLM's image-prefix embeddings before the tokens (prefix-LM mask);
-    last_pos: (B,) per-row index of the true last prompt token (counted
-    from the first prefix position); without it the last position's logit
-    feeds the LM head alone."""
+    """(params, tokens, cache [, embeds/frame_embeds, adapter_idx,
+    last_pos]) -> (last-token logits (B, V), filled ring cache).  embeds:
+    (B, P, D) a VLM's image-prefix embeddings before the tokens (prefix-LM
+    mask); frame_embeds: (B, encoder_seq, D) an encoder-decoder's audio
+    frames, encoded into the cross caches; last_pos: (B,) per-row index of
+    the true last prompt token (counted from the first prefix position);
+    without it the last position's logit feeds the LM head alone."""
 
-    def prefill_step(params, tokens, cache, *, embeds=None, adapter_idx=None,
-                     last_pos=None):
+    def prefill_step(params, tokens, cache, *, embeds=None,
+                     frame_embeds=None, adapter_idx=None, last_pos=None):
         logits, cache = tf.forward(params, cfg, tokens, cache=cache,
-                                   embeds=embeds, adapter_idx=adapter_idx,
+                                   embeds=embeds, frame_embeds=frame_embeds,
+                                   adapter_idx=adapter_idx,
                                    last_only=last_pos is None,
                                    last_pos=last_pos)
         return logits[:, -1], cache
@@ -166,13 +168,16 @@ class InferenceEngine:
     def prefill(self, tokens: torch.Tensor,
                 adapter_idx: Optional[torch.Tensor] = None,
                 cache: Optional[List[Dict[str, Any]]] = None, *,
-                embeds: Optional[torch.Tensor] = None):
+                embeds: Optional[torch.Tensor] = None,
+                frame_embeds: Optional[torch.Tensor] = None):
         """tokens: (B, T) int; adapter_idx: (B,) int32 or None; embeds:
-        (B, P, D) image-prefix embeddings or None.  A given cache must be
-        fresh (``idx`` 0), else ValueError."""
+        (B, P, D) image-prefix embeddings or None; frame_embeds: (B,
+        encoder_seq, D) audio frames or None.  A given cache must be fresh
+        (``idx`` 0), else ValueError."""
         if cache is None:
             cache = self.new_cache(tokens.shape[0])
         return self._prefill(self.params, tokens, cache, embeds=embeds,
+                             frame_embeds=frame_embeds,
                              adapter_idx=adapter_idx)
 
     @torch.no_grad()
@@ -190,10 +195,11 @@ class InferenceEngine:
 
     def ring(self, batch: int) -> Tuple[List[Dict[str, Any]], Any]:
         """The ring of this batch size, emptied to a fresh cache (idx 0,
-        every slot -1, K/V and REC/SSD state zero), and its decode step: a
-        ``GraphedDispatch`` called as ``step(tok, pos, adapter_idx)`` and
-        then ``step.replay()``, each call returning the next (B,) tokens
-        and advancing ``tok`` and the 0-d ``pos`` in place."""
+        every slot -1, K/V, cross K/V and REC/SSD state zero), and its
+        decode step: a ``GraphedDispatch`` called as ``step(tok, pos,
+        adapter_idx)`` and then ``step.replay()``, each call returning the
+        next (B,) tokens and advancing ``tok`` and the 0-d ``pos`` in
+        place."""
         # imported here: the serving package imports this module
         from repro_torch.serving.graphs import GraphedDispatch
         key = (batch, self.max_context)
@@ -216,10 +222,14 @@ class InferenceEngine:
 
     def generate(self, tokens: torch.Tensor, max_new_tokens: int,
                  adapter_idx: Optional[torch.Tensor] = None, *,
-                 embeds: Optional[torch.Tensor] = None
+                 embeds: Optional[torch.Tensor] = None,
+                 frame_embeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
         """Greedy generation, after an image prefix ``embeds`` (B, P, D)
-        where one is given.  Returns ((B, max_new_tokens) int32, cache);
+        where one is given, over audio frames ``frame_embeds`` (B,
+        encoder_seq, D) where given (their K/V go into the ring's cross
+        caches, which every decode step reads).  Returns ((B,
+        max_new_tokens) int32, cache);
         the cache is the engine's ring for this batch size, valid until the
         next ``generate`` of that size.
 
@@ -232,7 +242,8 @@ class InferenceEngine:
         T = tokens.shape[1] + (embeds.shape[1] if embeds is not None else 0)
         cache, step = self.ring(B)
         logits, cache = self.prefill(tokens, adapter_idx, cache=cache,
-                                     embeds=embeds)
+                                     embeds=embeds,
+                                     frame_embeds=frame_embeds)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok]
         if max_new_tokens > 1:

@@ -11,7 +11,11 @@ sync per step.  S is ``min(context_len, sliding_window)`` for windowed
 configs.  A REC layer holds ``{"conv": (B, W-1, Di), "h": (B, Di)
 float32, "idx"}`` and an SSD layer ``{"conv", "ssm": (B, nh, hd, S)
 float32, "idx"}`` (the reference's ``rec_cache`` / ``ssd_cache``, plus
-the port's token counter, which marks every layer of a ring cache).
+the port's token counter, which marks every layer of a ring cache).  A
+cross-attention model's ATTN layer also holds the encoder's K/V, ``"xk",
+"xv": (B, encoder_seq, K, hd)``, written once at prefill, and ``"xpos":
+(encoder_seq,) int32`` = ``[0, encoder_seq)``, the constant slot
+positions the ring-decode kernel reads them by.
 
 Paged pools: the per-layer cache is a pool of fixed-size blocks shared by every decode
 slot.  A host-side block table (B, max_blocks) int32 maps each slot's
@@ -51,15 +55,24 @@ GARBAGE_BLOCK = 0
 
 
 def attn_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype: torch.dtype, device) -> Dict[str, Any]:
-    """One attention layer's ring cache."""
+               dtype: torch.dtype, device, *,
+               cross: bool = False) -> Dict[str, Any]:
+    """One attention layer's ring cache; with ``cross`` also the zero
+    encoder K/V and their constant slot positions."""
     K, hd = cfg.num_kv_heads, cfg.head_dim_
     shape = (batch, cache_len, K, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
-                                   device=device),
-            "idx": 0}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device),
+         "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                                device=device),
+         "idx": 0}
+    if cross:
+        xshape = (batch, cfg.encoder_seq, K, hd)
+        c["xk"] = torch.zeros(xshape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(xshape, dtype=dtype, device=device)
+        c["xpos"] = torch.arange(cfg.encoder_seq, dtype=torch.int32,
+                                 device=device)
+    return c
 
 
 def effective_cache_len(cfg: ModelConfig, context_len: int) -> int:
@@ -73,18 +86,17 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int,
                dtype: Optional[torch.dtype] = None, *,
                device="cuda") -> Cache:
     """Full-model ring cache, one entry per layer: a ring for each ATTN
-    layer, the zero recurrent state of each REC/SSD layer (``conv`` in
-    ``dtype``, ``h`` / ``ssm`` in float32).  Decoder stacks only: the
-    reference's cross-attention caches are not ported."""
-    if cfg.cross_attention or cfg.encoder_layers:
-        raise ValueError(f"{cfg.name}: ring caches are ported for decoder "
-                         f"stacks (no cross-attention)")
+    layer (with the encoder's zero K/V on a cross-attention model, as the
+    reference's ``layer_cache(cross=True)``), the zero recurrent state of
+    each REC/SSD layer (``conv`` in ``dtype``, ``h`` / ``ssm`` in
+    float32)."""
     dtype = dtype or cfg.torch_dtype
     clen = effective_cache_len(cfg, context_len)
     out: Cache = []
     for kind in cfg.layer_kinds:
         if kind == ATTN:
-            out.append(attn_cache(cfg, batch, clen, dtype, device))
+            out.append(attn_cache(cfg, batch, clen, dtype, device,
+                                  cross=cfg.cross_attention))
         else:
             layer: Dict[str, Any] = slot_state_cache(kind, cfg, batch, dtype,
                                                      device=device)
@@ -94,15 +106,17 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int,
 
 
 def reset_ring(cache: Cache) -> None:
-    """Empty a ring cache in place, as ``init_cache`` made it: K/V zero,
-    every slot -1, REC/SSD state zero, every ``idx`` 0."""
+    """Empty a ring cache in place, as ``init_cache`` made it: K/V and the
+    encoder's ``xk`` / ``xv`` zero (a later prefill without frames then
+    leaves them so, as on a fresh ring), every slot -1, REC/SSD state
+    zero, every ``idx`` 0; the constant ``xpos`` stays."""
     for layer in cache:
         for name, t in layer.items():
             if name == "idx":
                 layer[name] = 0
             elif name == "slot_pos":
                 t.fill_(-1)
-            else:
+            elif name != "xpos":
                 t.zero_()
 
 

@@ -4,8 +4,9 @@ The same frozen dataclass as the reference, field for field, so a config
 reads the same in both packages.  ``jnp_dtype`` becomes ``torch_dtype``.
 The port serves decoder stacks of attention (dense Llama-2, sparse MoE
 Mixtral and Grok), RG-LRU recurrent blocks (RecurrentGemma) and SSD
-blocks (Mamba-2); the encoder/cross-attention and VLM fields are kept so
-configs stay comparable.
+blocks (Mamba-2), a decoder behind an image prefix (PaliGemma) and the
+encoder-decoder Whisper (``encoder_layers``, ``encoder_seq``,
+``cross_attention``).
 """
 from __future__ import annotations
 
@@ -138,7 +139,9 @@ class ModelConfig:
     def param_count(self) -> int:
         """Backbone parameter count, as the reference counts it: ATTN
         layers with their MLP, REC blocks (in/gate projections, gates'
-        biases, Λ, out projection) with their MLP, SSD blocks alone."""
+        biases, Λ, out projection) with their MLP, SSD blocks alone; an
+        encoder's layers (attention and a GELU MLP) and each decoder
+        layer's cross-attention projections (norms not counted)."""
         D, F, V = self.d_model, self.d_ff, self.vocab_size
         H, K, hd = self.num_heads, self.num_kv_heads, self.head_dim_
         attn = D * H * hd + 2 * D * K * hd + H * hd * D
@@ -159,6 +162,10 @@ class ModelConfig:
         total = sum(per[k] for k in self.layer_kinds) + V * D + D
         if not self.tie_embeddings:
             total += V * D
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + 2 * D * F)
+            if self.cross_attention:
+                total += self.num_layers * attn
         return int(total)
 
     def active_param_count(self) -> int:

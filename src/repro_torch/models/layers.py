@@ -1,8 +1,10 @@
-"""Core layers (port of the decoder subset of ``repro/models/layers.py``):
-dense (+ bias) + LoRA delta, RMSNorm and LayerNorm, RoPE, the SwiGLU and
-squared-ReLU MLPs, the ring and paged branches of attention (the ring
-branch with the prefix-LM rule of a VLM's image prefix), and the
-depthwise causal conv of the REC and SSD mixers.
+"""Core layers (port of ``repro/models/layers.py``): dense (+ bias) +
+LoRA delta, RMSNorm and LayerNorm, RoPE, the SwiGLU, squared-ReLU and
+GELU MLPs (and the encoder's GELU MLP), the ring and paged branches of
+attention (the ring branch with the prefix-LM rule of a VLM's image
+prefix), the encoder's bidirectional attention and the decoder's
+cross-attention over the encoder's output, and the depthwise causal conv
+of the REC and SSD mixers.
 
 Parameters are plain dicts of tensors in the reference's layout
 (``x @ W`` with W of shape (d_in, d_out)), so weights carry over from the
@@ -23,7 +25,7 @@ from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
 from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
 from repro_torch.kernels.sgmv.ops import sgmv_tokens
-from repro_torch.models.config import SQRELU, SWIGLU, ModelConfig
+from repro_torch.models.config import GELU, SQRELU, SWIGLU, ModelConfig
 
 Params = Dict[str, Any]
 
@@ -277,16 +279,89 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  scaling=s, adapter_idx=adapter_idx)
 
 
+def apply_encoder_attention(p: Params, cfg: ModelConfig,
+                            x: torch.Tensor) -> torch.Tensor:
+    """The encoder's cache-free bidirectional attention (the reference's
+    ``apply_attention(mask_kind="bidir")`` over ``num_kv_heads =
+    num_heads``): q, k, v (no LoRA), RoPE at positions ``[0, T)``, every
+    key visible to every query through the flash kernel.  x: (B, T, D);
+    returns (B, T, D)."""
+    B, T, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    q = rope(dense(x, p["wq"]).reshape(B, T, H, hd), positions,
+             cfg.rope_theta)
+    k = rope(dense(x, p["wk"]).reshape(B, T, H, hd), positions,
+             cfg.rope_theta)
+    v = dense(x, p["wv"]).reshape(B, T, H, hd)
+    out = flash_mha(q, k, v, causal=False)
+    return dense(out.reshape(B, T, H * hd), p["wo"])
+
+
+def apply_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                          cache: Dict[str, Any],
+                          enc_out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Cross-attention of the decoder's x (B, T, D) over the encoder's
+    output: no RoPE, no LoRA, every key visible (the reference's
+    ``_cross_attention``).
+
+    Prefill (``enc_out`` (B, S, D) given): K/V = enc_out @ Wk / Wv are
+    copied IN PLACE into the ring cache's ``xk`` / ``xv`` (B, S, K, hd),
+    which a captured decode step reads at fixed addresses, and the T
+    queries attend over them with the flash kernel (not causal).  Decode
+    (``enc_out`` None, T == 1): the query attends over the cached K/V
+    with the ring-decode kernel, whose slots ``xpos`` hold ``[0, S)`` and
+    whose query sits at position S - 1, so every slot is visible."""
+    B, T, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = dense(x, p["wq"]).reshape(B, T, H, hd)
+    xk, xv = cache["xk"], cache["xv"]
+    S = xk.shape[1]
+    if enc_out is not None:
+        k = dense(enc_out, p["wk"]).reshape(B, -1, K, hd)
+        v = dense(enc_out, p["wv"]).reshape(B, -1, K, hd)
+        if k.shape != xk.shape:
+            raise ValueError(f"encoder output of {k.shape[1]} frames for a "
+                             f"cross cache of {S}")
+        xk.copy_(k)
+        xv.copy_(v)
+        out = flash_mha(q, k, v, causal=False)
+    else:
+        out = decode_gqa(q[:, 0], xk, xv, cache["xpos"], S - 1)[:, None]
+    return dense(out.reshape(B, T, H * hd), p["wo"])
+
+
 # ------------------------------------------------------------------------ MLPs
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation) step by step in x's dtype, each
+    op rounded as the reference's lowering rounds it."""
+    # constants rounded to x's dtype, made on x's device (no host copy:
+    # the captured dispatches run this)
+    c = x.new_full((), math.sqrt(2.0 / math.pi))
+    k = x.new_full((), 0.044715)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
 def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x @ Wg) * (x @ Wi)) @ Wo; squared ReLU:
     relu(x @ Wi)^2 @ Wo, the relu and then the square each rounded in the
-    activation dtype, as the reference's ``jnp.square(jax.nn.relu(.))``."""
+    activation dtype, as the reference's ``jnp.square(jax.nn.relu(.))``;
+    GELU: gelu(x @ Wi) @ Wo with ``jax.nn.gelu``'s tanh approximation
+    (not torch's default erf form)."""
     if cfg.mlp_for == SWIGLU:
         h = F.silu(x @ p["wg"]["w"]) * (x @ p["wi"]["w"])
     elif cfg.mlp_for == SQRELU:
         h = torch.relu(x @ p["wi"]["w"])
         h = h * h
+    elif cfg.mlp_for == GELU:
+        h = _gelu_tanh(x @ p["wi"]["w"])
     else:
         raise ValueError(f"mlp {cfg.mlp_for!r} is not ported")
     return h @ p["wo"]["w"]
+
+
+def apply_encoder_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The encoder's MLP: gelu(x @ Wi) @ Wo (tanh approximation)."""
+    return _gelu_tanh(x @ p["wi"]["w"]) @ p["wo"]["w"]

@@ -25,7 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _normal, causal_conv1d, lora_delta
+from repro_torch.models.layers import (_gelu_tanh, _normal, causal_conv1d,
+                                       lora_delta)
 
 Params = Dict[str, Any]
 _C = 8.0
@@ -59,17 +60,6 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` (``logaddexp(x, 0)``) as the reference lowers
     it: max(x, 0) + log1p(exp(-|x|))."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
-
-
-def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (tanh approximation) step by step in x's dtype, each
-    op rounded as the reference's lowering rounds it."""
-    # constants rounded to x's dtype, made on x's device (no host copy:
-    # the captured dispatches run this)
-    c = x.new_full((), math.sqrt(2.0 / math.pi))
-    k = x.new_full((), 0.044715)
-    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
-    return x * cdf
 
 
 def _gates(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,10 +1,13 @@
-"""Causal LM (port of the decoder subset of ``repro/models/transformer.py``)
-for stacks of attention, RG-LRU (REC) and Mamba-2 (SSD) layers with a
-SwiGLU, squared-ReLU or MoE MLP (none after SSD) and RMSNorm or LayerNorm,
+"""Causal LM (port of ``repro/models/transformer.py``) for stacks of
+attention, RG-LRU (REC) and Mamba-2 (SSD) layers with a SwiGLU,
+squared-ReLU, GELU or MoE MLP (none after SSD) and RMSNorm or LayerNorm,
 over ring caches with REC/SSD ring state (the warm-function engine) or
 paged pools with per-slot REC/SSD state rows (the serving runtime).  A
 VLM's image prefix (``forward(embeds=)``) attends bidirectionally under
-the prefix-LM mask on the ring path.
+the prefix-LM mask on the ring path.  An encoder-decoder (Whisper) runs
+its bidirectional encoder over stub frame embeddings
+(``forward(frame_embeds=)``, ``encode``) and cross-attends to it in every
+decoder layer, on the ring path only.
 
 A plain loop over layers replaces the reference's period ``lax.scan``;
 parameters are a dict with one entry per layer in ``params["layers"]``
@@ -20,6 +23,7 @@ Entry points:
                       ``start_pos + [0, T)``, logits at ``last_pos``.
   * ``decode_step`` — ONE token per row: a scalar position on a ring
                       cache, per-row positions on the paged pools.
+  * ``encode``      — the encoder stack over frame embeddings.
   * ``init_params`` — seeded random weights (for runs without a
                       checkpoint, e.g. the full-width run on the card).
   * ``init_cache``  — ring caches (``models/cache.py``).
@@ -32,9 +36,12 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.config import (ATTN, MOE, NONE, REC, SQRELU, SSD,
-                                       SWIGLU, ModelConfig)
-from repro_torch.models.layers import (_normal, apply_attention, apply_mlp,
+from repro_torch.models.config import (ATTN, GELU, MOE, NONE, REC, SQRELU,
+                                       SSD, SWIGLU, ModelConfig)
+from repro_torch.models.layers import (_normal, apply_attention,
+                                       apply_cross_attention,
+                                       apply_encoder_attention,
+                                       apply_encoder_mlp, apply_mlp,
                                        apply_norm)
 from repro_torch.models.moe import apply_moe, moe_init
 from repro_torch.models.rglru import apply_rglru_block, rglru_init
@@ -52,15 +59,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     LoRA A N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo``
     N(0, 1/F); REC and SSD blocks as ``rglru_init`` / ``ssd_init``) and a
     stacked bank of ``lora_adapters`` adapters on the config's targets:
-    q/k/v/o of attention, in/out of the REC and SSD blocks.  Unlike the
+    q/k/v/o of attention, in/out of the REC and SSD blocks.  An
+    encoder-decoder also gets its encoder (``encoder_layers`` of
+    attention with K = H and a GELU MLP, then a norm) and, in each
+    decoder layer, ``normx`` and the cross-attention ``xattn``; neither
+    carries LoRA, as in the reference.  Unlike the
     reference, whose LoRA B, QKV biases (``qkv_bias``) and LayerNorm
     biases start at zero, B is drawn N(0, ``lora_b_scale``) and the biases
     N(0, 0.02), so every adapter's delta and every bias is real.
     ``generator`` must live on ``device``."""
-    if cfg.cross_attention or cfg.encoder_layers or \
-            cfg.mlp_for not in (SWIGLU, SQRELU, MOE, NONE):
-        raise ValueError(f"{cfg.name}: only decoder stacks with a SwiGLU, "
-                         f"squared-ReLU or MoE MLP (or none) are ported")
+    if cfg.mlp_for not in (SWIGLU, SQRELU, GELU, MOE, NONE):
+        raise ValueError(f"{cfg.name}: mlp {cfg.mlp_for!r} is not ported")
     dt = cfg.torch_dtype
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, K, hd, r = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, \
@@ -87,6 +96,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                  lora_b_scale, device)}
                 for t in cfg.lora.targets if t in shapes}
 
+    def attention(kv_heads):
+        qb = cfg.qkv_bias
+        return {"wq": w(D, H * hd, qb), "wk": w(D, kv_heads * hd, qb),
+                "wv": w(D, kv_heads * hd, qb), "wo": w(H * hd, D)}
+
     attn_shapes = {"q": (D, H * hd), "k": (D, K * hd), "v": (D, K * hd),
                    "o": (H * hd, D)}
     fused = 2 * cfg.d_inner + 2 * cfg.ssm_state_dim + cfg.ssm_num_heads
@@ -96,12 +110,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for kind in cfg.layer_kinds:
         layer: Params = {"norm1": ones(D)}
         if kind == ATTN:
-            qb = cfg.qkv_bias
-            attn = {"wq": w(D, H * hd, qb), "wk": w(D, K * hd, qb),
-                    "wv": w(D, K * hd, qb), "wo": w(H * hd, D)}
+            attn = attention(K)
             if cfg.lora:
                 attn["lora"] = bank(attn_shapes)
             layer["attn"] = attn
+            if cfg.cross_attention:
+                layer["normx"] = ones(D)
+                layer["xattn"] = attention(K)
         else:
             name, block = ("rec", rglru_init) if kind == REC else \
                 ("ssd", ssd_init)
@@ -115,7 +130,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layer["moe"] = moe_init(generator, cfg, dt, device)
         elif cfg.mlp_for == SWIGLU:
             layer["mlp"] = {"wi": w(D, F), "wg": w(D, F), "wo": w(F, D)}
-        elif cfg.mlp_for == SQRELU:
+        elif cfg.mlp_for in (SQRELU, GELU):
             layer["mlp"] = {"wi": w(D, F), "wo": w(F, D)}
         layers.append(layer)
     p: Params = {
@@ -125,6 +140,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = _normal(generator, (D, V), dt, 0.02, device)
+    if cfg.encoder_layers:
+        p["encoder"] = {
+            "layers": [{"norm1": ones(D), "attn": attention(H),
+                        "norm2": ones(D),
+                        "mlp": {"wi": w(D, F), "wo": w(F, D)}}
+                       for _ in range(cfg.encoder_layers)],
+            "norm": ones(D)}
     return p
 
 
@@ -191,10 +213,17 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                chunk_ids: Optional[torch.Tensor] = None,
                state_rows: Optional[torch.Tensor] = None,
                state_seq: Optional[torch.Tensor] = None,
-               prefix_len: int = 0) -> torch.Tensor:
+               prefix_len: int = 0,
+               enc_out: Optional[torch.Tensor] = None,
+               decoding: bool = False) -> torch.Tensor:
     """Residual blocks in stack order; the caches update in place.  A
     REC/SSD layer runs over slot-state rows when ``state_rows`` is given
-    (the paged runtime), else over its ring state."""
+    (the paged runtime), else over its ring state.  On a cross-attention
+    model each ATTN layer then cross-attends on ``normx(x)``: at prefill
+    over ``enc_out`` (its K/V written into the layer's cross cache), at
+    decode (``decoding``) over the cached K/V; a prefill without frames
+    skips it and leaves the cross cache as it was, as the reference
+    does."""
     B, T = x.shape[:2]
     if adapter_idx is not None and T > 1:
         # per-token adapter ids, once per dispatch for every LoRA site
@@ -210,6 +239,10 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                 block_tbl=block_tbl, adapter_idx=adapter_idx,
                 chunk_ids=chunk_ids, window=cfg.sliding_window,
                 prefix_len=prefix_len)
+            if cfg.cross_attention and (enc_out is not None or decoding):
+                hx = apply_norm(x, lp["normx"], cfg.norm_type)
+                x = x + apply_cross_attention(lp["xattn"], cfg, hx,
+                                              layer_cache, enc_out)
         else:
             apply, name = (apply_rglru_block, "rec") if kind == REC else \
                 (apply_ssd, "ssd")
@@ -243,9 +276,27 @@ def _is_ring(cache: List[Dict[str, Any]]) -> bool:
     return "idx" in cache[0]
 
 
+def encode(params: Params, cfg: ModelConfig,
+           frame_embeds: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (B, T,
+    D) (the reference's stub frontend: the mel/conv features run
+    upstream), cast to the model dtype: per layer a pre-norm attention
+    with RoPE at ``[0, T)`` and a pre-norm GELU MLP, then a final norm.
+    Returns (B, T, D)."""
+    enc = params["encoder"]
+    x = frame_embeds.to(cfg.torch_dtype)
+    for lp in enc["layers"]:
+        h = apply_norm(x, lp["norm1"], cfg.norm_type)
+        x = x + apply_encoder_attention(lp["attn"], cfg, h)
+        h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
+        x = x + apply_encoder_mlp(lp["mlp"], h2)
+    return apply_norm(x, enc["norm"], cfg.norm_type)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: List[Dict[str, Any]],
             embeds: Optional[torch.Tensor] = None,
+            frame_embeds: Optional[torch.Tensor] = None,
             adapter_idx: Optional[torch.Tensor] = None,
             last_only: bool = False,
             start_pos: Optional[torch.Tensor] = None,
@@ -263,7 +314,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     embeddings (the reference's stub frontend) placed before the tokens at
     positions [0, P), the tokens then at [P, P + T), under the prefix-LM
     mask: the P prefix keys are visible to every query.  REC/SSD layers
-    start from the zero state.
+    start from the zero state.  ``frame_embeds`` (B, encoder_seq, D): an
+    encoder-decoder's audio frames (the stub frontend's output), encoded
+    once; each decoder layer's cross cache takes their K/V in place.
+    Frames of another length raise ValueError: the cross cache is
+    preallocated at ``encoder_seq`` for a captured decode step's fixed
+    addresses (the reference rebinds it to any length).
 
     Paged pools: one chunk at positions ``start_pos[b] + [0, T)``;
     chunk_ids: (B, T//bs) pool blocks this chunk writes; block_tbl: (B, MB)
@@ -285,6 +341,18 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                              "caches only: the paged runtime carries none")
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
         prefix_len = embeds.shape[1]
+    enc_out = None
+    if frame_embeds is not None:
+        if not _is_ring(cache):
+            raise ValueError("audio frames (frame_embeds) are served on ring "
+                             "caches only: the paged runtime carries none")
+        if not cfg.cross_attention:
+            raise ValueError(f"{cfg.name} has no cross-attention to take "
+                             f"frame_embeds")
+        if frame_embeds.shape[1] != cfg.encoder_seq:
+            raise ValueError(f"{frame_embeds.shape[1]} frames for a cross "
+                             f"cache of encoder_seq {cfg.encoder_seq}")
+        enc_out = encode(params, cfg, frame_embeds)
     Ttot = x.shape[1]
     offs = torch.arange(Ttot, device=tokens.device)[None, :]
     if _is_ring(cache):
@@ -297,7 +365,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
                    adapter_idx=adapter_idx, block_tbl=block_tbl,
                    chunk_ids=chunk_ids, state_rows=state_rows,
-                   state_seq=state_seq, prefix_len=prefix_len)
+                   state_seq=state_seq, prefix_len=prefix_len,
+                   enc_out=enc_out)
     if last_pos is not None:
         idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
         return _logits(params, cfg, torch.gather(x, 1, idx)), cache
@@ -321,8 +390,9 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     paged pools it is (B,) int32 per-row positions and block_tbl (B, MB)
     int32; ``state_rows`` (B,) int32 addresses the REC/SSD slot-state rows
     (a row pointed at the garbage row computes on junk and writes it
-    there, leaving real state untouched).  Returns ((B, V) logits, cache
-    updated in place)."""
+    there, leaving real state untouched).  A cross-attention model's
+    layers attend over their cached encoder K/V too.  Returns ((B, V)
+    logits, cache updated in place)."""
     B = token.shape[0]
     if _is_ring(cache) and (not isinstance(pos, torch.Tensor)
                             or pos.device.type == "cpu"):
@@ -339,7 +409,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
     x = _run_stack(params, cfg, x, positions=positions, cache=cache,
                    adapter_idx=adapter_idx, block_tbl=block_tbl,
-                   state_rows=state_rows)
+                   state_rows=state_rows, decoding=True)
     return _logits(params, cfg, x)[:, 0], cache
 
 

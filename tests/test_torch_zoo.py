@@ -98,7 +98,7 @@ def models():
 # ----------------------------------------------------------------- configs
 def test_arch_ids_are_every_decoder_config_in_the_reference_order():
     from repro.configs import ARCH_IDS as JAX_IDS
-    assert ARCH_IDS == [a for a in JAX_IDS if a != "whisper_medium"]
+    assert ARCH_IDS == JAX_IDS
     for arch in ARCH_IDS:
         assert get_config(arch) == _same_fields(jax_get_config(arch))
         assert get_smoke(arch) == _same_fields(jax_get_smoke(arch))
