@@ -160,9 +160,22 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    and SGMV 96 per decode step), tokens equal to an uncaptured decode
    loop's, no non-finite logit, the rows' cross caches pairwise
    different; then one prefill call and 16 captured decode steps under
-   the profiler, beside their bounds.
+   the profiler, beside their bounds;
+16. LoRA fine-tuning, which calls no kernel: a LoRA train step of every
+   config's SMOKE model in float32 on the card and on the CPU (the loss,
+   every adapter leaf's gradient, each nonzero, and the updated
+   adapters within stated tolerances); each of the five kernel wrappers
+   refusing a grad-requiring CUDA input; then Llama-2-7B at full width
+   and depth through ``launch/train.py``'s code path (batch 4 x 1024
+   tokens of the synthetic corpus, remat, 20 steps at the launcher's
+   rate): finite losses, the backbone's tensors at their addresses with
+   their bits and no ``.grad``, every adapter leaf moved, no kernel
+   launched, one step at a small rate lowering its batch's loss, each
+   step's host wall, one step profiled by op kind, peak memory and
+   tokens/s beside the step's bound; the trained adapter saved and read
+   back bit for bit, loaded into an ``AdapterRegistry`` and served.
 
-Phases 8-15 each run in a child process of the script (``isolated``; one
+Phases 8-16 each run in a child process of the script (``isolated``; one
 child per model in phase 13).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
@@ -351,6 +364,22 @@ PCIE_GT_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
 WHISPER = "whisper_medium"
 WHISPER_ROWS, WHISPER_PROMPT, WHISPER_NEW = 4, 32, 64
 WHISPER_STEPS = 16
+
+# Phase 16: LoRA fine-tuning of Llama-2-7B at full width and depth
+# through launch/train.py's code path (rank-16 adapters on q/k/v/o, the
+# launcher's lr 5e-3 on its cosine schedule, remat per layer), then one
+# step at TRAIN_SMALL_LR on a batch of its own; the SMOKE card-vs-CPU
+# steps of every config at SMOKE_TRAIN_LR.  Tolerances, card (float32,
+# no TF32) against the CPU: the loss within 1e-5 x max(1, |CPU|), each
+# gradient leaf within TRAIN_GRAD_TOL x its largest CPU element, and each
+# updated adapter element within what its gradient's difference allows
+# a first AdamW step (``smoke_train_on_both``): an element whose gradient
+# is near zero takes a normalised step that float32 noise can turn.
+TRAIN_ARGS = ["--arch", "llama2_7b", "--full", "--batch", "4", "--seq",
+              "1024", "--steps", "20", "--device", "cuda"]
+TRAIN_SMALL_LR = 1e-4
+SMOKE_TRAIN_LR = 1e-3
+TRAIN_GRAD_TOL = 1e-4
 
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
@@ -1554,12 +1583,15 @@ def _union_ms(spans: List) -> float:
     return (busy + cur_e - cur_s) / 1e3 if spans else 0.0
 
 
-def profiled(fn: Callable[[], object]) -> Dict:
+def profiled(fn: Callable[[], object],
+             by_op: Optional[Callable] = None) -> Dict:
     """Run ``fn`` once under ``torch.profiler``: the union of device
     activity and device time by kind (the profiler's host wall time is
     kept too; it is inflated by the tracing itself).  SGMV's expand is
     resident while its shrink runs, so the two kinds overlap:
-    ``sgmv_union_ms`` counts their time once.
+    ``sgmv_union_ms`` counts their time once.  ``by_op`` maps the CPU op
+    that launched a kernel (a profiler ``FunctionEvent``) to a kind:
+    ``device_ms_by_op`` then sums the kernels' device time by it.
 
     The profiler drops records at a session's ends, in a process that
     has launched no port kernel too (``tools/profiler_record_loss.py``;
@@ -1607,10 +1639,21 @@ def profiled(fn: Callable[[], object]) -> Dict:
         return {"profiled_wall_ms": host_ms, "device_busy_ms": None,
                 "device_ms_by_kind": None, "markers_lost": lost,
                 "note": "the profiler saw no device events: not measured"}
-    return {"profiled_wall_ms": host_ms, "device_busy_ms": _union_ms(spans),
-            "device_ms_by_kind": dict(sorted(by_kind.items())),
-            "kernels_by_kind": dict(sorted(count.items())),
-            "sgmv_union_ms": _union_ms(sgmv), "markers_lost": lost}
+    out = {"profiled_wall_ms": host_ms, "device_busy_ms": _union_ms(spans),
+           "device_ms_by_kind": dict(sorted(by_kind.items())),
+           "kernels_by_kind": dict(sorted(count.items())),
+           "sgmv_union_ms": _union_ms(sgmv), "markers_lost": lost}
+    if by_op is not None:
+        ops: Dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CPU:
+                continue
+            for k in e.kernels:
+                if "spin_kernel" not in k.name:
+                    kind = by_op(e)
+                    ops[kind] = ops.get(kind, 0.0) + k.duration / 1e3
+        out["device_ms_by_op"] = dict(sorted(ops.items()))
+    return out
 
 
 # kernels the profiler shows for one launch of each wrapper (SGMV and the
@@ -4118,11 +4161,405 @@ def whisper_phase(device: Dict) -> Dict:
     return out
 
 
+# ---------------------------------------------- 16. LoRA fine-tuning
+def _like(template, tree):
+    """A tree read by ``load_checkpoint`` (tuples where lists were saved,
+    None leaves dropped) in ``template``'s structure."""
+    if isinstance(template, dict):
+        return {k: _like(v, None if tree is None else tree.get(k))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_like(v, None if tree is None else tree[i])
+                              for i, v in enumerate(template))
+    return None if template is None else tree
+
+
+def smoke_train_on_both(arch: str, seed: int) -> Dict:
+    """One LoRA step of ``arch``'s SMOKE config in float32 (one adapter,
+    LoRA B drawn N(0, 0.1)) on the card and on the CPU from the same
+    weights and batch: the loss, each adapter leaf's gradient (nonzero on
+    both) and the updated adapters against their tolerances, and no
+    kernel launched on the card."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.lora import combine_lora, partition_lora, \
+        tree_leaves
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import train
+    from repro_torch.training.adamw import AdamW, constant_schedule
+    cfg = get_smoke(arch).with_(dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = tf.init_params(cfg, gen, "cpu", lora_adapters=None,
+                            lora_b_scale=0.1)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    if cfg.family == "vlm":
+        batch["embeds"] = (rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.d_model)) * 0.02).astype(
+            np.float32)
+    if cfg.family == "audio":
+        batch["frame_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        bb, ad = partition_lora(_to(params, dev))
+        kernels.reset_launches()
+        loss, _, grads = train._value_and_grad(
+            cfg, ad, lambda a: combine_lora(bb, a), train.batch_to(batch, dev),
+            True)
+        opt = AdamW(lr=constant_schedule(SMOKE_TRAIN_LR))
+        new_ad, _ = opt.update(grads, opt.init(ad), ad)
+        _, _, m = train.make_lora_train_step(cfg, opt)(
+            bb, ad, opt.init(ad), batch)
+        got[dev] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                    [x.cpu() for x in tree_leaves(new_ad)], float(m["loss"]),
+                    kernels.launch_counts())
+    (l_cpu, g_cpu, a_cpu, m_cpu, _), (l_gpu, g_gpu, a_gpu, m_gpu, launched) \
+        = got["cpu"], got["cuda"]
+    if any(launched.values()):
+        fail(f"{arch} SMOKE: the training step launched kernels {launched}")
+    if abs(l_gpu - l_cpu) > 1e-5 * max(1.0, abs(l_cpu)) or \
+            abs(m_gpu - m_cpu) > 1e-5 * max(1.0, abs(m_cpu)):
+        fail(f"{arch} SMOKE: loss on the card {l_gpu} vs the CPU {l_cpu}")
+    grad_err, ad_err, ad_excess = 0.0, 0.0, 0.0
+    for gc_, gg, ac, ag in zip(g_cpu, g_gpu, a_cpu, a_gpu):
+        scale = float(gc_.abs().max())
+        if scale == 0 or float(gg.abs().max()) == 0:
+            fail(f"{arch} SMOKE: an adapter leaf got a zero gradient")
+        grad_err = max(grad_err, float((gg - gc_).abs().max()) / scale)
+        # a first AdamW step moves an element by lr g / (|g| + eps) (plus
+        # the same weight decay): the two devices' steps may part by no
+        # more than lr |g_card - g_cpu| / (the smaller |g| + eps), at most
+        # 2 lr, plus the rounding of the parameter
+        same = torch.sign(gg) == torch.sign(gc_)
+        low = torch.where(same, torch.minimum(gg.abs(), gc_.abs()),
+                          torch.zeros_like(gg))
+        allow = SMOKE_TRAIN_LR * torch.clamp(
+            (gg - gc_).abs() / (low + 1e-8), max=2.0) \
+            + 1e-6 * max(1.0, float(ac.abs().max()))
+        diff = (ag - ac).abs()
+        ad_err = max(ad_err, float(diff.max()))
+        ad_excess = max(ad_excess, float((diff - allow).max()))
+    if grad_err > TRAIN_GRAD_TOL:
+        fail(f"{arch} SMOKE: gradients differ by {grad_err:.3e} of a leaf's "
+             f"largest (tolerance {TRAIN_GRAD_TOL})")
+    if ad_excess > 0:
+        fail(f"{arch} SMOKE: updated adapters differ by up to {ad_err:.3e}, "
+             f"more than their gradients' difference explains")
+    return {"loss": l_gpu, "loss_cpu": l_cpu, "leaves": len(g_cpu),
+            "grad_rel_err": grad_err, "adapter_max_abs_err": ad_err}
+
+
+def refusal_cases() -> List[str]:
+    """Each kernel wrapper on CUDA inputs, one of which requires grad,
+    while grad mode is on: each must raise ValueError before it launches
+    anything."""
+    from repro_torch import kernels
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    q4 = torch.randn(1, 16, 2, 64, **bf).requires_grad_()
+    kv4 = torch.randn(1, 16, 2, 64, **bf)
+    pool = torch.randn(2, 4, 16, 64, **bf)
+    tbl = torch.tensor([[1, 2]], **i32)
+    cases = {
+        "flash_attention": lambda f: f(q4, kv4, kv4),
+        "decode_attention": lambda f: f(
+            torch.randn(1, 2, 64, **bf).requires_grad_(), kv4, kv4,
+            torch.arange(16, **i32), 15),
+        "paged_attention": lambda f: f(
+            torch.randn(1, 2, 64, **bf).requires_grad_(), pool, pool, tbl,
+            torch.tensor([20], **i32)),
+        "paged_prefill": lambda f: f(
+            q4, pool, pool, tbl, torch.arange(16, **i32)[None]),
+        "sgmv": lambda f: f(torch.randn(4, 64, **bf),
+                            torch.randn(2, 64, 16, **bf).requires_grad_(),
+                            torch.randn(2, 16, 64, **bf),
+                            torch.zeros(4, **i32)),
+    }
+    refused = []
+    kernels.reset_launches()
+    for name, call in cases.items():
+        try:
+            call(kernels.get_kernel(name))
+        except ValueError as e:
+            if "no backward" not in str(e):
+                fail(f"{name}: refused a grad-requiring input for another "
+                     f"reason: {e}")
+            refused.append(name)
+        else:
+            fail(f"{name}: the wrapper took a grad-requiring CUDA input")
+    if any(kernels.launch_counts().values()):
+        fail(f"a refused call launched: {kernels.launch_counts()}")
+    return refused
+
+
+def _train_op_kind(e) -> str:
+    """Kind of the kernels a CPU op launched in a training step: under
+    ``AdamW.update``, the optimizer; ``aten::bmm`` (Llama's only batched
+    products: ``attention_core``'s float32 einsums, forward and
+    backward), attention einsums; ``aten::mm``/``addmm``, the bf16
+    matmuls (projections, MLP, LM head, LoRA); anything else elementwise
+    (norms, RoPE, mask and softmax, casts, the loss, copies)."""
+    node = e
+    while node is not None:
+        if node.name == "AdamW.update":
+            return "optimizer"
+        node = node.cpu_parent
+    if e.name == "aten::bmm":
+        return "attention_einsum"
+    if e.name in ("aten::mm", "aten::addmm"):
+        return "matmul"
+    return "elementwise"
+
+
+def train_bound(cfg, backbone, B: int, T: int) -> Dict:
+    """The least time of one LoRA step at B x T tokens: the weights'
+    products 3 x 2 P N in bf16 (the forward, the remat forward and the
+    input gradients; the adapters' own products and weight gradients are
+    below 0.5 % of it) and ``attention_core``'s float32 einsums 4 x 4 B H
+    T^2 hd per layer (QK^T and PV in the forward, again in the remat
+    forward, twice in the backward), against the bytes of the inputs read
+    once.  P is counted from the weights and checked against the
+    config's arithmetic."""
+    from repro_torch.core.lora import tree_leaves
+    P = sum(x.numel() for x in tree_leaves(backbone["layers"])
+            if x.dim() == 2) + backbone["lm_head"].numel()
+    D, H, K, hd, F, V, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+                            cfg.num_layers)
+    P_cfg = L * (2 * D * H * hd + 2 * D * K * hd + 3 * D * F) + D * V
+    if P != P_cfg:
+        fail(f"weights in products: {P} counted, {P_cfg} from the config")
+    N = B * T
+    bf16_ops = 3 * 2 * P * N
+    f32_ops = 4 * 4 * B * H * T * T * hd * L
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in tree_leaves(backbone))
+    t_ops = bf16_ops / PEAK_OPS_PER_S[torch.bfloat16] \
+        + f32_ops / PEAK_OPS_PER_S[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"weights_in_products": P, "bf16_ops": bf16_ops,
+            "f32_ops": f32_ops, "bytes": nbytes,
+            "bf16_ms": bf16_ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3,
+            "f32_ms": f32_ops / PEAK_OPS_PER_S[torch.float32] * 1e3,
+            "bytes_ms": t_bytes * 1e3,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def serve_trained_adapter(cfg, backbone, adapters, path: Path) -> Dict:
+    """The trained adapter saved with ``save_checkpoint``, read back with
+    ``load_checkpoint`` bit for bit, loaded by name into an
+    ``AdapterRegistry`` over a 2-slot bank on the frozen backbone (phase
+    4's serving shapes) and one request served on it to completion."""
+    import dataclasses
+    from repro_torch.checkpoint.store import load_checkpoint, \
+        save_checkpoint
+    from repro_torch.core.lora import combine_lora, stack_adapters, \
+        tree_leaves
+    from repro_torch.serving import (AdapterRegistry, ContinuousRuntime,
+                                     ServingConfig, replay_trace,
+                                     terminal_state)
+    t0 = time.perf_counter()
+    nbytes = save_checkpoint(str(path), adapters, {"arch": cfg.name})
+    loaded, meta = load_checkpoint(str(path), device="cuda")
+    loaded = _like(adapters, loaded)
+    save_s = time.perf_counter() - t0
+    a, b = tree_leaves(adapters), tree_leaves(loaded)
+    if len(a) != len(b) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b)):
+        fail("the adapter read back from its checkpoint differs")
+    print(f"trained adapter: {nbytes / 1e6:.2f} MB saved and read back bit "
+          f"for bit in {save_s:.2f} s ({len(a)} leaves, meta {meta})")
+    zeros = _tree_map(torch.zeros_like, adapters)
+    bank_cfg = cfg.with_(lora=dataclasses.replace(cfg.lora, num_adapters=2))
+    rt = ContinuousRuntime(bank_cfg, combine_lora(backbone, stack_adapters(
+        [zeros, zeros])), ServingConfig(**SERVE),
+        device=backbone["embed"].device)
+    reg = AdapterRegistry(rt, names=["fn0"])
+    slot = reg.load("trained", loaded)
+    rng = np.random.default_rng(16)
+    prompt = rng.integers(0, cfg.vocab_size, 300).astype(np.int32)
+    work = [dict(req_id=0, fn_id="trained", arrival=0.0,
+                 prompt_len=len(prompt), output_len=OUTPUT_TOKENS,
+                 slo_ttft=1e9)]
+    sink: Dict[int, List[int]] = {}
+    with FiniteLogits() as finite:
+        res, _ = replay_trace(rt, work, {"trained": "trained"},
+                              prompts={0: prompt}, token_sink=sink)
+        torch.cuda.synchronize()
+    state = terminal_state(res.requests[0])
+    if state != "finished" or len(sink.get(0, [])) != OUTPUT_TOKENS:
+        fail(f"the request on the trained adapter ended {state} with "
+             f"{len(sink.get(0, []))} tokens")
+    if not finite.ok():
+        fail("non-finite logits serving the trained adapter")
+    print(f"trained adapter served from bank slot {slot}: one request of "
+          f"{len(prompt)} prompt tokens, {OUTPUT_TOKENS} tokens, finished, "
+          f"finite logits")
+    del rt, reg
+    return {"bytes": nbytes, "save_load_s": save_s, "slot": slot,
+            "tokens": sink[0][:8]}
+
+
+def train_phase(device: Dict) -> Dict:
+    """Phase 16 (see the module docstring)."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.core.lora import combine_lora, tree_leaves
+    from repro_torch.data.pipeline import lm_batches, synthetic_corpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import train
+    from repro_torch.training.adamw import AdamW, constant_schedule
+    t0 = phase("phase 16: LoRA fine-tuning: SMOKE card vs CPU for every "
+               "config, the kernels' refusal of autograd, Llama-2-7B at "
+               "full width and depth through launch/train.py")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = {}
+    for i, arch in enumerate(ARCH_IDS):
+        smoke[arch] = smoke_train_on_both(arch, seed=i)
+    print(f"SMOKE LoRA steps ({time.perf_counter() - t0:.1f} s), card = CPU "
+          f"for {len(smoke)} configs (no kernel "
+          f"launched): largest loss difference "
+          f"{max(abs(r['loss'] - r['loss_cpu']) for r in smoke.values()):.2e}"
+          f", gradients within "
+          f"{max(r['grad_rel_err'] for r in smoke.values()):.2e} of a "
+          f"leaf's largest (tolerance {TRAIN_GRAD_TOL}), updated adapters "
+          f"within {max(r['adapter_max_abs_err'] for r in smoke.values()):.2e}"
+          f" at lr {SMOKE_TRAIN_LR}, each element within its gradient's "
+          f"bound; every adapter leaf's gradient nonzero")
+    refused = refusal_cases()
+    print(f"autograd refused by all {len(refused)} kernel wrappers on a CUDA "
+          f"input that requires grad: {refused}")
+
+    args = launch_train.build_parser().parse_args(TRAIN_ARGS)
+    t_setup = time.perf_counter()
+    run = launch_train.setup(args)
+    torch.cuda.synchronize()
+    cfg, B, T = run.cfg, args.batch, args.seq
+    bb_leaves = tree_leaves(run.backbone)
+    ptrs = [x.data_ptr() for x in bb_leaves]
+    copies = [x.cpu() for x in bb_leaves]
+    initial = _map_clone(run.adapters)
+    bb_bytes = sum(x.numel() * x.element_size() for x in bb_leaves)
+    print(f"setup {time.perf_counter() - t_setup:.1f} s: backbone "
+          f"{bb_bytes / 1e9:.2f} GB random from seed 0, adapters "
+          f"{sum(x.numel() for x in tree_leaves(run.adapters)) / 1e6:.2f} M "
+          f"parameters (B = 0), batch {B} x {T} tokens of the synthetic "
+          f"corpus")
+
+    # one step at a small rate on a batch of its own lowers that batch's loss
+    batch = next(lm_batches(synthetic_corpus(
+        cfg.vocab_size, launch_train.CORPUS_TOKENS, seed=3), B, T, seed=2))
+    dev_batch = train.batch_to(batch, "cuda")
+    opt = AdamW(lr=constant_schedule(TRAIN_SMALL_LR))
+    with torch.no_grad():
+        before = float(train.loss_fn(combine_lora(run.backbone, initial),
+                                     cfg, dev_batch, remat=False)[0])
+    stepped, _, m = train.make_lora_train_step(cfg, opt)(
+        run.backbone, initial, opt.init(initial), batch)
+    with torch.no_grad():
+        after = float(train.loss_fn(combine_lora(run.backbone, stepped), cfg,
+                                    dev_batch, remat=False)[0])
+    print(f"one step at lr {TRAIN_SMALL_LR}: the batch's loss {before:.6f} "
+          f"(the step's own {float(m['loss']):.6f}) -> {after:.6f} "
+          f"recomputed ({time.perf_counter() - t0:.1f} s into the phase)")
+    if not after < before:
+        fail("one small step did not lower its batch's loss")
+    del stepped
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    launch_train.train(run, args.steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = kernels.launch_counts()
+    if any(launched.values()):
+        fail(f"the training path launched kernels: {launched}")
+    if not all(math.isfinite(x) for x in run.losses):
+        fail(f"non-finite losses: {run.losses}")
+    if [x.data_ptr() for x in tree_leaves(run.backbone)] != ptrs:
+        fail("a backbone leaf moved")
+    if any(x.grad is not None or x.requires_grad for x in bb_leaves):
+        fail("a backbone leaf has a .grad or requires grad")
+    if not all(torch.equal(x.cpu(), c) for x, c in zip(bb_leaves, copies)):
+        fail("a backbone leaf's bits changed")
+    del copies
+    moved = [not torch.equal(x, y) for x, y in
+             zip(tree_leaves(run.adapters), tree_leaves(initial))]
+    if not all(moved):
+        fail(f"{moved.count(False)} adapter leaves did not move")
+    steady = run.step_s[1:]
+    step_ms = statistics.median(steady) * 1e3
+    tok_s = B * T / (step_ms / 1e3)
+    bnd = train_bound(cfg, run.backbone, B, T)
+    print(f"Llama-2-7B LoRA: {args.steps} steps, losses {run.losses[0]:.4f} "
+          f"-> {run.losses[-1]:.4f}, all finite; backbone {len(bb_leaves)} "
+          f"leaves: same data_ptrs, same bits, no .grad; all "
+          f"{len(moved)} adapter leaves moved; kernel launches {launched}")
+    print(f"step losses: {', '.join(f'{x:.4f}' for x in run.losses)}")
+    print(f"step host wall (ms): "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in run.step_s)} on "
+          f"{_smi(device)}")
+    print(f"train step: median {step_ms:.1f} ms over steps 1-"
+          f"{args.steps - 1} ({tok_s:.0f} tokens/s); bound "
+          f"{bnd['bound_ms']:.1f} ms ({bnd['bound_by']}: "
+          f"{bnd['bf16_ops'] / 1e12:.2f} TFLOP bf16 at P = "
+          f"{bnd['weights_in_products'] / 1e9:.3f} G weights in products -> "
+          f"{bnd['bf16_ms']:.1f} ms, {bnd['f32_ops'] / 1e12:.2f} TFLOP of "
+          f"float32 attention einsums -> {bnd['f32_ms']:.1f} ms; "
+          f"{bnd['bytes'] / 1e9:.2f} GB -> {bnd['bytes_ms']:.1f} ms); "
+          f"{bnd['bound_ms'] / step_ms:.3f} of the bound; peak device memory "
+          f"{peak / 1e9:.2f} GB ({bb_bytes / 1e9:.2f} GB of it the backbone) "
+          f"on {_smi(device)}")
+
+    prof_batch = next(run.data)
+    prof = profiled(lambda: run.step_fn(run.backbone, run.adapters,
+                                        run.opt_state, prof_batch),
+                    by_op=_train_op_kind)
+    wall = prof["profiled_wall_ms"]
+    busy = prof["device_busy_ms"]
+    if busy is None:
+        print(f"train step under the profiler: {prof['note']}")
+    else:
+        by_op = prof.get("device_ms_by_op", {})
+        print(f"train step under the profiler: host wall {wall:.1f} ms "
+              f"against device busy {busy:.1f} ms, idle share "
+              f"{1 - busy / wall:.3f}; device ms by op kind "
+              f"{ {k: round(v, 2) for k, v in by_op.items()} } "
+              f"(attributed {sum(by_op.values()):.1f} ms); by kernel name "
+              f"{ {k: round(v, 2) for k, v in prof['device_ms_by_kind'].items()} }"
+              f" (profiler dropped {prof['markers_lost']} of {2 * MARKERS} "
+              f"markers) on {_smi(device)}")
+        if busy > wall:
+            fail("device busy above the profiled host wall")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        served = serve_trained_adapter(cfg, run.backbone, run.adapters,
+                                       Path(tmp) / "adapter")
+    out = {"smoke": smoke, "refused": refused, "losses": run.losses,
+           "step_s": run.step_s, "step_ms": step_ms, "tokens_per_s": tok_s,
+           "bound": bnd, "peak_memory_bytes": peak,
+           "backbone_bytes": bb_bytes, "small_lr": {
+               "lr": TRAIN_SMALL_LR, "before": before, "after": after},
+           "profile": prof, "served": served}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 16 ok ({out['phase_s']:.1f} s)")
+    return out
+
+
 # phases run in a child process each (see ``isolated``)
 ISOLATED = {"8": mixtral_phase, "9": recurrentgemma_phase,
             "10": mamba_phase, "11": nemotron_phase,
             "12": paligemma_phase, "14": cold_phase,
-            "15": whisper_phase,
+            "15": whisper_phase, "16": train_phase,
             **{f"13-{arch}": functools.partial(zoo_launch_phase, arch)
                for arch in ZOO_LAUNCH}}
 
@@ -4183,6 +4620,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     zoo = {arch: isolated(f"13-{arch}", device) for arch in ZOO_LAUNCH}
     cold = isolated("14", device)
     whisper = isolated("15", device)
+    training = isolated("16", device)
     built = "fresh" if build["fresh"] else "cached"
     print(f"kernel_compile with no built library: phase 2's nvcc build "
           f"{build['seconds']:.1f} s ({built}) + "
@@ -4210,6 +4648,7 @@ def main(argv: Optional[List[str]] = None) -> int:
              "recurrentgemma": rgemma, "mamba2": mamba,
              "nemotron": nemotron, "paligemma": paligemma,
              "launcher_zoo": zoo, "cold_start": cold, "whisper": whisper,
+             "training": training,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -1,4 +1,5 @@
-"""Weight bridge: the reference's flat checkpoint format -> port params.
+"""Weight bridge between the reference's checkpoint layout and the port's
+params, both ways.
 
 The reference (``repro/checkpoint/store.py``) flattens its parameter tree
 into ``/``-joined keys, with ``#i`` for tuple indices and the period-stacked
@@ -13,7 +14,9 @@ port's layout: ``{"embed", "lm_head", "final_norm", "layers": [layer 0,
 layer 1, ...]}``, each layer the reference's per-layer dict.  An
 encoder-decoder's ``encoder/layers/...`` leaves, stacked over
 ``encoder_layers``, unstack the same way into ``params["encoder"]
-["layers"]`` beside ``params["encoder"]["norm"]``.
+["layers"]`` beside ``params["encoder"]["norm"]``.  ``reference_tree``
+stacks the port's params back into the reference's tree, which
+``checkpoint/store.py::save_checkpoint`` writes as the reference would.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.lora import _zip_map
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -140,3 +144,33 @@ def load_params(path: str, cfg: ModelConfig, *, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Read a reference ``save_checkpoint`` file into port params."""
     return params_from_flat(load_flat(path), cfg, device=device, dtype=dtype)
+
+
+def _stack(rows: List[Params]) -> Params:
+    return _zip_map(lambda *xs: None if xs[0] is None else torch.stack(xs),
+                    *rows)
+
+
+def reference_tree(params: Params, cfg: ModelConfig) -> Params:
+    """Port params -> the reference's model tree (the inverse of
+    ``params_from_flat``): layer ``n * len(pattern) + j`` becomes row n of
+    ``periods/p{j}``, the layers past the last whole period the tuple
+    ``tail``, and an encoder's layers one stack ``encoder/layers``.  The
+    other entries are the port's own tensors; the stacks are new ones on
+    the leaves' device."""
+    n_per = len(cfg.pattern)
+    layers = params["layers"]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers for a config of "
+                         f"{cfg.num_layers}")
+    out: Params = {k: v for k, v in params.items()
+                   if k not in ("layers", "encoder")}
+    out["periods"] = {f"p{j}": _stack([layers[n * n_per + j] for n in
+                                       range(cfg.num_periods)])
+                      for j in range(n_per)}
+    out["tail"] = tuple(layers[cfg.num_periods * n_per:])
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {**{k: v for k, v in enc.items() if k != "layers"},
+                          "layers": _stack(enc["layers"])}
+    return out

@@ -144,6 +144,18 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                      f"all-CUDA inputs, the plain versions all-CPU inputs")
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels write their outputs through raw pointers, so an output
+    carries no autograd graph: a gradient would stop there without an
+    error.  While grad mode is on, a CUDA input that requires grad raises
+    instead (the training forward runs no kernel)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: the CUDA kernel has no backward, and an "
+                         f"input requires grad; run it under "
+                         f"torch.no_grad(), or train through "
+                         f"transformer.forward_train")
+
+
 def dtype_code(*tensors: torch.Tensor) -> int:
     dt = tensors[0].dtype
     if dt not in DTYPE_CODES or any(t.dtype != dt for t in tensors):

@@ -51,6 +51,7 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     extra = () if pos_t is None else (pos_t,)
     if not cuda_lib.on_cuda(q, k, v, slot_pos, *extra):
         return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
+    cuda_lib.refuse_autograd("ring decode", q, k, v)
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_int32(slot_pos, *extra)
     cuda_lib.require_contiguous(q=q, k=k, v=v, slot_pos=slot_pos)

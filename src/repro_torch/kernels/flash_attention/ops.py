@@ -43,6 +43,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal, window=window,
                          prefix_len=prefix_len).transpose(1, 2)
+    cuda_lib.refuse_autograd("flash attention", q, k, v)
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_contiguous(q=q, k=k, v=v)
     cuda_lib.require_aligned(q=q, k=k, v=v)

@@ -42,6 +42,7 @@ def paged_decode_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                          f" pos {tuple(pos.shape)}")
     if not cuda_lib.on_cuda(q, kp, vp, block_tbl, pos):
         return paged_attention_ref(q, kp, vp, block_tbl, pos, window=window)
+    cuda_lib.refuse_autograd("paged decode", q, kp, vp)
     code = cuda_lib.dtype_code(q, kp, vp)
     cuda_lib.require_int32(block_tbl, pos)
     cuda_lib.require_contiguous(q=q, kp=kp, vp=vp, block_tbl=block_tbl,

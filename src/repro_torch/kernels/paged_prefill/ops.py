@@ -39,6 +39,7 @@ def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                          f" q_pos {tuple(q_pos.shape)}")
     if not cuda_lib.on_cuda(q, kp, vp, block_tbl, q_pos):
         return paged_prefill_ref(q, kp, vp, block_tbl, q_pos, window=window)
+    cuda_lib.refuse_autograd("paged prefill", q, kp, vp)
     code = cuda_lib.dtype_code(q, kp, vp)
     cuda_lib.require_int32(block_tbl, q_pos)
     cuda_lib.require_contiguous(q=q, kp=kp, vp=vp, block_tbl=block_tbl,

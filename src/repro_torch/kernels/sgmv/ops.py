@@ -78,6 +78,7 @@ def sgmv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          f"{tuple(idx.shape)}")
     if not cuda_lib.on_cuda(x, a, b, idx):
         return sgmv_ref(x, a, b, idx, scaling=scaling)
+    cuda_lib.refuse_autograd("sgmv", x, a, b)
     code = cuda_lib.dtype_code(x, a, b)
     cuda_lib.require_int32(idx)
     cuda_lib.require_contiguous(x=x, a=a, b=b, idx=idx)

@@ -3,8 +3,11 @@ LoRA delta, RMSNorm and LayerNorm, RoPE, the SwiGLU, squared-ReLU and
 GELU MLPs (and the encoder's GELU MLP), the ring and paged branches of
 attention (the ring branch with the prefix-LM rule of a VLM's image
 prefix), the encoder's bidirectional attention and the decoder's
-cross-attention over the encoder's output, and the depthwise causal conv
-of the REC and SSD mixers.
+cross-attention over the encoder's output, the cache-free attention of
+the training forward (``attention_core`` / ``attention_chunked`` in plain
+float32 PyTorch, as the reference's model code computes it: the kernels
+have no backward), and the depthwise causal conv of the REC and SSD
+mixers.
 
 Parameters are plain dicts of tensors in the reference's layout
 (``x @ W`` with W of shape (d_in, d_out)), so weights carry over from the
@@ -277,6 +280,144 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                                window=window)
     return dense(out.reshape(B, T, H * hd), p["wo"], lora.get("o"),
                  scaling=s, adapter_idx=adapter_idx)
+
+
+# ------------------------------------------------ cache-free attention (train)
+def _scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str,
+                 window: Optional[int], prefix_len: int = 0) -> torch.Tensor:
+    """Additive float32 mask (..., Tq, Tk) from absolute positions: 0 where
+    key j is visible to query i, -1e30 elsewhere.  ``kind`` is "causal",
+    "prefix" (causal, and every key below ``prefix_len`` visible) or
+    "bidir"; keys at negative positions (padding) are never visible."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    if kind == "bidir":
+        ok = kp >= 0
+    elif kind == "prefix":
+        ok = (kp <= qp) | (kp < prefix_len)
+    elif kind == "causal":
+        ok = kp <= qp
+    else:
+        raise ValueError(f"mask kind {kind!r}")
+    ok = ok & (kp >= 0)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Dense attention in float32 under an additive mask (B, Tq, Tk).
+    q: (B, Tq, H, hd); k, v: (B, Tk, K, hd), H % K == 0.  Returns
+    (B, Tq, H, hd) in q's dtype."""
+    B, Tq, H, hd = q.shape
+    K = k.shape[2]
+    qh = q.reshape(B, Tq, K, H // K, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qh.float(),
+                          k.float()) / math.sqrt(hd)
+    scores = scores + mask[:, None, None, :, :]
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      kind: str = "causal", window: Optional[int] = None,
+                      prefix_len: int = 0, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over ``q_chunk`` x ``kv_chunk`` blocks in
+    float32: ``attention_core``'s function with O(chunk^2) temporaries.
+    Padded queries sit at position -1e9 and padded keys at -1, so the mask
+    hides them.  q_pos, k_pos: (T,) or (B, T).  Returns (B, Tq, H, hd) in
+    q's dtype."""
+    B, Tq, H, hd = q.shape
+    Tk, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    q_chunk, kv_chunk = min(q_chunk, Tq), min(kv_chunk, Tk)
+    nq, nk = -(-Tq // q_chunk), -(-Tk // kv_chunk)
+    pad_q, pad_k = nq * q_chunk - Tq, nk * kv_chunk - Tk
+    q_pos = q_pos.expand(B, Tq) if q_pos.dim() == 1 else q_pos
+    k_pos = k_pos.expand(B, Tk) if k_pos.dim() == 1 else k_pos
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp_ = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp_ = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    qpos = F.pad(q_pos, (0, pad_q), value=-(10 ** 9))
+    kpos = F.pad(k_pos, (0, pad_k), value=-1)
+    sm = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(nq):
+        qs = slice(i * q_chunk, (i + 1) * q_chunk)
+        qb = qp[:, qs].reshape(B, q_chunk, Kh, G, hd).float()
+        acc = q.new_zeros((B, q_chunk, Kh, G, hd), dtype=torch.float32)
+        m = torch.full((B, q_chunk, Kh, G), -math.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for j in range(nk):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            s = torch.einsum("bqkgh,bskh->bqkgs", qb,
+                             kp_[:, ks].float()) * sm
+            s = s + _scores_mask(qpos[:, qs], kpos[:, ks], kind, window,
+                                 prefix_len)[:, :, None, None, :]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgs,bskh->bqkgh", p, vp_[:, ks].float())
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=1).reshape(B, nq * q_chunk, H, hd)
+    return out[:, :Tq]
+
+
+def apply_attention_train(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                          positions: torch.Tensor, mask_kind: str = "causal",
+                          prefix_len: int = 0,
+                          window: Optional[int] = None,
+                          use_chunked: bool = False) -> torch.Tensor:
+    """GQA self-attention without a cache (the reference's
+    ``apply_attention(cache=None)``, the training forward's): q/k/v with a
+    single adapter's LoRA (``p["lora"]`` leaves (D, r) / (r, O)), RoPE at
+    ``positions`` (B, T), then ``attention_core`` under ``_scores_mask``,
+    or ``attention_chunked`` with ``use_chunked``.  No kernel runs here:
+    the kernels have no backward.  x: (B, T, D); returns (B, T, D)."""
+    B, T, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    lora = p.get("lora", {})
+    s = cfg.lora.scaling if cfg.lora else 1.0
+    q = dense(x, p["wq"], lora.get("q"), scaling=s)
+    k = dense(x, p["wk"], lora.get("k"), scaling=s)
+    v = dense(x, p["wv"], lora.get("v"), scaling=s)
+    q = rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, T, K, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, T, K, hd)
+    if use_chunked:
+        out = attention_chunked(q, k, v, positions, positions,
+                                kind=mask_kind, window=window,
+                                prefix_len=prefix_len)
+    else:
+        mask = _scores_mask(positions, positions, mask_kind, window,
+                            prefix_len)
+        out = attention_core(q, k, v, mask)
+    return dense(out.reshape(B, T, H * hd), p["wo"], lora.get("o"),
+                 scaling=s)
+
+
+def cross_attention_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                          enc_out: torch.Tensor) -> torch.Tensor:
+    """The reference's cache-free ``_cross_attention``: queries from x
+    (B, T, D), keys and values from the encoder's output (B, S, D), no
+    RoPE, no LoRA, every key visible, through ``attention_core``."""
+    B, T, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = dense(x, p["wq"]).reshape(B, T, H, hd)
+    k = dense(enc_out, p["wk"]).reshape(B, -1, K, hd)
+    v = dense(enc_out, p["wv"]).reshape(B, -1, K, hd)
+    mask = x.new_zeros((B, T, k.shape[1]), dtype=torch.float32)
+    out = attention_core(q, k, v, mask)
+    return dense(out.reshape(B, T, H * hd), p["wo"])
 
 
 def apply_encoder_attention(p: Params, cfg: ModelConfig,

@@ -24,25 +24,31 @@ Entry points:
   * ``decode_step`` — ONE token per row: a scalar position on a ring
                       cache, per-row positions on the paged pools.
   * ``encode``      — the encoder stack over frame embeddings.
+  * ``forward_train`` — the cache-free training forward (logits of every
+                      token position and the MoE aux loss), which calls
+                      no kernel.
   * ``init_params`` — seeded random weights (for runs without a
                       checkpoint, e.g. the full-width run on the card).
   * ``init_cache``  — ring caches (``models/cache.py``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import (ATTN, GELU, MOE, NONE, REC, SQRELU,
                                        SSD, SWIGLU, ModelConfig)
 from repro_torch.models.layers import (_normal, apply_attention,
+                                       apply_attention_train,
                                        apply_cross_attention,
                                        apply_encoder_attention,
                                        apply_encoder_mlp, apply_mlp,
-                                       apply_norm)
+                                       apply_norm, cross_attention_train)
 from repro_torch.models.moe import apply_moe, moe_init
 from repro_torch.models.rglru import apply_rglru_block, rglru_init
 from repro_torch.models.ssm import apply_ssd, ssd_init
@@ -52,14 +58,17 @@ Params = Dict[str, Any]
 
 # ----------------------------------------------------------------------- init
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda", *, lora_adapters: int = 1,
+                device="cuda", *, lora_adapters: Optional[int] = 1,
                 lora_b_scale: float = 0.02) -> Params:
     """Seeded random parameters with the reference's init scales (dense
     N(0, 1/d_in), embeddings and LM head N(0, 0.02), norm scales at 1,
     LoRA A N(0, 1/d_in); MoE router and ``wi``/``wg`` N(0, 1/D), ``wo``
     N(0, 1/F); REC and SSD blocks as ``rglru_init`` / ``ssd_init``) and a
-    stacked bank of ``lora_adapters`` adapters on the config's targets:
-    q/k/v/o of attention, in/out of the REC and SSD blocks.  An
+    stacked bank of ``lora_adapters`` adapters ((N, D, r) / (N, r, O)
+    leaves) on the config's targets: q/k/v/o of attention, in/out of the
+    REC and SSD blocks; ``lora_adapters=None`` gives one adapter with
+    (D, r) / (r, O) leaves, the training layout (the reference's
+    ``init_params(lora_adapters=None)``).  An
     encoder-decoder also gets its encoder (``encoder_layers`` of
     attention with K = H and a GELU MLP, then a norm) and, in each
     decoder layer, ``normx`` and the cross-attention ``xattn``; neither
@@ -89,10 +98,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             p["bias"] = _normal(generator, (d,), dt, 0.02, device)
         return p
 
+    lead = () if N is None else (N,)
+
     def bank(shapes):
-        return {t: {"a": _normal(generator, (N, shapes[t][0], r), dt,
+        return {t: {"a": _normal(generator, lead + (shapes[t][0], r), dt,
                                  1.0 / math.sqrt(shapes[t][0]), device),
-                    "b": _normal(generator, (N, r, shapes[t][1]), dt,
+                    "b": _normal(generator, lead + (r, shapes[t][1]), dt,
                                  lora_b_scale, device)}
                 for t in cfg.lora.targets if t in shapes}
 
@@ -411,6 +422,107 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                    adapter_idx=adapter_idx, block_tbl=block_tbl,
                    state_rows=state_rows, decoding=True)
     return _logits(params, cfg, x)[:, 0], cache
+
+
+# --------------------------------------------------------- training forward
+def _train_layer(kind: str, lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, mask_kind: str, prefix_len: int,
+                 use_chunked: bool, enc_out: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One residual block without a cache (the reference's ``_apply_layer``
+    with ``cache=None``): REC/SSD mixers from the zero state, a MoE MLP's
+    load-balance loss returned beside x.  Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = apply_norm(x, lp["norm1"], cfg.norm_type)
+    if kind == ATTN:
+        x = x + apply_attention_train(
+            lp["attn"], cfg, h, positions=positions, mask_kind=mask_kind,
+            prefix_len=prefix_len, window=cfg.sliding_window,
+            use_chunked=use_chunked)
+        if cfg.cross_attention and enc_out is not None:
+            hx = apply_norm(x, lp["normx"], cfg.norm_type)
+            x = x + cross_attention_train(lp["xattn"], cfg, hx, enc_out)
+    else:
+        apply, name = (apply_rglru_block, "rec") if kind == REC else \
+            (apply_ssd, "ssd")
+        mix, _ = apply(lp[name], cfg, h, lora=lp[name].get("lora"),
+                       lora_scaling=cfg.lora.scaling)
+        x = x + mix
+    if cfg.mlp_for == MOE:
+        h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
+        out, moe_aux = apply_moe(lp["moe"], cfg, h2, return_aux=True)
+        aux = aux + moe_aux["load_balance_loss"]
+        x = x + out
+    elif cfg.mlp_for != NONE:
+        h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
+        x = x + apply_mlp(lp["mlp"], cfg, h2)
+    return x, aux
+
+
+def _encode_train(params: Params, cfg: ModelConfig,
+                  frame_embeds: torch.Tensor) -> torch.Tensor:
+    """``encode`` through ``attention_core`` (the reference's encoder:
+    bidirectional attention with K = H and RoPE at ``[0, T)``, a GELU
+    MLP, a final norm) instead of the flash kernel."""
+    enc = params["encoder"]
+    enc_cfg = cfg.with_(num_kv_heads=cfg.num_heads)
+    x = frame_embeds.to(cfg.torch_dtype)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    for lp in enc["layers"]:
+        h = apply_norm(x, lp["norm1"], cfg.norm_type)
+        x = x + apply_attention_train(lp["attn"], enc_cfg, h,
+                                      positions=positions, mask_kind="bidir")
+        h2 = apply_norm(x, lp["norm2"], cfg.norm_type)
+        x = x + apply_encoder_mlp(lp["mlp"], h2)
+    return apply_norm(x, enc["norm"], cfg.norm_type)
+
+
+def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  embeds: Optional[torch.Tensor] = None,
+                  frame_embeds: Optional[torch.Tensor] = None,
+                  remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: the reference's ``forward(cache=None)``.
+
+    tokens (B, T) at positions ``[0, T)``, or ``[P, P + T)`` behind P
+    prefix ``embeds`` (B, P, D) under the prefix-LM mask; the config's
+    window applies.  Attention runs through ``attention_core``, or
+    ``attention_chunked`` past 2048 positions; a single adapter's LoRA
+    (leaves (D, r) / (r, O)) is the plain ``(x @ A) @ B``; REC/SSD layers
+    start from the zero state.  An encoder-decoder encodes
+    ``frame_embeds`` (B, S, D) and cross-attends to it in every decoder
+    layer.  No kernel is called: their outputs carry no gradient.
+    ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations.
+    Returns (logits (B, T, V) of the T token positions, aux: the sum of
+    the MoE layers' load-balance losses, float32)."""
+    T = tokens.shape[1]
+    x = _embed(params, tokens)
+    prefix_len = 0
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        prefix_len = embeds.shape[1]
+    B, Ttot = x.shape[:2]
+    positions = torch.arange(Ttot, device=x.device)[None].expand(B, Ttot)
+    enc_out = None
+    if cfg.encoder_layers and frame_embeds is not None:
+        enc_out = _encode_train(params, cfg, frame_embeds)
+    mask_kind = "prefix" if prefix_len else "causal"
+    use_chunked = Ttot > 2048
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, lp in zip(cfg.layer_kinds, params["layers"]):
+        layer = functools.partial(_train_layer, kind, lp, cfg,
+                                  positions=positions, mask_kind=mask_kind,
+                                  prefix_len=prefix_len,
+                                  use_chunked=use_chunked, enc_out=enc_out)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                layer, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = layer(x)
+        aux = aux + a
+    return _logits(params, cfg, x[:, -T:]), aux
 
 
 init_cache = cache_lib.init_cache

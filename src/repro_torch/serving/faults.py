@@ -18,8 +18,9 @@ the replay's virtual clock so every chaos scenario is a regression test:
 
 A plan never touches the device, and an **empty plan is a no-op**: every
 hook degenerates to a branch on an empty list, and the replay is
-token-bitwise identical to running without one.  Checkpoint artifacts
-are not ported yet, so only the adapter loader consults the plan.
+token-bitwise identical to running without one.  The adapter loader
+and ``checkpoint/store.py::load_checkpoint`` (through its ``fault_hook``)
+consult the plan.
 
 ``retry_with_backoff`` is the one retry primitive the artifact loaders
 share — bounded attempts, exponential backoff, injectable sleep so tests

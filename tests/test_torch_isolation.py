@@ -61,6 +61,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert f"imported {len(mods)}" in out.stdout
 
 
+def test_training_and_checkpoint_modules_are_walked():
+    mods = _modules()
+    for name in ("repro_torch.training.adamw", "repro_torch.training.train",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
+                 "repro_torch.launch.train"):
+        assert name in mods
+
+
 @pytest.mark.parametrize("path",
                          sorted(PKG.rglob("*.py")) + [SMOKE, VARIANTS],
                          ids=lambda p: str(p.relative_to(ROOT)))

@@ -14,9 +14,9 @@ own Philox), so the sampled preempt/resume case holds the port's resumed
 stream against the port's own uninterrupted one and its counters against
 the reference's.
 
-Checkpoint loading (``checkpoint/store.py``) is not ported yet (see
-ROADMAP.md), so the reference's checkpoint-retry case has no counterpart
-here.
+The reference's checkpoint-retry case runs against the port's
+``checkpoint/store.py`` in ``tests/test_torch_checkpoint.py``
+(``test_checkpoint_load_retries_through_fault_hook``).
 """
 import dataclasses
 
