@@ -27,7 +27,10 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    ring decode at the same three head shapes, SGMV at Mamba2-780M's
    and Nemotron-4-340B's sites, and Whisper-medium's 1500 encoder keys:
    flash not causal over 1500 x 1500 and 32 x 1500, ring decode over 1500
-   static slots),
+   static slots, and phase 17's: flash causal over one row of 32768
+   tokens, whose plain version runs by blocks of query rows, and ring
+   decode of two rows over 32768 slots), each bound from the wrapper
+   module's ``work()``, which the dry run's kernel FLOPs read too,
    with its median device time, the plain version's, a library yardstick
    where one PyTorch call computes the same function, the least time the
    card could take for the work (``bound_ms``) and the share of it the
@@ -173,10 +176,36 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    launched, one step at a small rate lowering its batch's loss, each
    step's host wall, one step profiled by op kind, peak memory and
    tokens/s beside the step's bound; the trained adapter saved and read
-   back bit for bit, loaded into an ``AdapterRegistry`` and served.
+   back bit for bit, loaded into an ``AdapterRegistry`` and served;
+17. the multi-device launch layer (``launch/{mesh,sharding,specs,
+   dryrun}.py``, ``launch/train.py --mesh``, the shard-local MoE).
+   17a, on the host in a child process beside 17b-d: the dry run over
+   the fake 16x16 and 2x16x16 worlds (meta tensors as DTensors):
+   Llama-2-7B x the four shapes, Mixtral-8x22B x the four shapes
+   (OPTIMIZED) and Nemotron-4-340B decode_32k on both meshes, and
+   Llama-2-7B's and Nemotron-4-340B's decode_32k under OPTIMIZED on
+   16x16; the
+   argument bytes must equal the reference's arithmetic (``DRYRUN_GB``),
+   and Llama-2-7B's per-device FLOPs of its train, prefill and decode
+   steps times the devices must be within ``DRYRUN_FLOPS_TOL`` of the
+   hand count ``dryrun.analytic_flops`` (no device repeating another's
+   work); every other run with a hand count prints its ratio.
+   17b: ``build_step``'s prefill and serve steps of Llama-2-7B at full
+   width and depth as DTensors on a one-rank NCCL mesh: one row of
+   32768 tokens (flash causal at 32768), then 8 decode steps of two rows
+   over a 32768-slot ring (the ring wrapped); logits within the bf16
+   tolerance of, and greedy tokens equal to, the same steps on plain
+   tensors; the args' ``memory_allocated`` against the dry run's
+   argument bytes at these shapes; host wall, device time by kind, peak
+   memory and each step's bound; flash and ring decode launched once a
+   layer a step.  17c: ``launch/train.py --mesh 1x1`` with phase 16's
+   arguments, 3 steps, each loss within 1e-3 of phase 16's.  17d:
+   ``_apply_moe_parallel`` at Mixtral-8x22B's width (one MoE layer, 4 x
+   512 tokens, both dispatches) against ``apply_moe``'s plain path,
+   timed.
 
-Phases 8-16 each run in a child process of the script (``isolated``; one
-child per model in phase 13).
+Phases 8-17 each run in a child process of the script (``isolated``; one
+child per model in phase 13; 17a and 17b-d in one each, side by side).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
 eager run of it (``serving/graphs.py``), whose launches count.  The last
@@ -195,12 +224,13 @@ import math
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -381,6 +411,45 @@ TRAIN_SMALL_LR = 1e-4
 SMOKE_TRAIN_LR = 1e-3
 TRAIN_GRAD_TOL = 1e-4
 
+# phase 17: the multi-device launch layer on one card.  17a: the dry run
+# on the host over the fake 16x16 and 2x16x16 worlds (in a child process
+# of its own, beside 17b-d); 17b: build_step's prefill and serve steps of
+# Llama-2-7B at full width and depth as DTensors on a one-rank NCCL mesh,
+# at a reduced batch; 17c: the training launcher with --mesh 1x1; 17d:
+# the shard-local MoE at Mixtral-8x22B's width.
+SHARDED = "llama2_7b"
+SHARDED_CONTEXT = 32768          # prefill_32k / decode_32k's sequence
+SHARDED_PREFILL_ROWS = 1         # of prefill_32k's 32
+SHARDED_DECODE_ROWS = 2          # of decode_32k's 128
+SHARDED_DECODE_STEPS = 8
+SHARDED_TRAIN_STEPS = 3
+SHARDED_LOSS_RTOL = 1e-3
+ALLOC_GRANULE = 512              # the caching allocator rounds each block
+MOE_PARALLEL_ROWS, MOE_PARALLEL_TOKENS = 4, 512
+# the dry runs executed, by mesh (multi_pod): (arch, shape, optimized).
+# --all is not run: it takes about 14 minutes of host time on one pod
+# (Mamba2-780M's prefill_32k alone 2 minutes), not the 120 s it would
+# have to fit.
+_DRYRUN_BOTH = [("llama2_7b", s, False) for s in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
+    + [("mixtral_8x22b", s, True) for s in
+       ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
+    + [("nemotron_4_340b", "decode_32k", False)]
+DRYRUN_RUNS = {False: _DRYRUN_BOTH + [("llama2_7b", "decode_32k", True),
+                                      ("nemotron_4_340b", "decode_32k", True)],
+               True: _DRYRUN_BOTH}
+# Llama-2-7B's FLOPs per device x devices over the hand count: at most
+# this above 1 (rank-16 LoRA products on partial sums whose rows do not
+# divide are the rest)
+DRYRUN_FLOPS_TOL = 0.03
+# per-device GB of weights and cache the reference's specs give its
+# eval_shape args (byte counts, not measurements): (params, cache)
+DRYRUN_GB = {("llama2_7b", "decode_32k", False, False): (0.087, 8.594),
+             ("llama2_7b", "decode_32k", False, True): (0.876, 8.594),
+             ("nemotron_4_340b", "decode_32k", False, False): (3.028, 9.676),
+             ("nemotron_4_340b", "decode_32k", False, True): (22.138,
+                                                              9.676)}
+
 KERNEL_SOURCES = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu",
              "src/repro/kernels/sgmv/sgmv.py:28"),
@@ -449,7 +518,7 @@ def device_phase() -> Dict:
     print(f"phase 1 ok ({time.perf_counter() - t0:.1f} s)")
     return {"kind": name, "count": torch.cuda.device_count(),
             "nvidia_smi": lines, "driver": drv.stdout.strip(),
-            "nvcc": release}
+            "nvcc": release, "torch": torch.__version__}
 
 
 # ---------------------------------------------------------------- 2. build
@@ -576,6 +645,12 @@ def bound(nbytes: float, ops: float, dtype: torch.dtype) -> Dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def bound_of(work) -> Dict:
+    """The bound of a kernel call from its wrapper module's ``work()``,
+    the count the dry run's kernel FLOPs read too."""
+    return bound(work.bytes, work.flops, work.dtype)
+
+
 def _randn(gen, *shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale
             ).to(dtype)
@@ -600,7 +675,7 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
     case for the kernel's per-tile passes; the prefills send token-major
     runs of a request's length), the last row out of range.  D x O is a
     LoRA site's width: Llama-2-7B's 4096 x 4096 by default."""
-    from repro_torch.kernels.sgmv.ops import sgmv_apply
+    from repro_torch.kernels.sgmv.ops import sgmv_apply, work
     from repro_torch.kernels.sgmv.ref import sgmv_ref
     r, N = 16, ADAPTERS
     x = _randn(gen, R, D, dtype=dtype)
@@ -608,8 +683,6 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
     b = _randn(gen, N, r, O, dtype=dtype, scale=0.02)
     idx = (torch.arange(R, device="cuda") // run % adapters).to(torch.int32)
     idx[-1] = N                            # out of range: an exact zero row
-    es = x.element_size()
-    valid = int((idx < N).sum())
     used = len(set(idx.tolist()) - {N})
     library, label = None, "none"
     if adapters == 1:
@@ -625,9 +698,7 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
         kernel=lambda: sgmv_apply(x, a, b, idx, scaling=2.0),
         plain=lambda: sgmv_ref(x, a, b, idx, scaling=2.0),
         library=library, library_label=label,
-        zero_rows=[R - 1],
-        **bound(es * (R * D + used * r * (D + O) + R * O) + 4 * R,
-                2 * valid * r * (D + O), dtype))
+        zero_rows=[R - 1], **bound_of(work(x, a, b, idx)))
 
 
 def decode_case(gen, dtype, K: int = 32, G: int = 1,
@@ -640,7 +711,8 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
     ``reclaimed``, each live row's table holds -1 for every block that
     slid wholly out of the window, as the runtime's window reclamation
     leaves it."""
-    from repro_torch.kernels.paged_attention.ops import paged_decode_gqa
+    from repro_torch.kernels.paged_attention.ops import (paged_decode_gqa,
+                                                         work)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     B = serve["num_slots"]
     NB, bs, MB = serve["num_blocks"], serve["block_size"], \
@@ -665,7 +737,6 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
     if window is not None:
         ok = ok & (t[None] > pos[:, None] - window)
     live = int(ok.sum())
-    es = q.element_size()
     # library yardstick: SDPA over K/V already gathered contiguous
     L = int(pos.max()) + 1
     nblk = -(-L // bs)
@@ -690,8 +761,7 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
                       "gathered contiguous"
                       + (", repeated per head" if G > 1 else ""),
         zero_rows=[B - 1],
-        **bound(es * (2 * live * K * hd + 2 * B * H * hd)
-                + 4 * (B * MB + B), 4 * hd * H * live, dtype))
+        **bound_of(work(q, kp, vp, tbl, pos, window=window)))
 
 
 def prefill_case(gen, dtype, K: int = 32, G: int = 1,
@@ -702,7 +772,7 @@ def prefill_case(gen, dtype, K: int = 32, G: int = 1,
     ``prefill_rows`` rows over its paged history, at Llama-2-7B head
     widths by default (``H = K * G`` query heads of ``hd``), each chunk
     starting at a block boundary in [``starts``]."""
-    from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa
+    from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa, work
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
     B, C = serve["prefill_rows"], serve["prefill_chunk"]
     NB, bs, MB = serve["num_blocks"], serve["block_size"], \
@@ -725,7 +795,6 @@ def prefill_case(gen, dtype, K: int = 32, G: int = 1,
         ok = ok & (t[None, None] > q_pos[:, :, None] - window)
         seen = seen & (t[None] > (start - window)[:, None])
     keys = int(seen.sum())
-    es = q.element_size()
     L = int(start.max()) + C
     nblk = -(-L // bs)
     phys = tbl[:, :nblk].clamp(min=0).long()
@@ -748,8 +817,33 @@ def prefill_case(gen, dtype, K: int = 32, G: int = 1,
                       "gathered contiguous"
                       + (", repeated per head" if G > 1 else ""),
         zero_rows=[],
-        **bound(es * (2 * keys * K * hd + 2 * B * C * H * hd)
-                + 4 * (B * MB + B * C), 4 * hd * H * int(ok.sum()), dtype))
+        **bound_of(work(q, kp, vp, tbl, q_pos, window=window)))
+
+
+def flash_plain_by_rows(q, k, v, rows: int = 1024) -> torch.Tensor:
+    """The plain version of causal flash attention (``flash_ref``'s
+    arithmetic: float32 scores, ``masked_attention``) over ``rows`` query
+    positions at a time, each block against the keys up to its last
+    query: at 32768 tokens the whole score matrix would take 137 GB.
+    q: (B, T, H, hd); k, v: (B, T, K, hd).  Returns (B, T, H, hd)."""
+    from repro_torch.kernels.paged_attention.ref import masked_attention
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    out = torch.empty_like(q)
+    kf = k.transpose(1, 2).float()                           # (B, K, T, hd)
+    vf = v.transpose(1, 2).float()[:, :, None]
+    for i0 in range(0, T, rows):
+        i1 = min(T, i0 + rows)
+        qg = q[:, i0:i1].transpose(1, 2).reshape(B, K, G, i1 - i0, hd)
+        s = torch.einsum("bkgqh,bksh->bkgqs", qg.float(),
+                         kf[:, :, :i1]) / math.sqrt(hd)
+        qp = torch.arange(i0, i1, device=q.device)[:, None]
+        kp = torch.arange(i1, device=q.device)[None, :]
+        o = masked_attention(s, kp <= qp, vf[:, :, :, :i1])
+        out[:, i0:i1] = o.reshape(B, H, i1 - i0, hd).transpose(1, 2).to(
+            q.dtype)
+    return out
 
 
 def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
@@ -760,21 +854,15 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
     their own keys, at Llama-2-7B head widths by default; the first
     ``prefix`` keys are visible to every query (a VLM's image prefix).
     Without ``causal``, T queries over ``Tk`` keys (T by default), every
-    key visible: Whisper's encoder and cross-attention prefill."""
-    from repro_torch.kernels.flash_attention.ops import flash_mha
+    key visible: Whisper's encoder and cross-attention prefill.  Past
+    4096 causal tokens the plain version runs by blocks of query rows
+    (``flash_plain_by_rows``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha, work
     from repro_torch.kernels.flash_attention.ref import flash_ref
     H, Tk = K * G, T if Tk is None else Tk
     q = _randn(gen, B, T, H, hd, dtype=dtype)
     k = _randn(gen, B, Tk, K, hd, dtype=dtype)
     v = _randn(gen, B, Tk, K, hd, dtype=dtype)
-    i = torch.arange(T, device="cuda")[:, None]
-    j = torch.arange(Tk, device="cuda")[None, :]
-    ok = (j <= i) | (j < prefix) if causal else \
-        torch.ones((T, Tk), dtype=torch.bool, device="cuda")
-    if window is not None:
-        ok = ok & (j > i - window)
-    pairs = int(ok.sum())
-    es = q.element_size()
     # library yardstick: SDPA over (B, H, T, hd) copies, K/V repeated to H
     # heads for GQA (the copies are not timed)
     q4 = q.transpose(1, 2).contiguous()
@@ -784,8 +872,21 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
         library = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4, is_causal=causal)
     else:
+        i = torch.arange(T, device="cuda")[:, None]
+        j = torch.arange(Tk, device="cuda")[None, :]
+        ok = (j <= i) | (j < prefix) if causal else \
+            torch.ones((T, Tk), dtype=torch.bool, device="cuda")
+        if window is not None:
+            ok = ok & (j > i - window)
         library = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4, attn_mask=ok)
+    if causal and window is None and not prefix and T > 4096:
+        plain = lambda: flash_plain_by_rows(q, k, v)          # noqa: E731
+    else:
+        plain = lambda: flash_ref(                            # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window,
+            prefix_len=prefix).transpose(1, 2)
     return dict(
         shape=f"B={B} T={T}" + (f" Tk={Tk}" if Tk != T else "")
               + f" H={H} K={K} hd={hd} "
@@ -793,17 +894,14 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
               + f" window={window} prefix={prefix}",
         kernel=lambda: flash_mha(q, k, v, causal=causal, window=window,
                                  prefix_len=prefix),
-        plain=lambda: flash_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                window=window,
-                                prefix_len=prefix).transpose(1, 2),
+        plain=plain,
         library=library,
         library_label="scaled_dot_product_attention over (B, H, T, hd) "
                       "copies" + (", K/V repeated per head" if G > 1
                                   else ""),
         zero_rows=[],
-        **bound(es * (2 * B * T * H * hd + 2 * B * Tk * K * hd),
-                4 * hd * H * B * pairs, dtype))
+        **bound_of(work(q, k, v, causal=causal, window=window,
+                        prefix_len=prefix)))
 
 
 def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
@@ -813,7 +911,7 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
     has seen positions 0..pos (slot = position % S; wrapped when pos >=
     S), at Llama-2-7B head widths by default.  Without ``sdpa_mask`` the
     library yardstick takes no mask (every slot valid: a cross cache)."""
-    from repro_torch.kernels.decode_attention.ops import decode_gqa
+    from repro_torch.kernels.decode_attention.ops import decode_gqa, work
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_ref
     H = K * G
@@ -828,7 +926,6 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
     if window is not None:
         ok = ok & (slot_pos > pos - window)
     valid = int(ok.sum())
-    es = q.element_size()
     # library yardstick: SDPA over K/V already in (B, H, S, hd) and a
     # boolean slot mask (the transposes are not timed)
     q4 = q[:, :, None, :].contiguous()
@@ -847,8 +944,7 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
                       "transposed to (B, H, S, hd)"
                       + ("" if sdpa_mask else ", no mask"),
         zero_rows=[],
-        **bound(es * (2 * B * valid * K * hd + 2 * B * H * hd) + 4 * S,
-                4 * hd * H * B * valid, dtype))
+        **bound_of(work(q, k, v, slot_pos, pos, window=window)))
 
 
 def kernels_phase() -> Dict[str, Dict]:
@@ -1068,6 +1164,15 @@ def kernels_phase() -> Dict[str, Dict]:
             ("decode_attention", dtype, lambda d=dtype: ring_decode_case(
                 gen, d, WHISPER_ROWS, wS, wK, 1, wS - 1, hd=whd,
                 sdpa_mask=False))]
+    # phase 17's shapes: Llama-2-7B's sharded steps, flash causal over one
+    # row of 32768 tokens (prefill_32k at one row) and ring decode of two
+    # rows over 32768 slots (decode_32k at two rows, the ring wrapped)
+    makers += [
+        ("flash_attention", bf, lambda: flash_case(
+            gen, bf, SHARDED_PREFILL_ROWS, SHARDED_CONTEXT, 32, 1)),
+        ("decode_attention", bf, lambda: ring_decode_case(
+            gen, bf, SHARDED_DECODE_ROWS, SHARDED_CONTEXT, 32, 1,
+            SHARDED_CONTEXT + SHARDED_DECODE_STEPS - 1))]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for i, (name, dtype, make) in enumerate(makers):
@@ -4555,11 +4660,429 @@ def train_phase(device: Dict) -> Dict:
     return out
 
 
+# ------------------------------------------ 17. the multi-device launch layer
+def dryrun_phase(device: Dict) -> Dict:
+    """Phase 17a (see the module docstring): host only, no card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.sharding import BASELINE, OPTIMIZED
+    t0 = phase("phase 17a: the dry run on the host over the fake 16x16 and "
+               "2x16x16 worlds (meta tensors as DTensors)")
+    reports = []
+    for multi in (False, True):
+        with fake_world(512 if multi else 256):
+            for arch, shape, opt in DRYRUN_RUNS[multi]:
+                r = dryrun.run_one(arch, shape, multi_pod=multi,
+                                   opts=OPTIMIZED if opt else BASELINE,
+                                   tag="-opt" if opt else "", save=False,
+                                   world=False)
+                print(dryrun.summary_line(r), flush=True)
+                by = r["memory"]["argument_bytes_by_kind"]
+                want = DRYRUN_GB.get((arch, shape, multi, opt))
+                if want is not None:
+                    got = (round(by["params"] / 1e9, 3),
+                           round(by["cache"] / 1e9, 3))
+                    print(f"  {arch} {shape} {r['mesh']}: weights + cache "
+                          f"{got[0]} + {got[1]} GB a device; the "
+                          f"reference's specs give {want[0]} + {want[1]}")
+                    if got != want:
+                        fail(f"dry run {arch} {shape}: argument bytes "
+                             f"{got} GB, the reference's arithmetic {want}")
+                if not r["cost"]["flops"] > 0 or not r["collectives"]:
+                    fail(f"dry run {arch} {shape}: no FLOPs or no "
+                         f"collectives counted")
+                ratio = r["cost"]["flops_over_analytic"]
+                if ratio is not None:
+                    print(f"  {arch} {shape} {r['mesh']}: "
+                          f"{r['cost']['flops']} FLOPs a device x "
+                          f"{r['n_devices']} = {ratio!r} x the hand count "
+                          f"{r['cost']['flops_analytic'] * r['n_devices']}")
+                    if arch == "llama2_7b" and not (
+                            1 - 1e-9 <= ratio <= 1 + DRYRUN_FLOPS_TOL):
+                        fail(f"dry run {arch} {shape} {r['mesh']}: FLOPs "
+                             f"{ratio} x the hand count (a device repeats "
+                             f"work)")
+                reports.append(r)
+    print(f"phase 17a ok: {len(reports)} dry runs executed "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"reports": reports, "phase_s": time.perf_counter() - t0}
+
+
+def _check_arg_memory(label: str, before: int, step, cfg, kinds,
+                      mesh) -> Dict:
+    """The card's allocated bytes for a step's args (``memory_allocated``
+    since ``before``) against the dry run's per-device argument bytes of
+    the same args, on the kinds ``kinds``: each allocation is rounded up
+    to the allocator's 512-byte blocks, so the card holds between the
+    bytes and that plus 512 a tensor."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sharding import BASELINE
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - before
+    specs = dryrun.arg_specs(step, mesh, cfg, BASELINE)
+    by = dryrun.argument_bytes(step, specs, mesh)
+    want = sum(by[k] for k in kinds)
+    parts = dryrun._categories(step)
+    n = sum(1 for k in kinds for t in _leaves(parts[k])
+            if isinstance(t, torch.Tensor))
+    print(f"{label}: the args ({'+'.join(kinds)}) take {got} B on the card "
+          f"(memory_allocated), the dry run's argument bytes {want} B "
+          f"({n} tensors, at most {ALLOC_GRANULE} B of rounding each)")
+    if not want <= got < want + ALLOC_GRANULE * n:
+        fail(f"{label}: {got} B allocated for {want} B of arguments")
+    return {"allocated": got, "argument_bytes": want, "tensors": n,
+            "by_kind": by}
+
+
+def sharded_bounds(cfg, params, rows: int, tokens: int, context: int,
+                   decode: bool) -> Dict:
+    """Least time of a prefill of ``rows`` x ``tokens`` (or of one decode
+    step of ``rows`` over ``context`` slots): every weight read once, the
+    K/V written (read), the products' and the attention kernels'
+    operations (their ``work()``), at the card's rates."""
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.kernels.decode_attention.ops import work as dwork
+    from repro_torch.kernels.flash_attention.ops import work as fwork
+    dt, L = cfg.torch_dtype, cfg.num_layers
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    leaves = tree_leaves(params)
+    w_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    matmul = sum(x.numel() for x in leaves if x.dim() == 2) \
+        - params["embed"].numel()
+    meta = dict(dtype=dt, device="meta")
+    if decode:
+        q = torch.empty((rows, H, hd), **meta)
+        kv = torch.empty((rows, context, K, hd), **meta)
+        att = dwork(q, kv, kv, torch.empty((context,), dtype=torch.int32,
+                                           device="meta"),
+                    torch.empty((), dtype=torch.int32, device="meta"))
+        n_tok, kv_bytes = rows, 0
+    else:
+        q = torch.empty((rows, tokens, H, hd), **meta)
+        kv = torch.empty((rows, tokens, K, hd), **meta)
+        att = fwork(q, kv, kv)
+        n_tok = rows * tokens
+        kv_bytes = 2 * rows * tokens * K * hd * kv.element_size() * L
+    ops = 2 * matmul * n_tok + L * att.flops
+    nbytes = w_bytes + kv_bytes + L * att.bytes
+    return bound(nbytes, ops, dt)
+
+
+def _device_line(label: str, prof: Dict) -> str:
+    kinds = prof.get("device_ms_by_kind") or {}
+    return (f"{label}: device busy {prof.get('device_busy_ms')} ms, by kind "
+            + ", ".join(f"{k} {v:.2f}" for k, v in kinds.items())
+            + f" (the profiler dropped {prof.get('markers_lost')} of "
+            f"{2 * MARKERS} markers)")
+
+
+def sharded_steps(device: Dict, mesh) -> Dict:
+    """Phase 17b: build_step's prefill and serve steps of Llama-2-7B at
+    full width and depth, assembled from ``launch/specs.py``'s pieces and
+    run as DTensors on the one-rank mesh (``dryrun.distributed_args`` over
+    the very tensors), at a reduced batch: each against the same step on
+    plain tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import PARTITION
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.sharding import BASELINE
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import transformer as tf
+    cfg = get_config(SHARDED)
+    T, B1, B2 = SHARDED_CONTEXT, SHARDED_PREFILL_ROWS, SHARDED_DECODE_ROWS
+    tol = TOL[cfg.torch_dtype]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = tf.init_params(cfg, gen, "cuda", lora_adapters=None)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B1, T),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    cache = specs.abstract_cache(cfg, B1, T, device="cuda")
+    pre = specs.StepSpec("prefill_step", specs.prefill_fn(cfg),
+                         (params, batch, cache))
+    mem_pre = _check_arg_memory(
+        f"prefill_step args, {B1} x {T} tokens", base, pre, cfg,
+        ("params", "batch", "cache"), mesh)
+    pre_specs = dryrun.arg_specs(pre, mesh, cfg, BASELINE)
+    # the kernels at these shapes: offsets are size_t / long long in the
+    # sources; flash's grid (B K, T G / 64), ring decode's (B K, S / 64)
+    print(f"index arithmetic: flash grid ({B1 * cfg.num_kv_heads}, "
+          f"{-(-T * cfg.num_heads // cfg.num_kv_heads // 64)}), ring decode "
+          f"grid ({B2 * cfg.num_kv_heads}, {-(-T // PARTITION)}) with "
+          f"{-(-T // PARTITION)} partitions of {PARTITION} slots; largest "
+          f"cache element offset {B2 * T * cfg.num_kv_heads * cfg.head_dim_}"
+          f" (64-bit offsets in csrc/flash_attn.cu, decode_attn.cu)")
+
+    def prefill_plain():
+        return pre.fn(params, batch, cache)[0]
+
+    def prefill_dt():
+        # DTensors over the very tensors; the ring dicts (and their host
+        # counters) are the call's own
+        args = dryrun.distributed_args(pre, pre_specs, mesh)
+        with implicit_replication():
+            return pre.fn(*args)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = prefill_plain()
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    cache_lib.reset_ring(cache)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = prefill_dt()
+    torch.cuda.synchronize()
+    wall_dt = time.perf_counter() - t0
+    launches_pre = kernels.launch_counts()
+    peak_pre = torch.cuda.max_memory_allocated()
+    got = got.full_tensor()
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    tok_plain = want.argmax(-1)
+    if not torch.equal(got.argmax(-1), tok_plain) or err > tol * scale:
+        fail(f"sharded prefill: logits differ by {err:.3e} (tolerance "
+             f"{tol * scale:.3e}) or the greedy tokens differ")
+    cache_lib.reset_ring(cache)
+    prof_pre = profiled(prefill_dt)
+    b_pre = sharded_bounds(cfg, params, B1, T, T, decode=False)
+    print(f"sharded prefill ({B1} x {T}): host wall {wall_dt * 1e3:.1f} ms "
+          f"as DTensors, {wall_plain * 1e3:.1f} ms on plain tensors; logits "
+          f"max |diff| {err:.3e} (tolerance {tol * scale:.3e}), greedy "
+          f"tokens equal; launches {launches_pre}; peak device memory "
+          f"{peak_pre / 1e9:.2f} GB; bound {b_pre['bound_ms']:.1f} ms "
+          f"({b_pre['bound_by']})")
+    print(_device_line("sharded prefill under the profiler", prof_pre))
+
+    # decode: the prefilled ring copied into each of B2 rows, the ring
+    # wrapped from position T on
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ring = specs.abstract_cache(cfg, B2, T, device="cuda")
+    token = torch.empty((B2,), dtype=torch.int32, device="cuda")
+    pos = torch.empty((), dtype=torch.int32, device="cuda")
+    srv = specs.StepSpec("serve_step", specs.serve_fn(cfg),
+                         (params, token, ring, pos))
+    mem_dec = _check_arg_memory(
+        f"serve_step args, {B2} rows over {T} slots", base, srv, cfg,
+        ("batch", "cache"), mesh)
+    srv_specs = dryrun.arg_specs(srv, mesh, cfg, BASELINE)
+    first = torch.stack([tok_plain[0], torch.randint(
+        0, cfg.vocab_size, (), generator=gen, device="cuda")]).to(torch.int32)
+
+    def refill():
+        for src, dst in zip(cache, ring):
+            for name in ("k", "v"):
+                dst[name].copy_(src[name].expand_as(dst[name]))
+            dst["slot_pos"].copy_(src["slot_pos"])
+            dst["idx"] = T
+        token.copy_(first)
+
+    def decode(dt: bool) -> Tuple[List[torch.Tensor], List[float]]:
+        refill()
+        args = dryrun.distributed_args(srv, srv_specs, mesh) if dt else \
+            srv.args
+        logits, walls = [], []
+        for s in range(SHARDED_DECODE_STEPS):
+            pos.fill_(T + s)
+            t0 = time.perf_counter()
+            if dt:
+                with implicit_replication():
+                    out = srv.fn(*args)[0].full_tensor()
+            else:
+                out = srv.fn(*args)[0]
+            token.copy_(out.argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            logits.append(out)
+        return logits, walls
+
+    plain_logits, plain_walls = decode(False)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    dt_logits, dt_walls = decode(True)
+    launches_dec = kernels.launch_counts()
+    peak_dec = torch.cuda.max_memory_allocated()
+    errs = []
+    for s, (a, b) in enumerate(zip(dt_logits, plain_logits)):
+        e = float((a.float() - b.float()).abs().max())
+        sc = max(1.0, float(b.float().abs().max()))
+        errs.append(e)
+        if not torch.equal(a.argmax(-1), b.argmax(-1)) or e > tol * sc:
+            fail(f"sharded decode step {s}: logits differ by {e:.3e} or the "
+                 f"greedy tokens differ")
+    args = dryrun.distributed_args(srv, srv_specs, mesh)
+
+    def one_step():
+        with implicit_replication():
+            srv.fn(*args)
+
+    pos.fill_(T + SHARDED_DECODE_STEPS)
+    prof_dec = profiled(one_step)
+    b_dec = sharded_bounds(cfg, params, B2, 1, T, decode=True)
+    wall = statistics.median(dt_walls[1:])
+    print(f"sharded decode ({B2} rows over {T} slots, {SHARDED_DECODE_STEPS}"
+          f" steps): tokens equal to the plain steps', logits max |diff| "
+          f"{max(errs):.3e}; host wall a step {wall * 1e3:.2f} ms as "
+          f"DTensors (median of steps 1-{SHARDED_DECODE_STEPS - 1}), "
+          f"{statistics.median(plain_walls[1:]) * 1e3:.2f} ms plain; "
+          f"launches {launches_dec}; peak device memory "
+          f"{peak_dec / 1e9:.2f} GB; bound {b_dec['bound_ms']:.2f} ms "
+          f"({b_dec['bound_by']})")
+    print(_device_line("sharded decode step under the profiler", prof_dec))
+    expected = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * SHARDED_DECODE_STEPS}
+    got_l = {"flash_attention": launches_pre["flash_attention"],
+             "decode_attention": launches_dec["decode_attention"]}
+    print(f"phase 17 launches: {got_l}, expected {expected} (SGMV, paged: "
+          f"0 — the one-adapter layout and ring caches)")
+    if got_l != expected:
+        fail(f"sharded steps launched {got_l}, expected {expected}")
+    del args, ring, cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill": {"host_wall_ms": wall_dt * 1e3,
+                        "plain_host_wall_ms": wall_plain * 1e3,
+                        "max_abs_diff": err, "peak_bytes": peak_pre,
+                        "bound": b_pre, "profile": prof_pre,
+                        "memory": mem_pre},
+            "decode": {"host_wall_ms": [w * 1e3 for w in dt_walls],
+                       "plain_host_wall_ms": [w * 1e3 for w in plain_walls],
+                       "max_abs_diff": errs, "peak_bytes": peak_dec,
+                       "bound": b_dec, "profile": prof_dec,
+                       "memory": mem_dec},
+            "launches": got_l}
+
+
+def sharded_train(losses16: List[float]) -> Dict:
+    """Phase 17c: the training launcher with ``--mesh 1x1`` (phase 16's
+    arguments: same seed, schedule and batches) for SHARDED_TRAIN_STEPS
+    steps; each loss within SHARDED_LOSS_RTOL of phase 16's."""
+    from repro_torch.launch import train as launch_train
+    args = launch_train.build_parser().parse_args(TRAIN_ARGS
+                                                  + ["--mesh", "1x1"])
+    t0 = time.perf_counter()
+    run = launch_train.setup(args)
+    launch_train.train(run, SHARDED_TRAIN_STEPS)
+    rel = [abs(a - b) / abs(b) for a, b in zip(run.losses, losses16)]
+    print(f"train --mesh 1x1: losses {[round(x, 6) for x in run.losses]}, "
+          f"phase 16's {[round(x, 6) for x in losses16]}: relative "
+          f"differences {[f'{x:.2e}' for x in rel]} (tolerance "
+          f"{SHARDED_LOSS_RTOL}); step host wall "
+          f"{[round(x * 1e3, 1) for x in run.step_s]} ms "
+          f"({time.perf_counter() - t0:.1f} s with setup)")
+    if len(rel) != SHARDED_TRAIN_STEPS or max(rel) > SHARDED_LOSS_RTOL:
+        fail(f"train --mesh 1x1 losses {run.losses} against {losses16}")
+    out = {"losses": run.losses, "phase16_losses": losses16, "rel": rel,
+           "step_s": run.step_s}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_parallel_case(mesh, flush: torch.Tensor) -> Dict:
+    """Phase 17d: ``_apply_moe_parallel`` on the one-rank mesh at
+    Mixtral-8x22B's width (one MoE layer, MOE_PARALLEL_ROWS x
+    MOE_PARALLEL_TOKENS tokens) against ``apply_moe``'s plain path, both
+    dispatches, timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MIXTRAL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    p = moe.moe_init(gen, cfg, cfg.torch_dtype, "cuda")
+    x = _randn(gen, MOE_PARALLEL_ROWS, MOE_PARALLEL_TOKENS, cfg.d_model,
+               dtype=cfg.torch_dtype)
+    out = {}
+    for dispatch in ("ragged", "capacity"):
+        moe.set_dispatch(dispatch)
+        moe.set_parallel_mesh(None)
+        want = moe.apply_moe(p, cfg, x)
+        moe.set_parallel_mesh(mesh)
+        got, aux = moe._apply_moe_parallel(p, cfg, x)
+        got = got.full_tensor()
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        tol = TOL[cfg.torch_dtype] * scale
+        ms = device_ms(lambda: moe._apply_moe_parallel(p, cfg, x), 5, flush)
+        moe.set_parallel_mesh(None)
+        plain_ms = device_ms(lambda: moe.apply_moe(p, cfg, x), 5, flush)
+        drop = float(aux["drop_fraction"].full_tensor()) \
+            if "drop_fraction" in aux else None
+        print(f"_apply_moe_parallel ({dispatch}, {MOE_PARALLEL_ROWS} x "
+              f"{MOE_PARALLEL_TOKENS} tokens, D {cfg.d_model}, F {cfg.d_ff}"
+              f", E {cfg.num_experts}): max |diff| to apply_moe {err:.3e} "
+              f"(tolerance {tol:.3e}), {ms:.2f} ms against the plain path's "
+              f"{plain_ms:.2f} ms" + (f", drop_fraction {drop:.4f}"
+                                      if drop is not None else ""))
+        if err > tol:
+            fail(f"_apply_moe_parallel {dispatch}: {err:.3e} > {tol:.3e}")
+        out[dispatch] = {"max_abs_diff": err, "ms": ms, "plain_ms": plain_ms,
+                         "drop_fraction": drop}
+    moe.set_dispatch("ragged")
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(device: Dict) -> Dict:
+    """Phase 17b-d (see the module docstring): one NCCL world of one rank
+    on a free localhost port, destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    t0 = phase("phase 17: Llama-2-7B's sharded steps at 32768 tokens, the "
+               "launcher's --mesh 1x1 and the shard-local MoE on one card")
+    init_world("nccl")
+    try:
+        mesh = make_debug_mesh(1, 1)
+        steps = sharded_steps(device, mesh)
+        train_rep = sharded_train(device["phase16_losses"])
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                            device="cuda")
+        moe_rep = moe_parallel_case(mesh, flush)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 17 ok ({time.perf_counter() - t0:.1f} s), {_smi(device)}")
+    return {"steps": steps, "train": train_rep, "moe": moe_rep,
+            "phase_s": time.perf_counter() - t0}
+
+
+def start_isolated(phase_id: str, device: Dict) -> Callable[[], Dict]:
+    """``isolated``, started in the background: returns a function that
+    waits for the child, prints what it printed, and returns its report
+    (a host-only phase runs beside the card's phases this way)."""
+    tmp = tempfile.mkdtemp()
+    report = Path(tmp) / "phase.json"
+    child = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--child-phase",
+         phase_id, "--child-report", str(report), "--child-device",
+         json.dumps(device)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def wait() -> Dict:
+        out, _ = child.communicate(timeout=900)
+        print(out, end="")
+        if child.returncode:
+            fail(f"phase {phase_id} failed in its child process (exit "
+                 f"{child.returncode})")
+        data = json.loads(report.read_text())
+        shutil.rmtree(tmp, ignore_errors=True)
+        return data
+
+    return wait
+
+
 # phases run in a child process each (see ``isolated``)
 ISOLATED = {"8": mixtral_phase, "9": recurrentgemma_phase,
             "10": mamba_phase, "11": nemotron_phase,
             "12": paligemma_phase, "14": cold_phase,
             "15": whisper_phase, "16": train_phase,
+            "17": sharded_phase, "17a": dryrun_phase,
             **{f"13-{arch}": functools.partial(zoo_launch_phase, arch)
                for arch in ZOO_LAUNCH}}
 
@@ -4621,6 +5144,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     cold = isolated("14", device)
     whisper = isolated("15", device)
     training = isolated("16", device)
+    # 17a on the host beside 17b-d on the card
+    dry = start_isolated("17a", device)
+    sharded = isolated("17", dict(
+        device, phase16_losses=training["losses"][:SHARDED_TRAIN_STEPS]))
+    dryrun_rep = dry()
     built = "fresh" if build["fresh"] else "cached"
     print(f"kernel_compile with no built library: phase 2's nvcc build "
           f"{build['seconds']:.1f} s ({built}) + "
@@ -4648,7 +5176,8 @@ def main(argv: Optional[List[str]] = None) -> int:
              "recurrentgemma": rgemma, "mamba2": mamba,
              "nemotron": nemotron, "paligemma": paligemma,
              "launcher_zoo": zoo, "cold_start": cold, "whisper": whisper,
-             "training": training,
+             "training": training, "sharded": sharded,
+             "dryrun": dryrun_rep,
              "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

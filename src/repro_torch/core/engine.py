@@ -80,6 +80,67 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
+# ------------------------------------------------------- slot-wise cache ops
+def make_insert_fn(cfg: ModelConfig, block_size: int):
+    """Slot-wise cache *insert*: copy a prefilled ring cache (``init_cache``
+    layout, rows of S = nb x bs slots) into pool blocks, in place.
+    ``block_ids``: (G, nb) physical block ids per row; an id equal to the
+    garbage block (0) sends that slab to block 0, which the decode mask
+    never reads (right-padding past a row's prompt, prefix-shared blocks
+    already written).  The legacy bucket-and-scatter oracle that the
+    chunked paged prefill is held against; the serving path never calls
+    it.  Returns (pool_cache, prefill_cache, block_ids) -> pool_cache,
+    the pools written in place.  Layers without pools (REC/SSD state rows)
+    are left alone.  Slabs are written row by row, block by block, so
+    where ids repeat (the garbage block) the last write lands, as the
+    reference's scatter on the CPU leaves it."""
+
+    def insert(pool_cache, prefill_cache, block_ids: torch.Tensor):
+        ids = block_ids.long()
+        G, nb = ids.shape
+        for pool_l, pre_l in zip(pool_cache, prefill_cache):
+            if "kp" not in pool_l:
+                continue
+            for src, dst in (("k", "kp"), ("v", "vp")):
+                x = pre_l[src]                            # (G, S, K, hd)
+                K, hd = x.shape[2], x.shape[3]
+                # (G, nb, bs, K, hd) -> heads-major (K, G, nb, bs, hd)
+                xr = x.reshape(G, nb, block_size, K, hd).permute(3, 0, 1, 2,
+                                                                 4)
+                pool = pool_l[dst]
+                for g in range(G):
+                    for j in range(nb):
+                        pool[:, ids[g, j]] = xr[:, g, j].to(pool.dtype)
+        return pool_cache
+
+    return insert
+
+
+def make_extract_fn(cfg: ModelConfig, block_size: int):
+    """Slot-wise cache *extract*, the inverse of insert (for tests and
+    migration): one slot's blocks gathered back into contiguous K/V.
+    (pool_cache, block_ids (nb,)) -> one entry per layer: {"k", "v":
+    (nb x bs, K, hd)} copies for a pooled layer, None for the others."""
+
+    def extract(pool_cache, block_ids: torch.Tensor):
+        ids = block_ids.long()
+        nb = ids.shape[0]
+        out: List[Optional[Dict[str, torch.Tensor]]] = []
+        for pool_l in pool_cache:
+            if "kp" not in pool_l:
+                out.append(None)
+                continue
+            ent = {}
+            for src, name in (("kp", "k"), ("vp", "v")):
+                t = pool_l[src][:, ids]                 # (K, nb, bs, hd)
+                ent[name] = t.permute(1, 2, 0, 3).reshape(
+                    nb * block_size, t.shape[0], t.shape[3]).contiguous()
+            out.append(ent)
+        return out
+
+    return extract
+
+
 # --------------------------------------------------- slot-wise state ops
 # REC/SSD layers keep their serving state in dense per-slot rows
 # (models.cache.slot_state_spec).  The runtime never dispatches these: a

@@ -15,6 +15,7 @@ would report it).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -131,17 +132,54 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True if every tensor is on a CUDA device, False if every one is on
-    the CPU (the plain version's domain); raises on anything else — a
-    CUDA tensor goes to the kernel or nowhere."""
+def device_kind(*tensors: torch.Tensor) -> str:
+    """"cuda" if every tensor is on a CUDA device, "cpu" if every one is
+    on the CPU (the plain version's domain), "meta" if every one is on the
+    meta device (the dry run: an output of the kernel's shape, nothing
+    computed); raises on any mix — a CUDA tensor goes to the kernel or
+    nowhere."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
-        return True
-    if kinds == {"cpu"}:
-        return False
+    if len(kinds) == 1 and kinds <= {"cuda", "cpu", "meta"}:
+        return kinds.pop()
     raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
-                     f"all-CUDA inputs, the plain versions all-CPU inputs")
+                     f"all-CUDA inputs, the plain versions all-CPU inputs, "
+                     f"the dry run all-meta inputs")
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """What one kernel call must do: the operations it performs on these
+    inputs and the bytes it must move (each input read once, each output
+    written once), in ``dtype``.  ``chip_smoke.py``'s bounds and the dry
+    run's per-device counts both read it."""
+    flops: float
+    bytes: float
+    dtype: torch.dtype
+
+
+_WORK_SINKS: List[List] = []
+
+
+@contextlib.contextmanager
+def record_work():
+    """Collect (kernel name, ``Work``) of every meta call of a kernel
+    wrapper made inside the block: the dry run's kernel FLOPs and bytes,
+    which no aten op shows (the meta branch computes nothing)."""
+    sink: List = []
+    _WORK_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _WORK_SINKS.remove(sink)
+
+
+def meta_call(name: str, work: Work, out: torch.Tensor) -> torch.Tensor:
+    """A wrapper's meta branch: record the kernel's work, return its
+    output shape without computing (the plain version's arithmetic, full
+    score matrices under a mask, is not the kernel's work)."""
+    for sink in _WORK_SINKS:
+        sink.append((name, work))
+    return out
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:

@@ -15,7 +15,10 @@ int32 tensor on the card; neither is read back to the host.
 A kv head with more than 8 query heads (up to ``MAX_GROUP``) is served
 by groups of 8 heads, each group in CTAs of its own.
 
-``decode_gqa.launches`` counts calls that launched the kernel.
+``decode_gqa.launches`` counts calls that launched the kernel; ``work``
+gives the FLOPs and bytes its bound counts.  On meta tensors (the dry
+run) the wrapper returns an output of the kernel's shape and computes
+nothing.
 """
 from __future__ import annotations
 
@@ -49,8 +52,13 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(slot_pos.shape)}, pos {pos!r}, window "
                          f"{window}")
     extra = () if pos_t is None else (pos_t,)
-    if not cuda_lib.on_cuda(q, k, v, slot_pos, *extra):
+    kind = cuda_lib.device_kind(q, k, v, slot_pos, *extra)
+    if kind == "cpu":
         return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
+    if kind == "meta":
+        return cuda_lib.meta_call(
+            "decode_attention", work(q, k, v, slot_pos, pos, window=window),
+            torch.empty_like(q))
     cuda_lib.refuse_autograd("ring decode", q, k, v)
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_int32(slot_pos, *extra)
@@ -79,3 +87,30 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_gqa.launches = 0
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         slot_pos: torch.Tensor, pos: Union[int, torch.Tensor], *,
+         window: Optional[int] = None) -> cuda_lib.Work:
+    """Bytes: q and the output, K and V of each valid slot once, slot_pos;
+    operations: 4 hd per valid slot and query head.  A slot is valid when
+    its position is in [0, pos] (and inside the window).  On the meta
+    device the slots' positions are unknown: a full ring, every slot
+    valid (bounded by ``pos + 1`` when pos is an int, and the window)."""
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if slot_pos.device.type == "meta" or (
+            isinstance(pos, torch.Tensor) and pos.device.type == "meta"):
+        valid = S if isinstance(pos, torch.Tensor) else min(S, int(pos) + 1)
+        if window is not None:
+            valid = min(valid, window)
+    else:
+        p = int(pos)
+        ok = (slot_pos >= 0) & (slot_pos <= p)
+        if window is not None:
+            ok = ok & (slot_pos > p - window)
+        valid = int(ok.sum())
+    es = q.element_size()
+    return cuda_lib.Work(flops=4 * hd * H * B * valid,
+                         bytes=es * (2 * B * valid * K * hd + 2 * B * H * hd)
+                         + 4 * S, dtype=q.dtype)

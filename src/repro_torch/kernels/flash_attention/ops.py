@@ -12,12 +12,16 @@ padded keys unmasked when ``causal=False``).  ``prefix_len`` is the
 reference model's prefix-LM rule (``_scores_mask(kind="prefix")``, the VLM
 image prefix): keys at positions below it are visible to every query.
 
-``flash_mha.launches`` counts calls that launched the kernel.
+``flash_mha.launches`` counts calls that launched the kernel; ``work``
+gives the FLOPs and bytes its bound counts.  On meta tensors (the dry
+run) the wrapper returns an output of the kernel's shape and computes
+nothing.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib
@@ -39,10 +43,16 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, window "
                          f"{window}, prefix_len {prefix_len}")
-    if not cuda_lib.on_cuda(q, k, v):
+    kind = cuda_lib.device_kind(q, k, v)
+    if kind == "cpu":
         return flash_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal, window=window,
                          prefix_len=prefix_len).transpose(1, 2)
+    if kind == "meta":
+        return cuda_lib.meta_call(
+            "flash_attention", work(q, k, v, causal=causal, window=window,
+                                    prefix_len=prefix_len),
+            torch.empty_like(q))
     cuda_lib.refuse_autograd("flash attention", q, k, v)
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_contiguous(q=q, k=k, v=v)
@@ -62,3 +72,31 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_mha.launches = 0
+
+
+def visible_pairs(Tq: int, Tk: int, *, causal: bool = True,
+                  window: Optional[int] = None, prefix_len: int = 0) -> int:
+    """(query, key) pairs the kernel's mask leaves visible: query i sees
+    key j < Tk where j <= i or j < ``prefix_len`` (every j without
+    ``causal``), and j > i - ``window``."""
+    i = np.arange(Tq, dtype=np.int64)
+    hi = np.full(Tq, Tk, np.int64) if not causal else \
+        np.minimum(np.maximum(prefix_len, i + 1), Tk)
+    lo = np.zeros(Tq, np.int64) if window is None else \
+        np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None,
+         prefix_len: int = 0) -> cuda_lib.Work:
+    """Bytes: q and the output once, K and V once per row; operations: a
+    QK^T and a PV product (2 hd each) per visible pair and query head."""
+    B, Tq, H, hd = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    pairs = visible_pairs(Tq, Tk, causal=causal, window=window,
+                          prefix_len=prefix_len)
+    es = q.element_size()
+    return cuda_lib.Work(flops=4 * hd * H * B * pairs,
+                         bytes=es * (2 * B * Tq * H * hd + 2 * B * Tk * K * hd),
+                         dtype=q.dtype)

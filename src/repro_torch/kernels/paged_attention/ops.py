@@ -10,7 +10,9 @@ plain version (``ref.paged_attention_ref``) only for CPU tensors.
 A kv head with more than 8 query heads (up to ``MAX_GROUP``) is served
 by groups of 8 heads, each group in CTAs of its own.
 
-``paged_decode_gqa.launches`` counts calls that launched the kernel.
+``paged_decode_gqa.launches`` counts calls that launched the kernel;
+``work`` gives the FLOPs and bytes its bound counts.  On meta tensors the
+wrapper returns an output of the kernel's shape and computes nothing.
 """
 from __future__ import annotations
 
@@ -40,8 +42,13 @@ def paged_decode_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         raise ValueError(f"paged decode shapes: q {tuple(q.shape)}, pools "
                          f"{tuple(kp.shape)}, table {tuple(block_tbl.shape)},"
                          f" pos {tuple(pos.shape)}")
-    if not cuda_lib.on_cuda(q, kp, vp, block_tbl, pos):
+    kind = cuda_lib.device_kind(q, kp, vp, block_tbl, pos)
+    if kind == "cpu":
         return paged_attention_ref(q, kp, vp, block_tbl, pos, window=window)
+    if kind == "meta":
+        return cuda_lib.meta_call(
+            "paged_attention", work(q, kp, vp, block_tbl, pos, window=window),
+            torch.empty_like(q))
     cuda_lib.refuse_autograd("paged decode", q, kp, vp)
     code = cuda_lib.dtype_code(q, kp, vp)
     cuda_lib.require_int32(block_tbl, pos)
@@ -70,3 +77,28 @@ def paged_decode_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
 
 paged_decode_gqa.launches = 0
+
+
+def work(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+         block_tbl: torch.Tensor, pos: torch.Tensor, *,
+         window: Optional[int] = None) -> cuda_lib.Work:
+    """Bytes: q and the output, K and V of each live key once, the table
+    and positions; operations: 4 hd per live key and query head.  A key at
+    position t of row b is live when t <= pos[b], its block is allocated
+    and t is inside the window.  On the meta device (contents unknown)
+    every row is taken to fill its whole table."""
+    B, H, hd = q.shape
+    K, _, bs, _ = kp.shape
+    MB = block_tbl.shape[1]
+    if block_tbl.device.type == "meta" or pos.device.type == "meta":
+        live = B * (MB * bs if window is None else min(MB * bs, window))
+    else:
+        t = torch.arange(MB * bs, device=pos.device)
+        ok = (t[None] <= pos[:, None]) & (block_tbl[:, t // bs] >= 0)
+        if window is not None:
+            ok = ok & (t[None] > pos[:, None] - window)
+        live = int(ok.sum())
+    es = q.element_size()
+    return cuda_lib.Work(flops=4 * hd * H * live,
+                         bytes=es * (2 * live * K * hd + 2 * B * H * hd)
+                         + 4 * (B * MB + B), dtype=q.dtype)

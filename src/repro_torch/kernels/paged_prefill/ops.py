@@ -9,7 +9,9 @@ wrapper derives it from ``q_pos[:, 0]`` and hands the kernel ``q_pos`` as
 well, which asserts on the device that the positions are that contiguous
 run (no host synchronisation).
 
-``paged_prefill_gqa.launches`` counts calls that launched the kernel.
+``paged_prefill_gqa.launches`` counts calls that launched the kernel;
+``work`` gives the FLOPs and bytes its bound counts.  On meta tensors the
+wrapper returns an output of the kernel's shape and computes nothing.
 """
 from __future__ import annotations
 
@@ -37,8 +39,13 @@ def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         raise ValueError(f"paged prefill shapes: q {tuple(q.shape)}, pools "
                          f"{tuple(kp.shape)}, table {tuple(block_tbl.shape)},"
                          f" q_pos {tuple(q_pos.shape)}")
-    if not cuda_lib.on_cuda(q, kp, vp, block_tbl, q_pos):
+    kind = cuda_lib.device_kind(q, kp, vp, block_tbl, q_pos)
+    if kind == "cpu":
         return paged_prefill_ref(q, kp, vp, block_tbl, q_pos, window=window)
+    if kind == "meta":
+        return cuda_lib.meta_call(
+            "paged_prefill", work(q, kp, vp, block_tbl, q_pos, window=window),
+            torch.empty_like(q))
     cuda_lib.refuse_autograd("paged prefill", q, kp, vp)
     code = cuda_lib.dtype_code(q, kp, vp)
     cuda_lib.require_int32(block_tbl, q_pos)
@@ -61,3 +68,33 @@ def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
 
 paged_prefill_gqa.launches = 0
+
+
+def work(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+         block_tbl: torch.Tensor, q_pos: torch.Tensor, *,
+         window: Optional[int] = None) -> cuda_lib.Work:
+    """Bytes: q and the output, K and V of each history key the chunk sees
+    once, the table and positions; operations: 4 hd per visible (query,
+    key) pair and query head.  On the meta device (contents unknown) every
+    row's chunk is taken to end its whole, fully allocated table."""
+    B, C, H, hd = q.shape
+    K, _, bs, _ = kp.shape
+    MB = block_tbl.shape[1]
+    if block_tbl.device.type == "meta" or q_pos.device.type == "meta":
+        tbl = torch.zeros((B, MB), dtype=torch.int32)
+        start = torch.full((B,), MB * bs - C)
+    else:
+        tbl, start = block_tbl, q_pos[:, 0]
+    qp = start[:, None] + torch.arange(C, device=start.device)[None]
+    t = torch.arange(MB * bs, device=start.device)
+    valid = tbl[:, t // bs] >= 0                               # (B, S)
+    ok = (t[None, None] <= qp[:, :, None]) & valid[:, None]    # (B, C, S)
+    seen = valid & (t[None] <= (start + C - 1)[:, None])
+    if window is not None:
+        ok = ok & (t[None, None] > qp[:, :, None] - window)
+        seen = seen & (t[None] > (start - window)[:, None])
+    es = q.element_size()
+    return cuda_lib.Work(flops=4 * hd * H * int(ok.sum()),
+                         bytes=es * (2 * int(seen.sum()) * K * hd
+                                     + 2 * B * C * H * hd)
+                         + 4 * (B * MB + B * C), dtype=q.dtype)

@@ -12,7 +12,9 @@ over ``d_slice(R, D)`` input features per CTA, and the expand takes
 CUDA-core kernels (``F32_SLICE`` features per CTA).
 Out-of-range adapter ids give an exact zero row.
 
-``sgmv_apply.launches`` counts calls that launched the kernels.
+``sgmv_apply.launches`` counts calls that launched the kernels; ``work``
+gives the FLOPs and bytes its bound counts.  On meta tensors the wrapper
+returns an output of the kernels' shape and computes nothing.
 """
 from __future__ import annotations
 
@@ -76,8 +78,13 @@ def sgmv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"sgmv shapes: x {tuple(x.shape)}, a "
                          f"{tuple(a.shape)}, b {tuple(b.shape)}, idx "
                          f"{tuple(idx.shape)}")
-    if not cuda_lib.on_cuda(x, a, b, idx):
+    kind = cuda_lib.device_kind(x, a, b, idx)
+    if kind == "cpu":
         return sgmv_ref(x, a, b, idx, scaling=scaling)
+    if kind == "meta":
+        return cuda_lib.meta_call(
+            "sgmv", work(x, a, b, idx),
+            torch.empty((R, b.shape[2]), dtype=x.dtype, device=x.device))
     cuda_lib.refuse_autograd("sgmv", x, a, b)
     code = cuda_lib.dtype_code(x, a, b)
     cuda_lib.require_int32(idx)
@@ -111,6 +118,26 @@ def sgmv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 sgmv_apply.launches = 0
+
+
+def work(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+         idx: torch.Tensor) -> cuda_lib.Work:
+    """Bytes: x and y once, idx, each adapter some row uses once (A and
+    B); operations: 2 r (D + O) per row with an in-range adapter (the
+    others are exact zeros).  On the meta device (ids unknown) every row
+    is in range and min(N, R) adapters are used."""
+    R, D = x.shape
+    N, _, r = a.shape
+    O = b.shape[2]
+    if idx.device.type == "meta":
+        valid, used = R, min(N, R)
+    else:
+        ok = (idx >= 0) & (idx < N)
+        valid, used = int(ok.sum()), int(torch.unique(idx[ok]).numel())
+    es = x.element_size()
+    return cuda_lib.Work(flops=2 * valid * r * (D + O),
+                         bytes=es * (R * D + used * r * (D + O) + R * O)
+                         + 4 * R, dtype=x.dtype)
 
 
 def sgmv_tokens(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

@@ -133,6 +133,12 @@ class ModelConfig:
         """Mixer kind of every layer in stack order (periods, then tail)."""
         return self.pattern * self.num_periods + self.remainder_layers
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if decode memory/compute does not grow with full context."""
+        return self.family in ("ssm", "hybrid") or \
+            self.sliding_window is not None
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

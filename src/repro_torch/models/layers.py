@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.decode_attention.ops import decode_gqa
 from repro_torch.kernels.flash_attention.ops import flash_mha
@@ -33,10 +34,14 @@ from repro_torch.models.config import GELU, SQRELU, SWIGLU, ModelConfig
 Params = Dict[str, Any]
 
 
-def _normal(gen: torch.Generator, shape, dtype, scale: float,
+def _normal(gen: Optional[torch.Generator], shape, dtype, scale: float,
             device) -> torch.Tensor:
     """N(0, scale^2) drawn in float32 from ``gen``, cast to ``dtype``
-    (scaled in place: one float32 copy of the leaf at a time)."""
+    (scaled in place: one float32 copy of the leaf at a time).  On the
+    meta device it allocates nothing and draws nothing (``gen`` may be
+    None): the dry run's abstract params."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return t.mul_(scale).to(dtype)
 
@@ -54,6 +59,105 @@ def lora_delta(x: torch.Tensor, lora: Params, adapter_idx: torch.Tensor, *,
     return sgmv_tokens(x, lora["a"], lora["b"], adapter_idx, scaling=scaling)
 
 
+def _split(t: torch.Tensor, pl, dim: int, mesh, i: int) -> bool:
+    """Whether ``t``'s dim ``dim`` divides over mesh dim ``i`` on top of
+    the mesh dims that ``pl`` already splits it over."""
+    n = mesh.size(i)
+    for j, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            n *= mesh.size(j)
+    return t.shape[dim] % n == 0
+
+
+def _placed_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on DTensors after ``matmul``'s placement rule."""
+    mesh = (w if isinstance(w, DTensor) else x).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    xpl, wpl = list(x.placements), list(w.placements)
+    feat, rows, cols = x.ndim - 1, w.ndim - 2, w.ndim - 1
+    for i in range(mesh.ndim):
+        if mesh.size(i) == 1:
+            continue
+        px, pw = xpl[i], wpl[i]
+        x_feat = isinstance(px, Shard) and px.dim == feat
+        x_other = isinstance(px, Shard) and not x_feat
+        if isinstance(pw, Shard) and pw.dim == rows and not x_feat:
+            if not x_other and _split(x, xpl, feat, mesh, i):
+                xpl[i] = Shard(feat)
+            else:
+                wpl[i] = Replicate()
+        elif isinstance(pw, Shard) and pw.dim == cols and x_other:
+            wpl[i] = Replicate()
+        elif pw.is_replicate() and not (x_feat or x_other) \
+                and _split(x, xpl, 0, mesh, i):
+            xpl[i] = Shard(0)
+    if xpl != list(x.placements):
+        x = x.redistribute(mesh, xpl)
+    if wpl != list(w.placements):
+        w = w.redistribute(mesh, wpl)
+    return x @ w
+
+
+class _PlacedMatmul(torch.autograd.Function):
+    """``_placed_mm`` whose backward products are placed by the same rule
+    (left to itself, torch 2.11's DTensor multiplied a partial-sum
+    gradient by a weight it gathered whole, on every rank of the model
+    group)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        # x is saved only for w's gradient, and the weight is kept as an
+        # attribute: remat's recompute (``torch.utils.checkpoint``) stops
+        # once every saved tensor is back, and a custom Function packs
+        # what it saves only after its forward has run, so a saved weight
+        # would make the recompute run the layer's last product too
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
+        ctx.w = w
+        ctx.x_is_dtensor = isinstance(x, DTensor)
+        return _placed_mm(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        w = ctx.w
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _placed_mm(g, w.transpose(-2, -1))
+            if not ctx.x_is_dtensor:
+                dx = dx.full_tensor()
+        if ctx.needs_input_grad[1]:
+            dw = _placed_mm(x.reshape(-1, x.shape[-1]).transpose(0, 1),
+                            g.reshape(-1, g.shape[-1]))
+            if not isinstance(w, DTensor):
+                dw = dw.full_tensor()
+        return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a weight w (d_in, d_out).  DTensor operands are first
+    placed so that no mesh dim repeats the product on each of its ranks,
+    whatever DTensor's own strategy search would pick (its choice differs
+    between torch releases), and so are the backward's products.  On each
+    mesh dim where w's rows, the contraction dim, are split: if x is split
+    on its features too the product is row-parallel and stays; if x is
+    split on another dim, w's rows are gathered there first (FSDP's
+    per-layer weight all-gather, which GSPMD inserts for the reference's
+    fsdp2d policy); if x is whole or a partial sum there, x's features are
+    split instead (a slice, or a reduce-scatter), and the product is
+    row-parallel.  Where w's columns are split and x is split on a
+    leading dim, w is gathered (FSDP again).  Where w is whole and x is
+    whole or a partial sum, x's first dim is split if it divides
+    (splitting the sequence instead moved more bytes in a prefill than
+    the product it spared).  Plain tensors pass to ``@`` unchanged."""
+    if not isinstance(w, DTensor) and not isinstance(x, DTensor):
+        return x @ w
+    return _PlacedMatmul.apply(x, w)
+
+
 def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None, *,
           scaling: float = 1.0,
           adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -63,14 +167,14 @@ def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None, *,
     (``adapter_idx`` None: y + scaling * ((x @ A) @ B)), or a stacked bank
     {"a": (N, D, r), "b": (N, r, O)} with per-row ``adapter_idx`` (the SGMV
     delta, cast to y's dtype)."""
-    y = x @ p["w"]
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     if lora is not None:
         if adapter_idx is None:
             if lora["a"].dim() != 2:
                 raise ValueError("a LoRA bank needs per-row adapter_idx")
-            y = y + scaling * ((x @ lora["a"]) @ lora["b"])
+            y = y + scaling * matmul(matmul(x, lora["a"]), lora["b"])
         else:
             y = y + lora_delta(x, lora, adapter_idx,
                                scaling=scaling).to(y.dtype)
@@ -149,6 +253,79 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ------------------------------------------------------------------- attention
+def _heads(t: torch.Tensor, B: int, T: int, n: int, hd: int) -> torch.Tensor:
+    """(B, T, n * hd) -> (B, T, n, hd).  A DTensor whose feature dim is
+    sharded over a mesh dim that does not divide n (8 kv heads over a
+    16-way "model") is first gathered on that mesh dim: DTensor cannot
+    split a dim it holds unevenly."""
+    if isinstance(t, DTensor):
+        mesh, last = t.device_mesh, t.ndim - 1
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == last
+              and n % mesh.size(i) else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(B, T, n, hd)
+
+
+def _per_shard(fn, args, dims, *, lead: int, out_dims, **kwargs):
+    """Run ``fn`` (a kernel wrapper, or the training forward's plain
+    attention) shard by shard on DTensor inputs: each device takes its own
+    rows and heads, as the reference's per-shard math does.  ``dims[i]`` is
+    arg i's (batch dim, head dim), either None.  On a mesh dim where
+    ``args[lead]`` is split on its batch (head) dim, every arg is split on
+    its own batch (head) dim.  On a mesh dim where it is not (replicated,
+    a partial sum, or split on another dim) the args are split on their
+    head dim if the lead's heads divide there, else on their batch dim if
+    its rows divide, and replicated only where neither divides: no device
+    repeats another's work that a split could spare.  Plain tensors are
+    taken as replicated; non-tensors pass through.  Returns the output as
+    a DTensor placed by ``out_dims``.  The redistributions are DTensor's
+    and show among its collectives."""
+    ref = args[lead]
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    pls = (ref.placements if isinstance(ref, DTensor)
+           else [Replicate()] * mesh.ndim)
+    kinds = []
+    for p in pls:
+        kind = None
+        if isinstance(p, Shard):
+            kind = {dims[lead][0]: 0, dims[lead][1]: 1}.get(p.dim)
+        kinds.append(kind)
+    left = [ref.shape[d] if d is not None else 1 for d in dims[lead]]
+    for i, kind in enumerate(kinds):
+        if kind is not None:
+            left[kind] //= mesh.size(i)
+    for i, kind in enumerate(kinds):
+        if kind is None:
+            n = mesh.size(i)
+            kind = next((k for k in (1, 0) if dims[lead][k] is not None
+                         and left[k] % n == 0), None)
+            if kind is not None:
+                left[kind] //= n
+                kinds[i] = kind
+
+    def placements(d):
+        return [Shard(d[k]) if k is not None and d[k] is not None
+                else Replicate() for k in kinds]
+
+    local = []
+    for a, d in zip(args, dims):
+        if not isinstance(a, torch.Tensor):
+            local.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = placements(d)
+        if list(a.placements) != want:
+            a = a.redistribute(mesh, want)
+        local.append(a.to_local())
+    out = fn(*local, **kwargs)
+    return DTensor.from_local(out, mesh, placements(out_dims),
+                              run_check=False)
+
+
 def _write_decode_kv(pool: torch.Tensor, new: torch.Tensor,
                      block_tbl: torch.Tensor, pos: torch.Tensor) -> None:
     """Write one token per row at block_tbl[b, pos // bs], offset pos % bs,
@@ -185,6 +362,9 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
     as ``position % S``, since the decode position equals ``idx``
     (``transformer.decode_step``) — then attend over the ring by
     ``slot_pos`` with the ring-decode kernel.  ``idx`` advances by T."""
+    if isinstance(cache["k"], DTensor):
+        return _ring_attention_per_shard(cache, q, k, v, positions, window,
+                                         prefix_len)
     B, T = q.shape[:2]
     S = cache["k"].shape[1]
     idx = cache["idx"]
@@ -214,6 +394,44 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
                          window=window)[:, None]
     cache["idx"] = idx + T
     return out
+
+
+def _ring_attention_per_shard(cache: Dict[str, Any], q, k, v, positions,
+                              window: Optional[int],
+                              prefix_len: int) -> torch.Tensor:
+    """``_ring_attention`` on a DTensor ring cache, per shard: each
+    device writes and attends over its own rows and kv heads (the cache's
+    batch and head sharding; a ring sharded on the sequence or head_dim
+    is gathered on those mesh dims for the kernels and split again after
+    the write), as the reference's per-shard math does.  DTensor's own
+    in-place ops on a sharded ring (setitem, ``index_copy_``) may move
+    its placements, so none of them runs on the DTensors."""
+    ck = cache["k"]
+    mesh = ck.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in ck.placements]
+    rep = [Replicate()] * mesh.ndim
+
+    def local(t, want):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        return t.to_local()
+
+    lc = {"k": local(ck, pl), "v": local(cache["v"], pl),
+          "slot_pos": local(cache["slot_pos"], rep), "idx": cache["idx"]}
+    if isinstance(positions, DTensor):
+        positions = positions.full_tensor()
+    out = _ring_attention(lc, local(q, pl), local(k, pl), local(v, pl),
+                          positions, window, prefix_len)
+    for name, want in (("k", pl), ("v", pl), ("slot_pos", rep)):
+        if list(cache[name].placements) != want:
+            cache[name] = DTensor.from_local(
+                lc[name], mesh, want, run_check=False).redistribute(
+                    mesh, cache[name].placements)
+    cache["idx"] = lc["idx"]
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -248,9 +466,9 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     q = dense(x, p["wq"], lora.get("q"), scaling=s, adapter_idx=adapter_idx)
     k = dense(x, p["wk"], lora.get("k"), scaling=s, adapter_idx=adapter_idx)
     v = dense(x, p["wv"], lora.get("v"), scaling=s, adapter_idx=adapter_idx)
-    q = rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, T, K, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, T, K, hd)
+    q = rope(_heads(q, B, T, H, hd), positions, cfg.rope_theta)
+    k = rope(_heads(k, B, T, K, hd), positions, cfg.rope_theta)
+    v = _heads(v, B, T, K, hd)
     if "k" in cache:
         out = _ring_attention(cache, q, k, v, positions, window, prefix_len)
         return dense(out.reshape(B, T, H * hd), p["wo"], lora.get("o"),
@@ -390,17 +608,26 @@ def apply_attention_train(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     q = dense(x, p["wq"], lora.get("q"), scaling=s)
     k = dense(x, p["wk"], lora.get("k"), scaling=s)
     v = dense(x, p["wv"], lora.get("v"), scaling=s)
-    q = rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, T, K, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, T, K, hd)
-    if use_chunked:
-        out = attention_chunked(q, k, v, positions, positions,
-                                kind=mask_kind, window=window,
-                                prefix_len=prefix_len)
+    q = rope(_heads(q, B, T, H, hd), positions, cfg.rope_theta)
+    k = rope(_heads(k, B, T, K, hd), positions, cfg.rope_theta)
+    v = _heads(v, B, T, K, hd)
+
+    def attend(q, k, v, q_pos, k_pos):
+        if use_chunked:
+            return attention_chunked(q, k, v, q_pos, k_pos, kind=mask_kind,
+                                     window=window, prefix_len=prefix_len)
+        mask = _scores_mask(q_pos, k_pos, mask_kind, window, prefix_len)
+        return attention_core(q, k, v, mask)
+
+    if isinstance(k, DTensor):
+        # per shard, each device's rows and heads (as the kernels run):
+        # DTensor's own propagation of the 5-D score products is slow and
+        # gathers what the per-head math never needs
+        out = _per_shard(attend, (q, k, v, positions, positions),
+                                 ((0, 2),) * 3 + ((0, None),) * 2, lead=1,
+                                 out_dims=(0, 2))
     else:
-        mask = _scores_mask(positions, positions, mask_kind, window,
-                            prefix_len)
-        out = attention_core(q, k, v, mask)
+        out = attend(q, k, v, positions, positions)
     return dense(out.reshape(B, T, H * hd), p["wo"], lora.get("o"),
                  scaling=s)
 
@@ -412,12 +639,26 @@ def cross_attention_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
     RoPE, no LoRA, every key visible, through ``attention_core``."""
     B, T, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = dense(x, p["wq"]).reshape(B, T, H, hd)
-    k = dense(enc_out, p["wk"]).reshape(B, -1, K, hd)
-    v = dense(enc_out, p["wv"]).reshape(B, -1, K, hd)
-    mask = x.new_zeros((B, T, k.shape[1]), dtype=torch.float32)
-    out = attention_core(q, k, v, mask)
+    q = _heads(dense(x, p["wq"]), B, T, H, hd)
+    k = _heads(dense(enc_out, p["wk"]), B, -1, K, hd)
+    v = _heads(dense(enc_out, p["wv"]), B, -1, K, hd)
+    mask = torch.zeros((B, T, k.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    if isinstance(k, DTensor):
+        out = _per_shard(attention_core, (q, k, v, mask),
+                                 ((0, 2),) * 3 + ((0, None),), lead=1,
+                                 out_dims=(0, 2))
+    else:
+        out = attention_core(q, k, v, mask)
     return dense(out.reshape(B, T, H * hd), p["wo"])
+
+
+def _flash(q, k, v, **kwargs) -> torch.Tensor:
+    """``flash_mha``, per shard on DTensors (``_per_shard``)."""
+    if isinstance(k, DTensor):
+        return _per_shard(flash_mha, (q, k, v), ((0, 2),) * 3, lead=1,
+                          out_dims=(0, 2), **kwargs)
+    return flash_mha(q, k, v, **kwargs)
 
 
 def apply_encoder_attention(p: Params, cfg: ModelConfig,
@@ -430,12 +671,12 @@ def apply_encoder_attention(p: Params, cfg: ModelConfig,
     B, T, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim_
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    q = rope(dense(x, p["wq"]).reshape(B, T, H, hd), positions,
+    q = rope(_heads(dense(x, p["wq"]), B, T, H, hd), positions,
              cfg.rope_theta)
-    k = rope(dense(x, p["wk"]).reshape(B, T, H, hd), positions,
+    k = rope(_heads(dense(x, p["wk"]), B, T, H, hd), positions,
              cfg.rope_theta)
-    v = dense(x, p["wv"]).reshape(B, T, H, hd)
-    out = flash_mha(q, k, v, causal=False)
+    v = _heads(dense(x, p["wv"]), B, T, H, hd)
+    out = _flash(q, k, v, causal=False)
     return dense(out.reshape(B, T, H * hd), p["wo"])
 
 
@@ -456,18 +697,22 @@ def apply_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     whose query sits at position S - 1, so every slot is visible."""
     B, T, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = dense(x, p["wq"]).reshape(B, T, H, hd)
+    q = _heads(dense(x, p["wq"]), B, T, H, hd)
     xk, xv = cache["xk"], cache["xv"]
     S = xk.shape[1]
     if enc_out is not None:
-        k = dense(enc_out, p["wk"]).reshape(B, -1, K, hd)
-        v = dense(enc_out, p["wv"]).reshape(B, -1, K, hd)
+        k = _heads(dense(enc_out, p["wk"]), B, -1, K, hd)
+        v = _heads(dense(enc_out, p["wv"]), B, -1, K, hd)
         if k.shape != xk.shape:
             raise ValueError(f"encoder output of {k.shape[1]} frames for a "
                              f"cross cache of {S}")
         xk.copy_(k)
         xv.copy_(v)
-        out = flash_mha(q, k, v, causal=False)
+        out = _flash(q, k, v, causal=False)
+    elif isinstance(xk, DTensor):
+        out = _per_shard(decode_gqa, (q[:, 0], xk, xv, cache["xpos"], S - 1),
+                         ((0, 1), (0, 2), (0, 2), (None, None),
+                          (None, None)), lead=1, out_dims=(0, 1))[:, None]
     else:
         out = decode_gqa(q[:, 0], xk, xv, cache["xpos"], S - 1)[:, None]
     return dense(out.reshape(B, T, H * hd), p["wo"])
@@ -492,17 +737,17 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     GELU: gelu(x @ Wi) @ Wo with ``jax.nn.gelu``'s tanh approximation
     (not torch's default erf form)."""
     if cfg.mlp_for == SWIGLU:
-        h = F.silu(x @ p["wg"]["w"]) * (x @ p["wi"]["w"])
+        h = F.silu(matmul(x, p["wg"]["w"])) * matmul(x, p["wi"]["w"])
     elif cfg.mlp_for == SQRELU:
-        h = torch.relu(x @ p["wi"]["w"])
+        h = torch.relu(matmul(x, p["wi"]["w"]))
         h = h * h
     elif cfg.mlp_for == GELU:
-        h = _gelu_tanh(x @ p["wi"]["w"])
+        h = _gelu_tanh(matmul(x, p["wi"]["w"]))
     else:
         raise ValueError(f"mlp {cfg.mlp_for!r} is not ported")
-    return h @ p["wo"]["w"]
+    return matmul(h, p["wo"]["w"])
 
 
 def apply_encoder_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """The encoder's MLP: gelu(x @ Wi) @ Wo (tanh approximation)."""
-    return _gelu_tanh(x @ p["wi"]["w"]) @ p["wo"]["w"]
+    return matmul(_gelu_tanh(matmul(x, p["wi"]["w"])), p["wo"]["w"])

@@ -27,8 +27,14 @@ experts do tie.  ``torch.topk`` leaves ties unspecified on CUDA, so the
 port takes the first k of a stable descending sort.
 
 Everything here is capture-safe: no host read, no data-sized shape.
+
 Multi-device routing (the reference's ``set_parallel_mesh`` and
-``_apply_moe_shard_map``) is launch tooling and is not ported.
+``_apply_moe_shard_map``): with a mesh set, ``apply_moe`` runs
+``_apply_moe_parallel``, where each data shard routes only its own tokens
+against experts sliced on F over "model" and one sum over the model group
+completes the products; the aux losses are averaged over the data axes.
+It runs on DTensors (or on plain tensors, taken as replicated) through
+explicit collectives on the mesh's groups.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _normal
@@ -171,13 +179,172 @@ def _moe_capacity_math(p: Params, cfg: ModelConfig, xf: torch.Tensor, *,
     return out, aux
 
 
+# Set by the launcher or the dry run (``launch.sharding.ShardingOptions
+# .moe_shard_map``) to route tokens shard-locally (``_apply_moe_parallel``)
+_PARALLEL_MESH = None
+
+
+def set_parallel_mesh(mesh) -> None:
+    """Enable shard-local routing over ``mesh`` (a ``DeviceMesh`` with a
+    "model" axis and "data" / ("pod", "data") axes), or disable it with
+    None.  Routing is per-token independent, so each data shard routing
+    only its own tokens is exact; it spares the global sort and gather
+    that would otherwise all-gather the activations."""
+    global _PARALLEL_MESH
+    _PARALLEL_MESH = mesh
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Sum of the local partials over a mesh dim's group; the result is
+    replicated over the group, so its gradient passes through unchanged
+    (every rank holds the whole gradient of a replicated value).  The
+    other half of the pair, the sum of the inputs' partial gradients over
+    the group, is DTensor's: ``_apply_moe_parallel`` takes its local
+    inputs with ``grad_placements`` that are partial over the group."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum",
+                                                    mesh.get_group(dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _MeanOverGroups(torch.autograd.Function):
+    """Mean of a local value over the data axes' groups (the reference's
+    ``pmean``).  The value is the same on the ``share`` ranks of the model
+    group, whose gradients of the inputs are partial sums over that group
+    (``grad_placements``): so each rank takes 1/share of the mean's
+    gradient, 1/(n share) in all, and the sum over the group restores
+    it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, share):
+        n = 1
+        for d in dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, "sum",
+                                                     mesh.get_group(d)))
+            n *= mesh.size(mesh.mesh_dim_names.index(d))
+        ctx.n = n * share
+        return t / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None, None
+
+
+def _as_dtensor(t: torch.Tensor, mesh):
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _apply_moe_parallel(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Shard-local MoE, the counterpart of the reference's
+    ``_apply_moe_shard_map``: tokens stay on their data shard (local
+    routing, local expert products against experts sliced on F over
+    "model"), one output sum over the model group, the aux losses averaged
+    over the data axes.  Capacity is sized from the local token count, as
+    in the reference's shard-local call.  Like the reference, it falls
+    back to the plain path when B does not divide over the data axes,
+    when F does not divide over "model", or under 64 local tokens (decode:
+    the per-layer expert regather does not pay there); the fallback is
+    the dropless math under either dispatch, as the reference's.  Inputs
+    are DTensors on the mesh or plain tensors (taken as replicated); the
+    output is a DTensor sharded on B over the data axes.
+
+    Backward: each model rank's gradients of x and of the router (through
+    the combine weights) are its F-slice's share, and each data shard's
+    gradients of the weights its tokens' share, so the local inputs carry
+    ``grad_placements`` that are partial sums there and DTensor adds the
+    shares (Megatron's f to ``_SumOverGroup``'s g)."""
+    mesh = _PARALLEL_MESH
+    names = tuple(mesh.mesh_dim_names)
+    size = dict(zip(names, mesh.shape))
+    da = ("pod", "data") if "pod" in names else ("data",)
+    n_da = 1
+    for a in da:
+        n_da *= size[a]
+    B, T, D = x.shape
+    F = cfg.d_ff
+    tokens_local = (B // n_da) * T
+    if B % n_da or F % size["model"] or tokens_local < 64:
+        if isinstance(x, DTensor):
+            return _replicated_moe(p, cfg, x, _moe_math)
+        out, aux = _moe_math(p, cfg, x.reshape(B * T, D))
+        return out.reshape(B, T, D).to(x.dtype), aux
+
+    math_fn = _moe_capacity_math if _DISPATCH == "capacity" else _moe_math
+    rep = [Replicate()] * mesh.ndim
+    model = names.index("model")
+    partial_data = [Partial() if n in da else Replicate() for n in names]
+
+    def placed(t, dim=None):              # dim: sliced over "model"
+        pl, gpl = list(rep), list(partial_data)
+        pl[model] = gpl[model] = Shard(dim) if dim is not None else \
+            Replicate()
+        if dim is None:
+            gpl[model] = Partial()
+        return _as_dtensor(t, mesh).redistribute(mesh, pl).to_local(
+            grad_placements=gpl)
+
+    x_pl = list(rep)
+    for a in da:
+        x_pl[names.index(a)] = Shard(0)
+    x_gpl = list(x_pl)
+    x_gpl[model] = Partial()
+    xl = _as_dtensor(x, mesh).redistribute(mesh, x_pl).to_local(
+        grad_placements=x_gpl)
+    pl = {"router": {"w": placed(p["router"]["w"])},
+          "wi": placed(p["wi"], 2), "wg": placed(p["wg"], 2),
+          "wo": placed(p["wo"], 1)}
+    b, t, d = xl.shape
+    out, aux = math_fn(pl, cfg, xl.reshape(b * t, d))
+    out = _SumOverGroup.apply(out.to(xl.dtype), mesh, "model")
+    aux = {k: DTensor.from_local(
+        _MeanOverGroups.apply(v, mesh, da, size["model"]), mesh, rep,
+        run_check=False) for k, v in aux.items()}
+    out = DTensor.from_local(out.reshape(b, t, d), mesh, x_pl,
+                             run_check=False)
+    return out, aux
+
+
+def _replicated_moe(p: Params, cfg: ModelConfig, x, math_fn):
+    """The plain path on DTensors: every input gathered whole, the routed
+    products computed redundantly on each rank (what a partitioner does
+    with a global sort it cannot split), the output replicated."""
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return _as_dtensor(t, mesh).redistribute(mesh, rep).to_local()
+
+    B, T, D = x.shape
+    pl = {"router": {"w": whole(p["router"]["w"])}, "wi": whole(p["wi"]),
+          "wg": whole(p["wg"]), "wo": whole(p["wo"])}
+    out, aux = math_fn(pl, cfg, whole(x).reshape(B * T, D))
+    out = DTensor.from_local(out.reshape(B, T, D).to(x.dtype), mesh, rep,
+                             run_check=False)
+    aux = {k: DTensor.from_local(v, mesh, rep, run_check=False)
+           for k, v in aux.items()}
+    return out, aux
+
+
 def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               return_aux: bool = False):
     """x: (B, T, D) -> (B, T, D) [, aux losses dict]."""
     B, T, D = x.shape
     math_fn = _moe_capacity_math if _DISPATCH == "capacity" else _moe_math
-    out, aux = math_fn(p, cfg, x.reshape(B * T, D), with_aux=return_aux)
-    out = out.reshape(B, T, D).to(x.dtype)
+    if _PARALLEL_MESH is not None:
+        out, aux = _apply_moe_parallel(p, cfg, x)
+    elif isinstance(x, DTensor):
+        out, aux = _replicated_moe(p, cfg, x, math_fn)
+    else:
+        out, aux = math_fn(p, cfg, x.reshape(B * T, D), with_aux=return_aux)
+        out = out.reshape(B, T, D).to(x.dtype)
     if return_aux:
         return out, aux
     return out

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_gelu_tanh, _normal, causal_conv1d,
-                                       lora_delta)
+                                       lora_delta, matmul)
 
 Params = Dict[str, Any]
 _C = 8.0
@@ -63,8 +63,8 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gates(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    r = torch.sigmoid(x @ p["w_a"]["w"] + p["w_a"]["b"]).float()
-    i = torch.sigmoid(x @ p["w_x"]["w"] + p["w_x"]["b"]).float()
+    r = torch.sigmoid(matmul(x, p["w_a"]["w"]) + p["w_a"]["b"]).float()
+    i = torch.sigmoid(matmul(x, p["w_x"]["w"]) + p["w_x"]["b"]).float()
     log_a0 = -_softplus(-p["lam"])                       # log σ(Λ) < 0
     a = torch.exp(_C * log_a0 * r)                       # (B, T, Di)
     return a, i
@@ -122,7 +122,7 @@ def apply_rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     is the state after the last REAL token.  ``lora`` holds the in/out
     banks ((N, D, r), (N, r, O)), applied per row through SGMV with
     ``adapter_idx`` (per token when T > 1).  Returns (out, new state)."""
-    u = x @ p["w_branch"]["w"]
+    u = matmul(x, p["w_branch"]["w"])
     if lora is not None and "in" in lora:
         u = u + _delta(x, lora["in"], lora_scaling, adapter_idx).to(u.dtype)
     u, new_conv = causal_conv1d(
@@ -146,9 +146,9 @@ def apply_rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             gated = torch.where(valid, gated, torch.zeros_like(gated))
         h, h_last = rglru_scan(a, gated, h0, cfg.ssm_chunk)
 
-    g = _gelu_tanh(x @ p["w_gelu"]["w"]).float()
+    g = _gelu_tanh(matmul(x, p["w_gelu"]["w"])).float()
     y = (h * g).to(x.dtype)
-    out = y @ p["out"]["w"]
+    out = matmul(y, p["out"]["w"])
     if lora is not None and "out" in lora:
         out = out + _delta(y, lora["out"], lora_scaling,
                            adapter_idx).to(out.dtype)
@@ -160,5 +160,5 @@ def _delta(x: torch.Tensor, lora: Params, scaling: float,
     """The LoRA delta of one in/out site: a single adapter's (D, r), (r, O)
     pair without ids, else the bank's per-row SGMV delta."""
     if adapter_idx is None:
-        return scaling * ((x @ lora["a"]) @ lora["b"])
+        return scaling * matmul(matmul(x, lora["a"]), lora["b"])
     return lora_delta(x, lora, adapter_idx, scaling=scaling)

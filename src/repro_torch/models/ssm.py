@@ -15,7 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _normal, apply_norm, causal_conv1d
+from repro_torch.models.layers import (_normal, apply_norm, causal_conv1d,
+                                       matmul)
 from repro_torch.models.moe import _silu
 from repro_torch.models.rglru import _delta, _softplus
 
@@ -138,7 +139,7 @@ def apply_ssd(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     last real token.  Returns (out, new state)."""
     Bsz, T, _ = x.shape
     Di, nh, hd = cfg.d_inner, cfg.ssm_num_heads, cfg.ssm_head_dim
-    z, xs, Bm, Cm, dt = _split(x @ p["in_proj"]["w"], cfg)
+    z, xs, Bm, Cm, dt = _split(matmul(x, p["in_proj"]["w"]), cfg)
     if lora is not None and "in" in lora:
         ez, exs, eB, eC, edt = _split(
             _delta(x, lora["in"], lora_scaling, adapter_idx), cfg)
@@ -172,7 +173,7 @@ def apply_ssd(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     y = y + p["d_skip"][None, None, :, None] * xh.float()
     y = y.reshape(Bsz, T, Di).to(x.dtype)
     y = apply_norm(y * _silu(z), p["gate_norm"], "rmsnorm")
-    out = y @ p["out_proj"]["w"]
+    out = matmul(y, p["out_proj"]["w"])
     if lora is not None and "out" in lora:
         out = out + _delta(y, lora["out"], lora_scaling,
                            adapter_idx).to(out.dtype)

@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.config import (ATTN, GELU, MOE, NONE, REC, SQRELU,
@@ -48,16 +49,40 @@ from repro_torch.models.layers import (_normal, apply_attention,
                                        apply_cross_attention,
                                        apply_encoder_attention,
                                        apply_encoder_mlp, apply_mlp,
-                                       apply_norm, cross_attention_train)
+                                       apply_norm, cross_attention_train,
+                                       matmul)
 from repro_torch.models.moe import apply_moe, moe_init
 from repro_torch.models.rglru import apply_rglru_block, rglru_init
 from repro_torch.models.ssm import apply_ssd, ssd_init
 
 Params = Dict[str, Any]
 
+# Optional activation-sharding hook (set by a launcher): pins the residual
+# stream to a spec right after the embedding gather (and the image prefix's
+# concatenation), as the reference's ``with_sharding_constraint`` does.
+# Unset, it does nothing; set, a DTensor activation is redistributed to it
+# (a plain tensor is not sharded and passes unchanged).
+_ACT_SPEC = None
+
+
+def set_activation_spec(spec, mesh=None) -> None:
+    """``spec``: a ``launch.sharding`` spec for the (B, T, D) residual
+    stream on ``mesh``, or None to unset."""
+    global _ACT_SPEC
+    _ACT_SPEC = None if spec is None else (tuple(spec), mesh)
+
+
+def _constrain(x: torch.Tensor) -> torch.Tensor:
+    if _ACT_SPEC is None or not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.sharding import to_placements
+    spec, mesh = _ACT_SPEC
+    mesh = mesh if mesh is not None else x.device_mesh
+    return x.redistribute(mesh, to_placements(spec, mesh))
+
 
 # ----------------------------------------------------------------------- init
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device="cuda", *, lora_adapters: Optional[int] = 1,
                 lora_b_scale: float = 0.02) -> Params:
     """Seeded random parameters with the reference's init scales (dense
@@ -76,7 +101,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     reference, whose LoRA B, QKV biases (``qkv_bias``) and LayerNorm
     biases start at zero, B is drawn N(0, ``lora_b_scale``) and the biases
     N(0, 0.02), so every adapter's delta and every bias is real.
-    ``generator`` must live on ``device``."""
+    ``generator`` must live on ``device``.  On ``device="meta"`` the
+    leaves have their names, shapes and dtypes and no storage, and nothing
+    is drawn (``generator`` may be None): the dry run's abstract
+    params."""
     if cfg.mlp_for not in (SWIGLU, SQRELU, GELU, MOE, NONE):
         raise ValueError(f"{cfg.name}: mlp {cfg.mlp_for!r} is not ported")
     dt = cfg.torch_dtype
@@ -278,8 +306,8 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(x, params["final_norm"], cfg.norm_type)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        return matmul(x, params["embed"].T)
+    return matmul(x, params["lm_head"])
 
 
 def _is_ring(cache: List[Dict[str, Any]]) -> bool:
@@ -344,13 +372,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     position with ``last_only``, else at each of the T token positions.
     Returns (logits (B, 1 or T, V), cache)."""
     B, T = tokens.shape
-    x = _embed(params, tokens)
+    x = _constrain(_embed(params, tokens))
     prefix_len = 0
     if embeds is not None:
         if not _is_ring(cache):
             raise ValueError("an image prefix (embeds) is served on ring "
                              "caches only: the paged runtime carries none")
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        x = _constrain(torch.cat([embeds.to(x.dtype), x], dim=1))
         prefix_len = embeds.shape[1]
     enc_out = None
     if frame_embeds is not None:
@@ -410,7 +438,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         if int(pos) != cache[0]["idx"]:
             raise ValueError(f"ring decode at position {int(pos)} of a ring "
                              f"that has seen {cache[0]['idx']} tokens")
-    x = _embed(params, token[:, None])                     # (B, 1, D)
+    x = _constrain(_embed(params, token[:, None]))         # (B, 1, D)
     if not isinstance(pos, torch.Tensor):
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=token.device)
@@ -498,10 +526,10 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     Returns (logits (B, T, V) of the T token positions, aux: the sum of
     the MoE layers' load-balance losses, float32)."""
     T = tokens.shape[1]
-    x = _embed(params, tokens)
+    x = _constrain(_embed(params, tokens))
     prefix_len = 0
     if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        x = _constrain(torch.cat([embeds.to(x.dtype), x], dim=1))
         prefix_len = embeds.shape[1]
     B, Ttot = x.shape[:2]
     positions = torch.arange(Ttot, device=x.device)[None].expand(B, Ttot)

@@ -69,11 +69,21 @@ def _value_and_grad(cfg: ModelConfig, tree: Any, build, batch: Dict,
     with torch.enable_grad():
         loss, metrics = loss_fn(build(live), cfg, batch, remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    by_id = {id(x): torch.zeros_like(x) if g is None else g
+    by_id = {id(x): torch.zeros_like(x) if g is None else _placed_as(g, x)
              for x, g in zip(leaves, grads)}
     gtree = _zip_map(lambda x: None if x is None else by_id[id(x)], live)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, gtree
+
+
+def _placed_as(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A DTensor leaf's gradient placed as the leaf is (a partial sum over
+    a mesh dim is reduced there): the optimizer then updates each shard,
+    or each replica, with the whole gradient."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and list(g.placements) != list(x.placements):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
 
 
 def make_lora_train_step(cfg: ModelConfig, opt: AdamW, *,

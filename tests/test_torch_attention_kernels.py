@@ -238,17 +238,32 @@ def test_registry_counts_both_kernels():
 
 
 @pytest.mark.parametrize("name", ["flash", "decode"])
-def test_tensors_off_the_cpu_never_take_the_plain_version(name):
-    """Kernel or raise: a tensor that is not on the CPU (here the meta
-    device, which no kernel takes) never reaches the plain version."""
+def test_tensors_off_the_cpu_never_take_the_plain_version(name, monkeypatch):
+    """Kernel or raise: a tensor that is not on the CPU never reaches the
+    plain version.  All-meta inputs (the dry run) give an output of the
+    kernel's shape and record the kernel's work, computing nothing; a mix
+    of devices raises."""
+    import repro_torch.kernels.decode_attention.ops as dops
+    import repro_torch.kernels.flash_attention.ops as fops
+    from repro_torch.kernels import cuda_lib
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(fops, "flash_ref", plain)
+    monkeypatch.setattr(dops, "decode_attention_ref", plain)
     if name == "flash":
         q, k, v = (torch.empty(s, device="meta")
                    for s in ((1, 8, 2, 32), (1, 8, 2, 32), (1, 8, 2, 32)))
-        call = lambda: flash_mha(q, k, v)                    # noqa: E731
+        call = lambda q=q: flash_mha(q, k, v)                # noqa: E731
     else:
         q = torch.empty((1, 2, 32), device="meta")
         k = v = torch.empty((1, 8, 2, 32), device="meta")
         sp = torch.empty((8,), dtype=torch.int32, device="meta")
-        call = lambda: decode_gqa(q, k, v, sp, 3)            # noqa: E731
+        call = lambda q=q: decode_gqa(q, k, v, sp, 3)        # noqa: E731
+    with cuda_lib.record_work() as work:
+        out = call()
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert len(work) == 1 and work[0][1].flops > 0
     with pytest.raises(ValueError, match="devices"):
-        call()
+        call(torch.empty(q.shape))

@@ -1,0 +1,429 @@
+"""The port's dry run (``repro_torch/launch/dryrun.py``) and input specs
+(``launch/specs.py``) against the reference's arithmetic.
+
+* Argument bytes: one subprocess starts the fake world of 256 ranks
+  (512 for the two-pod mesh) and reports, for Llama-2-7B and
+  Mixtral-8x22B at full size on the meta device, each step's per-device
+  argument bytes by kind for all four shapes on both meshes under both
+  option sets, and executes Llama-2-7B's and Mixtral's ``decode_32k``
+  through ``dryrun.main``.  Each kind must equal what the reference's
+  specs give its ``eval_shape`` args (bytes / shard count, summed), except
+  that the reference's ring keeps an int32 ``idx`` per attention layer
+  that the port keeps on the host: the port's cache is 4 bytes a layer
+  less, exactly.
+* FLOPs count local shards: a product column-sharded 4 ways over "model"
+  counts a quarter of its global FLOPs.  A whole step's count, in a
+  second subprocess: Llama-2-7B at full width cut to 2 layers, its
+  train/prefill/decode steps on 16 x 16 and its train step on 2 x 16 x
+  16; run on plain meta tensors, the count equals
+  ``dryrun.analytic_flops`` exactly (6 P N of the products, less the
+  remat's early stop and the frozen first layer's input gradients, plus
+  the attention blocks); sharded, each device's count times the devices
+  is within 3% of it (the rest: rank-16 LoRA products on partial sums
+  whose rows do not divide; 1.7% on the two-pod mesh).
+* Every kernel wrapper's meta branch returns the kernel's output shape,
+  calls no plain version, and records the ``work()`` its bound counts;
+  ``work()`` on real inputs equals a brute-force count of its mask.
+* ``adapt_config`` and ``build_step``'s kinds for every arch x shape.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import cuda_lib
+from repro_torch.launch import specs as psp
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCHS = ("llama2_7b", "mixtral_8x22b")
+MESHES = {"pod16x16": {"data": 16, "model": 16},
+          "pod2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+SCRIPT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_production_mesh
+from repro_torch.launch.sharding import BASELINE, OPTIMIZED
+from repro_torch.launch.specs import INPUT_SHAPES, adapt_config, build_step
+
+out = {}
+for multi in (False, True):
+    with fake_world(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi)
+        for arch in %(archs)r:
+            for shape in INPUT_SHAPES:
+                step = build_step(get_config(arch), shape)
+                cfg = adapt_config(get_config(arch), shape)
+                for tag, opts in (("base", BASELINE), ("opt", OPTIMIZED)):
+                    specs = dryrun.arg_specs(step, mesh, cfg, opts)
+                    out[f"{arch}/{shape}/{dryrun.mesh_name(multi)}/{tag}"] = \\
+                        dryrun.argument_bytes(step, specs, mesh)
+dryrun.RESULTS_DIR = sys.argv[2]
+dryrun.main(["--arch", "llama2_7b", "--shape", "decode_32k"])
+dryrun.main(["--arch", "mixtral_8x22b", "--shape", "decode_32k",
+             "--optimized"])
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+FLOPS_SCRIPT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.kernels import cuda_lib
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.specs import build_step
+
+cfg = get_config("llama2_7b").with_(num_layers=2)
+out = {}
+for multi, shapes in ((False, ("train_4k", "prefill_32k", "decode_32k")),
+                      (True, ("train_4k",))):
+    with fake_world(512 if multi else 256):
+        for shape in shapes:
+            r = dryrun.run_one("llama2_7b", shape, multi_pod=multi,
+                               save=False, world=False, config=cfg)
+            out[f"{shape}/{r['mesh']}"] = dict(r["cost"],
+                                              n_devices=r["n_devices"])
+for shape in ("train_4k", "prefill_32k", "decode_32k"):
+    step = build_step(cfg, shape)
+    with cuda_lib.record_work() as work, dryrun.StepCounter() as c:
+        step.fn(*step.args)
+    out[f"{shape}/plain"] = {
+        "flops": c.flops + sum(w.flops for _, w in work),
+        "analytic": dryrun.analytic_flops(cfg, shape)}
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+class _Mesh:
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+def _reference_bytes(step, cfg, axes, optimized):
+    """Per-device bytes of the reference step's args by kind, from its
+    own specs and ``eval_shape`` args."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.launch import sharding as rs
+
+    mesh = _Mesh(axes)
+    opts = rs.OPTIMIZED if optimized else rs.BASELINE
+
+    def nbytes(specs, args):
+        leaves = jax.tree_util.tree_leaves(args, is_leaf=lambda x: x is None)
+        flat = jax.tree_util.tree_leaves(
+            specs, is_leaf=lambda x: isinstance(x, P) or x is None)
+        assert len(flat) == len(leaves)
+        total = 0
+        for spec, a in zip(flat, leaves):
+            if a is None:
+                continue
+            n = int(np.prod(a.shape)) * a.dtype.itemsize
+            for entry in tuple(spec):
+                if entry is not None:
+                    n //= rs._axis_size(mesh, entry)
+            total += n
+        return total
+
+    if step.name == "train_step":
+        backbone, adapters, opt_state, batch = step.args
+        so = type(opt_state)(P(), rs.params_specs(opt_state.mu, mesh, cfg,
+                                                  opts),
+                             rs.params_specs(opt_state.nu, mesh, cfg, opts))
+        return {"params": nbytes(rs.params_specs(backbone, mesh, cfg, opts),
+                                 backbone),
+                "adapters": nbytes(rs.params_specs(adapters, mesh, cfg,
+                                                   opts), adapters),
+                "optimizer": nbytes(so, opt_state),
+                "batch": nbytes(rs.batch_specs(batch, mesh), batch)}, 0
+    if step.name == "prefill_step":
+        params, batch, cache = step.args
+        batch_b = nbytes(rs.batch_specs(batch, mesh), batch)
+    else:
+        params, token, cache, pos = step.args
+        batch_b = nbytes(rs.batch_specs(token, mesh), token) + 4
+    n_idx = sum(int(np.prod(x.shape)) for path, x in
+                jax.tree_util.tree_flatten_with_path(cache)[0]
+                if getattr(path[-1], "key", None) == "idx")
+    return {"params": nbytes(rs.params_specs(params, mesh, cfg, opts),
+                             params),
+            "batch": batch_b,
+            "cache": nbytes(rs.cache_specs(cache, mesh, cfg, opts), cache)
+            }, 4 * n_idx
+
+
+@pytest.fixture(scope="module")
+def dry(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dry")
+    (tmp / "script.py").write_text(SCRIPT % {"archs": ARCHS})
+    (tmp / "flops.py").write_text(FLOPS_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, str(tmp / "script.py"), str(tmp / "bytes.json"),
+         str(tmp / "results")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+    fproc = subprocess.Popen(
+        [sys.executable, str(tmp / "flops.py"), str(tmp / "flops.json")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT))
+    from repro.configs import get_config as ref_config
+    from repro.launch.specs import adapt_config, build_step
+    want = {}
+    for arch in ARCHS:                    # while the subprocess runs
+        for shape in psp.INPUT_SHAPES:
+            step = build_step(ref_config(arch), shape)
+            cfg = adapt_config(ref_config(arch), shape)
+            for mesh, axes in MESHES.items():
+                for tag in ("base", "opt"):
+                    want[f"{arch}/{shape}/{mesh}/{tag}"] = _reference_bytes(
+                        step, cfg, axes, tag == "opt")
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, out[-3000:] + err[-5000:]
+    fout, ferr = fproc.communicate(timeout=300)
+    assert fproc.returncode == 0, fout[-3000:] + ferr[-5000:]
+    got = json.loads((tmp / "bytes.json").read_text())
+    got["flops"] = json.loads((tmp / "flops.json").read_text())
+    return got, want, tmp / "results", out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_argument_bytes_equal_reference_arithmetic(dry, arch):
+    got, want, _, _ = dry
+    keys = [k for k in want if k.startswith(arch + "/")]
+    assert len(keys) == 16
+    for key in keys:
+        ref, idx_bytes = want[key]
+        port = dict(got[key])
+        assert port.pop("total") == sum(port.values())
+        if "cache" in ref:
+            assert port["cache"] == ref["cache"] - idx_bytes, key
+            ref = {k: v for k, v in ref.items() if k != "cache"}
+            port.pop("cache")
+        assert port == ref, key
+
+
+def test_reference_byte_counts(dry):
+    """The quoted per-device counts: Llama-2-7B decode_32k on 16 x 16,
+    0.087 GB of weights + 8.594 GB of cache (BASELINE), 0.876 + 8.594 GB
+    (OPTIMIZED)."""
+    got = dry[0]
+    base = got["llama2_7b/decode_32k/pod16x16/base"]
+    opt = got["llama2_7b/decode_32k/pod16x16/opt"]
+    assert round(base["params"] / 1e9, 3) == 0.087
+    assert round(opt["params"] / 1e9, 3) == 0.876
+    assert round(base["cache"] / 1e9, 3) == round(opt["cache"] / 1e9, 3) \
+        == 8.594
+
+
+def test_dryrun_reports(dry):
+    """The CLI's reports: argument bytes from the placements, FLOPs on
+    local shards (the ring-decode kernel's work included), collectives,
+    temp/peak null with the reason, the reference's config metadata."""
+    got, _, results, stdout = dry
+    assert "dry-run complete" in stdout
+    for name, key in (("llama2_7b__decode_32k__pod16x16.json",
+                       "llama2_7b/decode_32k/pod16x16/base"),
+                      ("mixtral_8x22b__decode_32k__pod16x16-opt.json",
+                       "mixtral_8x22b/decode_32k/pod16x16/opt")):
+        r = json.loads((results / name).read_text())
+        assert r["memory"]["argument_bytes_by_kind"] == got[key]
+        assert r["memory"]["temp_bytes"] is None
+        assert r["memory"]["peak_bytes"] is None
+        assert r["memory"]["temp_bytes_null_reason"]
+        assert r["cost"]["flops"] > r["cost"]["aten_flops"] > 0
+        k = r["cost"]["kernels"]["decode_attention"]
+        assert k["calls"] == r["cfg_meta"]["n_attn_layers"]
+        assert r["collectives"] and r["n_devices"] == 256
+        assert r["step"] == "serve_step"
+    # per device: the ring of 128 rows x 32768 slots sharded 16 ways on
+    # rows and 16 on kv heads, one query a row: 4 hd H B S / 256
+    r = json.loads((results / "llama2_7b__decode_32k__pod16x16.json"
+                    ).read_text())
+    cfg = get_config("llama2_7b")
+    per_layer = 4 * 128 * 32 * 128 * 32768 // 256
+    assert r["cost"]["kernels"]["decode_attention"]["flops"] == \
+        cfg.num_layers * per_layer
+
+
+def test_flops_count_local_shards():
+    """A product column-sharded 4 ways over "model" counts a quarter of
+    its global FLOPs on a device."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import fake_world, make_debug_mesh
+    with fake_world(4):
+        mesh = make_debug_mesh(1, 4)
+        x = DTensor.from_local(torch.empty(8, 64, device="meta"), mesh,
+                               [Replicate(), Replicate()], run_check=False)
+        w = DTensor.from_local(torch.empty(64, 256 // 4, device="meta"),
+                               mesh, [Replicate(), Shard(1)],
+                               run_check=False)
+        with StepCounter() as c, implicit_replication():
+            y = x @ w
+        assert y.placements[1] == Shard(1)
+        assert c.flops == 2 * 8 * 64 * 256 // 4
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k",
+                                   "decode_32k"])
+def test_analytic_flops_equal_the_plain_count(dry, shape):
+    """The hand count equals the counter's on plain meta tensors."""
+    r = dry[0]["flops"][f"{shape}/plain"]
+    assert r["analytic"] == r["flops"]
+
+
+@pytest.mark.parametrize("key", ["train_4k/pod16x16", "prefill_32k/pod16x16",
+                                 "decode_32k/pod16x16",
+                                 "train_4k/pod2x16x16"])
+def test_step_flops_per_device_match_analytic(dry, key):
+    """A whole step's per-device FLOPs times the devices: no device
+    repeats another's products or attention blocks (within 3%)."""
+    r = dry[0]["flops"][key]
+    shape = key.split("/")[0]
+    analytic = dry[0]["flops"][f"{shape}/plain"]["analytic"]
+    assert r["flops_analytic"] * r["n_devices"] == analytic
+    assert r["flops_over_analytic"] == r["flops"] * r["n_devices"] / analytic
+    assert 1.0 - 1e-9 <= r["flops_over_analytic"] <= 1.03, r
+
+
+def _wrapper_cases():
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_prefill import ops as ppops
+    from repro_torch.kernels.sgmv import ops as sops
+    g = torch.Generator().manual_seed(0)
+
+    def r(*s):
+        return torch.randn(s, generator=g)
+
+    B, T, K, G, hd, S, bs, NB, MB = 2, 40, 2, 2, 32, 48, 8, 16, 6
+    H = K * G
+    slot_pos = torch.arange(S, dtype=torch.int32)
+    slot_pos[30:] = -1
+    tbl = torch.randint(1, NB, (B, MB), generator=g, dtype=torch.int32)
+    tbl[1, 2] = -1
+    pos = torch.tensor([33, 40], dtype=torch.int32)
+    q_pos = (torch.tensor([16, 24])[:, None] + torch.arange(8)[None]).to(
+        torch.int32)
+    idx = torch.tensor([0, 1, 1, 3, 0], dtype=torch.int32)
+    return [
+        ("flash", fops, fops.flash_mha, (r(B, T, H, hd), r(B, T, K, hd),
+                                         r(B, T, K, hd)),
+         dict(window=16, prefix_len=5)),
+        ("decode", dops, dops.decode_gqa,
+         (r(B, H, hd), r(B, S, K, hd), r(B, S, K, hd), slot_pos, 29),
+         dict(window=20)),
+        ("paged", pops, pops.paged_decode_gqa,
+         (r(B, H, hd), r(K, NB, bs, hd), r(K, NB, bs, hd), tbl, pos),
+         dict(window=24)),
+        ("prefill", ppops, ppops.paged_prefill_gqa,
+         (r(B, 8, H, hd), r(K, NB, bs, hd), r(K, NB, bs, hd), tbl, q_pos),
+         {}),
+        ("sgmv", sops, sops.sgmv_apply,
+         (r(5, 64), r(3, 64, 8), r(3, 8, 48), idx), {}),
+    ]
+
+
+@pytest.mark.parametrize("name", ["flash", "decode", "paged", "prefill",
+                                  "sgmv"])
+def test_meta_branch_returns_the_kernel_shape(name, monkeypatch):
+    for case in _wrapper_cases():
+        if case[0] != name:
+            continue
+        _, mod, fn, args, kw = case
+        want = fn(*args, **kw)                      # the plain version
+        for ref in ("flash_ref", "decode_attention_ref",
+                    "paged_attention_ref", "paged_prefill_ref", "sgmv_ref"):
+            if hasattr(mod, ref):
+                monkeypatch.setattr(mod, ref, None)  # calling it raises
+        meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with cuda_lib.record_work() as work:
+            out = fn(*meta, **kw)
+        assert out.device.type == "meta"
+        assert out.shape == want.shape and out.dtype == want.dtype
+        assert [w[0] for w in work] == [
+            {"flash": "flash_attention", "decode": "decode_attention",
+             "paged": "paged_attention", "prefill": "paged_prefill",
+             "sgmv": "sgmv"}[name]]
+
+
+def test_work_counts_equal_brute_force():
+    """``work()`` (what the bounds in chip_smoke.py and the dry run's
+    kernel FLOPs read) against the masks counted element by element."""
+    cases = {c[0]: c for c in _wrapper_cases()}
+    _, fops, _, (q, k, v), kw = cases["flash"]
+    T = q.shape[1]
+    i = torch.arange(T)[:, None]
+    j = torch.arange(T)[None]
+    ok = ((j <= i) | (j < kw["prefix_len"])) & (j > i - kw["window"])
+    w = fops.work(q, k, v, **kw)
+    assert w.flops == 4 * 32 * 4 * 2 * int(ok.sum())
+    assert fops.visible_pairs(T, T, causal=False) == T * T
+    _, dops, _, (q, k, v, sp, pos), kw = cases["decode"]
+    valid = int(((sp >= 0) & (sp <= pos) & (sp > pos - kw["window"])).sum())
+    assert dops.work(q, k, v, sp, pos, **kw).flops == 4 * 32 * 4 * 2 * valid
+    assert dops.work(q.to("meta"), k.to("meta"), v.to("meta"),
+                     sp.to("meta"), torch.empty((), device="meta")
+                     ).flops == 4 * 32 * 4 * 2 * 48
+    _, sops, _, (x, a, b, idx), _ = cases["sgmv"]
+    w = sops.work(x, a, b, idx)
+    assert w.flops == 2 * 4 * 8 * (64 + 48)         # 4 rows in range
+    assert w.bytes == 4 * (5 * 64 + 2 * 8 * (64 + 48) + 5 * 48) + 4 * 5
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_adapt_config_and_step_kinds(arch):
+    """Every arch x shape: the reference's ``adapt_config`` rule and the
+    step each shape lowers (train / prefill / serve, None when skipped)."""
+    from repro.configs import get_config as ref_config
+    from repro.launch.specs import adapt_config as ref_adapt
+    kinds = {"train_4k": "train_step", "prefill_32k": "prefill_step",
+             "decode_32k": "serve_step", "long_500k": "serve_step"}
+    for shape in psp.INPUT_SHAPES:
+        ref = ref_adapt(ref_config(arch), shape)
+        cfg = psp.adapt_config(get_config(arch), shape)
+        assert (ref is None) == (cfg is None)
+        step = psp.build_step(get_config(arch), shape)
+        if cfg is None:
+            assert step is None
+            continue
+        assert cfg.sliding_window == ref.sliding_window
+        assert step.name == kinds[shape]
+        if step.name == "serve_step":
+            _, token, cache, pos = step.args
+            assert token.shape == (128 if shape == "decode_32k" else 1,)
+            assert pos.shape == () and token.device.type == "meta"
+
+
+def test_activation_spec_hook():
+    """``transformer.set_activation_spec``: unset, it does nothing (as the
+    reference's); set, a DTensor activation is redistributed to the spec
+    and a plain tensor passes unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import fake_world, make_debug_mesh
+    from repro_torch.models import transformer as tf
+    with fake_world(4):
+        mesh = make_debug_mesh(2, 2)
+        x = DTensor.from_local(torch.empty(4, 8, 16, device="meta"), mesh,
+                               [Replicate(), Shard(2)], run_check=False)
+        assert tf._constrain(x) is x
+        tf.set_activation_spec(("data", None, None), mesh)
+        try:
+            y = tf._constrain(x)
+            plain = torch.empty(4, 8, 16)
+            assert tf._constrain(plain) is plain
+        finally:
+            tf.set_activation_spec(None)
+        assert list(y.placements) == [Shard(0), Replicate()]
+        assert y.shape == (4, 8, 32) and y.to_local().shape == (2, 8, 32)

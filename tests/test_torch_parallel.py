@@ -1,0 +1,329 @@
+"""The port's multi-device paths on 4 gloo ranks (one ``torchrun`` of a
+script written to a temporary directory), held against the reference:
+
+* shard order: a dim over ("pod", "data") is cut pod-major on a (2, 2, 1)
+  ("pod", "data", "model") mesh, as JAX cuts it, by both
+  ``sharding.shard_of`` and DTensor under ``sharding.to_placements``;
+* ``models/moe.py::_apply_moe_parallel`` on a 2 x 2 ("data", "model")
+  mesh against the reference's shard-local math (``_moe_math`` /
+  ``_moe_capacity_math`` on each data shard's tokens with the full F, the
+  aux losses averaged over the shards), float32: within 2e-5 (ragged) and
+  5e-3 (capacity; drop_fraction <= 0.05), as the reference's own
+  ``tests/test_moe_parallel.py`` holds its shard_map; under 64 local
+  tokens the fallback equals the reference's dropless plain path on all
+  tokens under either dispatch; the gradients of x and of every weight
+  equal ``jax.grad`` of that per-shard math (the sum over the model group
+  of each rank's share);
+* a LoRA step over the 2 x 2 mesh, the launcher's ``--mesh`` path
+  (``launch/train.py::shard``: the backbone cut by ``params_specs(...,
+  OPTIMIZED)``; adapters, optimizer state and batch replicated;
+  ``forward_train`` on DTensors), against the same step unsharded in the
+  same process: the loss within 1e-5 relative (of the gradients' pass and
+  of the whole step), each adapter leaf's gradient within 1e-4 of its
+  largest.  d_model 1024 and 2 layers, so that the matrices shard (under
+  2^20 elements the policy replicates them); some leaf must be sharded.
+
+Inputs are seeded numpy arrays; the reference computes while the ranks
+run.  The ranks tear their group down; the parent never starts one.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+RANKS = textwrap.dedent('''
+    import sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.lora import combine_lora, partition_lora, tree_leaves
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import init_world, make_debug_mesh, make_mesh
+    from repro_torch.launch.sharding import shard_of, to_placements
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import LoRAConfig, ModelConfig
+    from repro_torch.training.adamw import AdamW, constant_schedule
+    from repro_torch.training.train import (_value_and_grad, batch_to,
+                                            make_lora_train_step)
+
+    out_path, in_path = sys.argv[1], sys.argv[2]
+    init_world("gloo")
+    rank = dist.get_rank()
+    res = {}
+
+    # shard order: rows over ("pod", "data"), pod-major
+    pm = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    t = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+    spec = (("pod", "data"), None)
+    p, d, _ = pm.get_coordinate()
+    mine = shard_of(t, spec, pm)
+    assert torch.equal(mine, t[(p * 2 + d) * 2:(p * 2 + d + 1) * 2]), mine
+    dt = DTensor.from_local(mine, pm, to_placements(spec, pm),
+                            run_check=False)
+    assert torch.equal(dt.full_tensor(), t)
+    res["shard_order_ok"] = 1
+
+    # shard-local MoE on a 2 x 2 (data, model) mesh
+    mesh = make_debug_mesh(2, 2)
+    inp = np.load(in_path)
+    cfg = ModelConfig(name="m", family="moe", num_layers=1, d_model=32,
+                      num_heads=2, num_kv_heads=1, d_ff=64, vocab_size=64,
+                      num_experts=4, experts_per_token=2, dtype="float32")
+    pm_ = {"router": {"w": torch.from_numpy(inp["router"])},
+           "wi": torch.from_numpy(inp["wi"]),
+           "wg": torch.from_numpy(inp["wg"]),
+           "wo": torch.from_numpy(inp["wo"])}
+    moe.set_parallel_mesh(mesh)
+    for dispatch in ("ragged", "capacity"):
+        moe.set_dispatch(dispatch)
+        out, aux = moe._apply_moe_parallel(pm_, cfg,
+                                           torch.from_numpy(inp["x"]))
+        assert isinstance(out, DTensor)
+        res[f"moe_{dispatch}"] = out.full_tensor().numpy()
+        for k, v in aux.items():
+            res[f"aux_{dispatch}_{k}"] = v.full_tensor().numpy()
+    for dispatch in ("ragged", "capacity"):
+        moe.set_dispatch(dispatch)
+        small, _ = moe._apply_moe_parallel(pm_, cfg,
+                                           torch.from_numpy(inp["x_small"]))
+        res[f"moe_fallback_{dispatch}"] = small.numpy()
+
+    # gradients through the shard-local MoE, of x and of every weight
+    r = torch.from_numpy(inp["r"])
+    for dispatch in ("ragged", "capacity"):
+        moe.set_dispatch(dispatch)
+        xg = torch.from_numpy(inp["x"]).requires_grad_(True)
+        wg = {k: torch.from_numpy(inp[k]).requires_grad_(True)
+              for k in ("router", "wi", "wg", "wo")}
+        out, aux = moe._apply_moe_parallel(
+            {"router": {"w": wg["router"]}, "wi": wg["wi"], "wg": wg["wg"],
+             "wo": wg["wo"]}, cfg, xg)
+        loss = (out.full_tensor() * r).sum() \
+            + 0.3 * aux["load_balance_loss"].full_tensor() \
+            + 0.7 * aux["router_z_loss"].full_tensor()
+        loss.backward()
+        res[f"grad_{dispatch}_x"] = xg.grad.numpy()
+        for k, t in wg.items():
+            res[f"grad_{dispatch}_{k}"] = t.grad.numpy()
+    moe.set_dispatch("ragged")
+    moe.set_parallel_mesh(None)
+
+    # a LoRA step over the mesh against the same step unsharded
+    lcfg = ModelConfig(name="wide", family="dense", num_layers=2,
+                       d_model=1024, num_heads=8, num_kv_heads=8,
+                       head_dim=128, d_ff=2048, vocab_size=256,
+                       dtype="float32",
+                       lora=LoRAConfig(rank=4, alpha=8.0, num_adapters=1))
+    gen = torch.Generator().manual_seed(0)
+    params = tf.init_params(lcfg, gen, "cpu", lora_adapters=None,
+                            lora_b_scale=0.02)
+    backbone, adapters = partition_lora(params)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.integers(0, 256, (4, 16)).astype(np.int32)}
+    opt = AdamW(lr=constant_schedule(1e-3))
+    loss0, _, g0 = _value_and_grad(
+        lcfg, adapters, lambda ad: combine_lora(backbone, ad),
+        batch_to(batch, "cpu"), True)
+    new0, _, m0 = make_lora_train_step(lcfg, opt)(
+        backbone, adapters, opt.init(adapters), batch)
+
+    run = launch_train.TrainRun(lcfg, backbone, adapters, opt,
+                                opt.init(adapters),
+                                make_lora_train_step(lcfg, opt), iter(()),
+                                64)
+    run = launch_train.shard(run, mesh)
+    sharded = [x for x in tree_leaves(run.backbone)
+               if any(not pl.is_replicate() for pl in x.placements)]
+    res["sharded_leaves"] = len(sharded)
+    sb = launch_train._replicated(batch_to(batch, "cpu"), mesh)
+    with implicit_replication():
+        loss1, _, g1 = _value_and_grad(
+            lcfg, run.adapters, lambda ad: combine_lora(run.backbone, ad),
+            sb, True)
+    new1, _, m1 = run.step_fn(run.backbone, run.adapters, run.opt_state,
+                              batch)
+    res["loss0"], res["loss1"] = float(loss0), float(loss1.full_tensor())
+    res["step_loss0"], res["step_loss1"] = float(m0["loss"]), \\
+        float(m1["loss"])
+    for i, (a, b) in enumerate(zip(tree_leaves(g0), tree_leaves(g1))):
+        res[f"g0_{i}"], res[f"g1_{i}"] = a.numpy(), b.full_tensor().numpy()
+    if rank == 0:
+        np.savez(out_path, **res)
+    dist.barrier()
+    dist.destroy_process_group()
+''')
+
+
+D, F, E = 32, 64, 4
+
+
+def _inputs():
+    """Seeded float32 MoE weights at the reference's init scales (router
+    and wi/wg N(0, 1/D), wo N(0, 1/F)) and tokens: 4 x 32 (64 local tokens
+    a data shard: the parallel path) and 4 x 8 (16: the fallback), with
+    the cotangent ``r`` of the gradient check."""
+    rng = np.random.default_rng(0)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    router = n(D, E, scale=D ** -0.5)
+    inp = {"router": router, "wi": n(E, D, F, scale=D ** -0.5),
+           "wg": n(E, D, F, scale=D ** -0.5),
+           "wo": n(E, F, D, scale=F ** -0.5),
+           "x": n(4, 32, D), "x_small": n(4, 8, D), "r": n(4, 32, D)}
+    # every small token leans to expert 0: capacity dispatch would drop
+    # some (32 picks of it for 20 places), the dropless math none
+    inp["x_small"] += 4.0 * router[:, 0] / np.linalg.norm(router[:, 0])
+    return inp
+
+
+def _reference_moe(inp):
+    """The reference's shard-local math on each data shard's tokens, the
+    aux losses averaged over the shards; the plain path on all tokens."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import moe as jmoe
+    from repro.models.config import ModelConfig as JaxConfig
+
+    cfg = JaxConfig(name="m", family="moe", num_layers=1, d_model=D,
+                    num_heads=2, num_kv_heads=1, d_ff=F, vocab_size=64,
+                    num_experts=E, experts_per_token=2)
+    p = {"router": {"w": jnp.asarray(inp["router"])},
+         "wi": jnp.asarray(inp["wi"]), "wg": jnp.asarray(inp["wg"]),
+         "wo": jnp.asarray(inp["wo"])}
+    x = jnp.asarray(inp["x"])
+    fns = {name: jax.jit(lambda p, x, math=math: math(p, cfg, x))
+           for name, math in (("ragged", jmoe._moe_math),
+                              ("capacity", jmoe._moe_capacity_math))}
+    want = {}
+    for name, fn in fns.items():
+        outs, auxes = [], []
+        for shard in (x[:2], x[2:]):               # data shards of B
+            o, a = fn(p, shard.reshape(-1, D))
+            outs.append(np.asarray(o).reshape(2, 32, D))
+            auxes.append({k: float(v) for k, v in a.items()})
+        want[name] = np.concatenate(outs)
+        want[f"aux_{name}"] = {k: np.mean([a[k] for a in auxes])
+                               for k in auxes[0]}
+    o, _ = fns["ragged"](p, jnp.asarray(inp["x_small"]).reshape(-1, D))
+    want["fallback"] = np.asarray(o).reshape(4, 8, D)
+    r = jnp.asarray(inp["r"])
+    for name, math in (("ragged", jmoe._moe_math),
+                       ("capacity", jmoe._moe_capacity_math)):
+        def loss(p, x, math=math):
+            outs, lb, z = [], [], []
+            for shard in (x[:2], x[2:]):
+                o, a = math(p, cfg, shard.reshape(-1, D))
+                outs.append(o.reshape(2, 32, D))
+                lb.append(a["load_balance_loss"])
+                z.append(a["router_z_loss"])
+            return (jnp.sum(jnp.concatenate(outs) * r)
+                    + 0.3 * jnp.mean(jnp.stack(lb))
+                    + 0.7 * jnp.mean(jnp.stack(z)))
+        gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, x)
+        want[f"grad_{name}"] = {
+            "x": np.asarray(gx), "router": np.asarray(gp["router"]["w"]),
+            "wi": np.asarray(gp["wi"]), "wg": np.asarray(gp["wg"]),
+            "wo": np.asarray(gp["wo"])}
+    return want
+
+
+def run_ranks(tmp: Path, script: str, inputs=None, nproc: int = 4):
+    """Start ``script`` on ``nproc`` gloo ranks under torchrun with
+    ``(out.npz, in.npz)`` as its arguments; returns a function that waits
+    for it and loads what rank 0 saved."""
+    if inputs is not None:
+        np.savez(tmp / "in.npz", **inputs)
+    (tmp / "ranks.py").write_text(script)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), str(tmp / "ranks.py"),
+         str(tmp / "out.npz"), str(tmp / "in.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT))
+
+    def wait():
+        out, err = proc.communicate(timeout=240)
+        assert proc.returncode == 0, out[-3000:] + err[-5000:]
+        with np.load(tmp / "out.npz") as z:
+            return {k: z[k] for k in z.files}
+
+    return wait
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    inp = _inputs()
+    wait = run_ranks(tmp_path_factory.mktemp("ranks"), RANKS, inp)
+    want = _reference_moe(inp)          # while the ranks run
+    return wait(), want
+
+
+def test_pod_data_shard_order_is_pod_major(ranks):
+    got, _ = ranks
+    assert int(got["shard_order_ok"]) == 1
+
+
+@pytest.mark.parametrize("dispatch,tol", [("ragged", 2e-5),
+                                          ("capacity", 5e-3)])
+def test_moe_parallel_matches_shard_local_reference(ranks, dispatch, tol):
+    got, want = ranks
+    np.testing.assert_allclose(got[f"moe_{dispatch}"], want[dispatch],
+                               atol=tol, rtol=tol)
+    for k, v in want[f"aux_{dispatch}"].items():
+        np.testing.assert_allclose(float(got[f"aux_{dispatch}_{k}"]), v,
+                                   atol=tol, rtol=tol)
+    if dispatch == "capacity":
+        assert float(got["aux_capacity_drop_fraction"]) <= 0.05
+
+
+def test_moe_parallel_falls_back_under_64_local_tokens(ranks):
+    """Under either dispatch the fallback is the reference's dropless
+    ``_moe_math`` on all tokens."""
+    got, want = ranks
+    for dispatch in ("ragged", "capacity"):
+        np.testing.assert_allclose(got[f"moe_fallback_{dispatch}"],
+                                   want["fallback"], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dispatch,tol", [("ragged", 2e-5),
+                                          ("capacity", 5e-3)])
+def test_moe_parallel_gradients_match_shard_local_reference(ranks, dispatch,
+                                                            tol):
+    """The gradients of x and of every weight, through the shard-local
+    MoE on the 2 x 2 mesh, against ``jax.grad`` of the reference's math
+    on each data shard (aux losses averaged over the shards): each within
+    ``tol`` of the leaf's largest gradient."""
+    got, want = ranks
+    for k, g in want[f"grad_{dispatch}"].items():
+        d = np.abs(got[f"grad_{dispatch}_{k}"] - g).max()
+        assert d <= tol * np.abs(g).max(), (k, d, np.abs(g).max())
+
+
+def test_sharded_lora_step_equals_unsharded(ranks):
+    got, _ = ranks
+    assert int(got["sharded_leaves"]) > 0
+    l0, l1 = float(got["loss0"]), float(got["loss1"])
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    s0, s1 = float(got["step_loss0"]), float(got["step_loss1"])
+    assert abs(s1 - s0) <= 1e-5 * abs(s0)
+    n = sum(1 for k in got if k.startswith("g0_"))
+    assert n > 0
+    for i in range(n):
+        g0, g1 = got[f"g0_{i}"], got[f"g1_{i}"]
+        assert np.abs(g1 - g0).max() <= 1e-4 * np.abs(g0).max()
