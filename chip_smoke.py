@@ -100,15 +100,16 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
 8. Mixtral-8x22B at full width, its depth cut to 8 of 56 layers: window
    reclamation against its rule and against a run without it, the
    telemetry exporters, the breakdown beside its bound;
-9. RecurrentGemma-9B at full width and depth (38 layers, hd 256, G = 16)
-   under ``CompileGuard({decode: 1, prefill: 1})``: 8 requests of
+9. RecurrentGemma-9B at full width (hd 256, G = 16), its depth cut to 12
+   of 38 layers (4 periods of REC, REC, ATTN), under ``CompileGuard({decode: 1, prefill: 1})``: 8 requests of
    2100-2600 prompt tokens past the 2048-key window, exact launch counts,
    ``reclaimed_blocks`` against the rule, tokens equal to an eager
    runtime's, 4 prompts again on recycled slots with equal tokens, the
    state rows of slots a decode chunk did not serve unchanged bit for
    bit, the sampling epilogue alone at vocab 256000, and the breakdown
    beside its bound;
-10. Mamba2-780M at full width and depth (48 SSD layers): no pool block
+10. Mamba2-780M at full width, its depth cut to 16 of 48 SSD layers: no
+   pool block
    charged, exact SGMV launches, tokens equal to an eager runtime's, the
    breakdown beside its bound (weights plus the state rows read and
    written);
@@ -179,7 +180,8 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    back bit for bit, loaded into an ``AdapterRegistry`` and served;
 17. the multi-device launch layer (``launch/{mesh,sharding,specs,
    dryrun}.py``, ``launch/train.py --mesh``, the shard-local MoE).
-   17a, on the host in a child process beside 17b-d: the dry run over
+   17a, on the host in a child process at the lowest CPU priority,
+   started before phase 8 and running beside phases 8-17: the dry run over
    the fake 16x16 and 2x16x16 worlds (meta tensors as DTensors):
    Llama-2-7B x the four shapes, Mixtral-8x22B x the four shapes
    (OPTIMIZED) and Nemotron-4-340B decode_32k on both meshes, and
@@ -202,10 +204,29 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    arguments, 3 steps, each loss within 1e-3 of phase 16's.  17d:
    ``_apply_moe_parallel`` at Mixtral-8x22B's width (one MoE layer, 4 x
    512 tokens, both dispatches) against ``apply_moe``'s plain path,
-   timed.
+   timed;
+18. the examples (``repro_torch.examples``), run right after phase 6 on
+   its weights, within 90 s.  18a: ``serve_continuous``'s work function
+   at Llama-2-7B's full width and depth on the example's default trace
+   (3 bursty functions at 2 requests/s for 15 s, 24-token prompts behind
+   a 16-token shared prefix, 16 outputs; 8 slots, blocks of 8, 96 blocks,
+   prefill chunk 16, decode chunk 4) with three random adapters loaded by
+   name: every request in a terminal state, no block in use after the
+   drain, ``CompileGuard({decode: 1, prefill: 1})``, prefix block maps,
+   no non-finite logit and exact paged prefill, paged decode and SGMV
+   launches; TTFT and TPOT p50 / p95, the host-bubble fraction and
+   tokens/s printed.  18b: ``serve_multilora``'s work function on the
+   same weights (24 requests over the 4 adapters, 16 new tokens): the
+   measured T0, one capture per batch size, exact flash, ring-decode and
+   SGMV launches.  18c: ``quickstart`` (exact launches; its simulator
+   lines equal to a CPU run's), ``train_lora`` (its defaults, the
+   checkpoint under ``build/``; no launch) and ``serverless_sim``
+   through their ``main`` at the reference's SMOKE sizes, each example's
+   own asserts holding.
 
 Phases 8-17 each run in a child process of the script (``isolated``; one
-child per model in phase 13; 17a and 17b-d in one each, side by side).
+child per model in phase 13; 17a and 17b-d in one each, 17a beside the
+others).
 ``--report`` writes every number to a JSON file.  The model of phases 4,
 5 and 6 runs at its full depth.  Each capture of a dispatch is preceded by one
 eager run of it (``serving/graphs.py``), whose launches count.  The last
@@ -311,12 +332,14 @@ MIXTRAL_PROMPT = (4200, 4700)     # past the 4096-key window
 MIXTRAL_OUTPUT = 64          # every slot decodes across the window
 MIXTRAL_BREAKDOWN_PROMPT = 4160   # 65 chunks: history up to the window
 
-# Phase 9: RecurrentGemma-9B at full width and depth (38 layers, 18.8 GB of
-# bf16 weights).  Its 12 ATTN layers page 16 tokens x 1 kv head x 256 x K
-# and V: 16 KB per block per layer, so 1400 blocks are 269 MB over the 12
-# layers; 168 blocks per slot hold 2688 tokens.  The 26 REC layers keep
-# 1.06 MB of state rows per slot.
+# Phase 9: RecurrentGemma-9B at full width, its depth cut from 38 to 12
+# layers (4 whole periods of REC, REC, ATTN) to keep the script inside its
+# time limit.  Its ATTN layers page 16 tokens x 1 kv head x 256 x K and V:
+# 16 KB per block per layer, so 1400 blocks are 90 MB over the 4 layers;
+# 168 blocks per slot hold 2688 tokens.  The REC layers keep 41 KB of
+# state rows per slot a layer.
 RGEMMA = "recurrentgemma_9b"
+RGEMMA_LAYERS = 12
 RGEMMA_SERVE = dict(num_slots=8, block_size=16, num_blocks=1400,
                     max_blocks_per_slot=168, prefill_chunk=64,
                     prefill_rows=4, decode_chunk=4)
@@ -325,10 +348,12 @@ RGEMMA_OUTPUT = 64
 RGEMMA_REPEAT = 4                 # first-wave prompts served again
 RGEMMA_BREAKDOWN_PROMPT = 2112    # 33 chunks: history past the window
 
-# Phase 10: Mamba2-780M at full width and depth (48 SSD layers, 1.56 GB),
-# attention-free: no pool block is charged (the pool only holds its
-# garbage block), and a slot's state rows are 76.4 MB.
+# Phase 10: Mamba2-780M at full width, its depth cut from 48 to 16 SSD
+# layers to keep the script inside its time limit; attention-free: no pool
+# block is charged (the pool only holds its garbage block), and a slot's
+# state rows are 1.59 MB a layer.
 MAMBA = "mamba2_780m"
+MAMBA_LAYERS = 16
 MAMBA_SERVE = dict(num_slots=8, block_size=16, num_blocks=8,
                    max_blocks_per_slot=4, prefill_chunk=64, prefill_rows=4,
                    decode_chunk=4)
@@ -413,7 +438,7 @@ TRAIN_GRAD_TOL = 1e-4
 
 # phase 17: the multi-device launch layer on one card.  17a: the dry run
 # on the host over the fake 16x16 and 2x16x16 worlds (in a child process
-# of its own, beside 17b-d); 17b: build_step's prefill and serve steps of
+# of its own, beside phases 8-17); 17b: build_step's prefill and serve steps of
 # Llama-2-7B at full width and depth as DTensors on a one-rank NCCL mesh,
 # at a reduced batch; 17c: the training launcher with --mesh 1x1; 17d:
 # the shard-local MoE at Mixtral-8x22B's width.
@@ -3310,11 +3335,11 @@ def recurrentgemma_phase(device: Dict) -> Dict:
     from repro_torch.core.sampling import sample_with_uniform
     from repro_torch.serving import ServingConfig, replay_trace
 
-    t0 = phase("phase 9: serve RecurrentGemma-9B at full width and depth "
-               "on the card")
+    t0 = phase(f"phase 9: serve RecurrentGemma-9B at full width "
+               f"({RGEMMA_LAYERS} of 38 layers) on the card")
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, params, n_bytes = state_model(RGEMMA)
+    cfg, params, n_bytes = state_model(RGEMMA, layers=RGEMMA_LAYERS)
     scfg = ServingConfig(**RGEMMA_SERVE)
     work, prompts = system_prompt_trace(
         cfg.vocab_size, MIXTRAL_REQUESTS, RGEMMA_PROMPT, RGEMMA_OUTPUT,
@@ -3391,11 +3416,11 @@ def mamba_phase(device: Dict) -> Dict:
     from repro_torch.models.cache import state_bytes_per_slot
     from repro_torch.serving import ServingConfig
 
-    t0 = phase("phase 10: serve Mamba2-780M at full width and depth on the "
-               "card")
+    t0 = phase(f"phase 10: serve Mamba2-780M at full width "
+               f"({MAMBA_LAYERS} of 48 layers) on the card")
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, params, n_bytes = state_model(MAMBA)
+    cfg, params, n_bytes = state_model(MAMBA, layers=MAMBA_LAYERS)
     scfg = ServingConfig(**MAMBA_SERVE)
     print(f"state rows: {state_bytes_per_slot(cfg) / 1e6:.1f} MB a slot")
     work, prompts = system_prompt_trace(
@@ -4662,7 +4687,9 @@ def train_phase(device: Dict) -> Dict:
 
 # ------------------------------------------ 17. the multi-device launch layer
 def dryrun_phase(device: Dict) -> Dict:
-    """Phase 17a (see the module docstring): host only, no card."""
+    """Phase 17a (see the module docstring): host only, no card; at the
+    lowest CPU priority, since it runs beside the card's phases."""
+    os.nice(19)
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world
     from repro_torch.launch.sharding import BASELINE, OPTIMIZED
@@ -5052,21 +5079,224 @@ def sharded_phase(device: Dict) -> Dict:
             "phase_s": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------- 18. examples
+EXAMPLE_MULTILORA = dict(requests=24, adapters=ADAPTERS, max_new=16)
+EXAMPLES_BUDGET_S = 90.0
+
+
+def serve_continuous_example(cfg, params, device: Dict) -> Dict:
+    """18a: ``examples/serve_continuous.py``'s work function, its default
+    trace and serving shape, on phase 4's full-width weights."""
+    from repro_torch import kernels
+    from repro_torch.examples import serve_continuous as ex
+    from repro_torch.serving import CompileGuard, terminal_state
+
+    args = ex.build_parser().parse_args(["--device", "cuda"])
+    adapters = [ex.rand_adapter(params, 100 + a)
+                for a in range(args.adapters)]
+    with FiniteLogits() as finite, CompileGuard(
+            {"decode": 1, "prefill": 1}) as guard:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rep = ex.run(args, cfg, params, adapters, on_runtime=guard.attach)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    rt, res = rep.pop("runtime"), rep["result"]
+    report = guard.report()
+    states = [terminal_state(r) for r in res.requests]
+    books = rt.check_invariants(res.requests)
+    st = rep["stats"]
+    prefills = st["prefill_chunks"] + 2 + 1      # + warmup's two, capture's
+    steps = (st["decode_chunks"] + 2 + 1) * rt.scfg.decode_chunk
+    expected = expected_launches(cfg, prefills, steps)
+    h = rep["snapshot"]["histograms"]
+    out = {"requests": len(res.requests), "served": rep["served"],
+           "states": {s: states.count(s) for s in set(map(str, states))},
+           "in_use_after_drain": rep["in_use_after_drain"],
+           "shared_block_maps": st["shared_block_maps"],
+           "compile_guard": report, "launches": launches,
+           "expected": expected, "prefill_dispatches": prefills,
+           "decode_steps": steps,
+           "ttft_p50_s": h["ttft_s"]["p50"], "ttft_p95_s": h["ttft_s"]["p95"],
+           "tpot_p50_s": h["tpot_s"]["p50"], "tpot_p95_s": h["tpot_s"]["p95"],
+           "host_bubble_fraction": rep["snapshot"]["host_bubble_fraction"],
+           "tokens_per_s": rep["tokens_per_s"], "wall_s": wall}
+    print(f"18a: {out['requests']} requests, terminal states "
+          f"{out['states']}, in use after drain {out['in_use_after_drain']},"
+          f" shared block maps {out['shared_block_maps']}, CompileGuard "
+          f"{json.dumps(report)}")
+    print(f"18a launches {launches}, expected {expected} ({prefills} "
+          f"prefill dispatches, {steps} decode steps incl. warmup and the "
+          f"eager run before each capture, {cfg.num_layers} layers, "
+          f"{len(cfg.lora.targets)} LoRA sites)")
+    print(f"18a: TTFT p50/p95 {out['ttft_p50_s'] * 1e3:.2f}/"
+          f"{out['ttft_p95_s'] * 1e3:.2f} ms, TPOT p50/p95 "
+          f"{out['tpot_p50_s'] * 1e3:.3f}/{out['tpot_p95_s'] * 1e3:.3f} ms, "
+          f"host-bubble fraction {out['host_bubble_fraction']:.4f}, "
+          f"{out['tokens_per_s']:.1f} tokens/s (replay clock); wall "
+          f"{wall:.1f} s on {_smi(device)}")
+    if None in states:
+        fail("18a: a request ended in no terminal state")
+    if out["in_use_after_drain"] or books["pool"]["live"]:
+        fail(f"18a: blocks still in use after the drain: {books['pool']}")
+    if report["decode_compiles"] != 1 or report["prefill_compiles"] != 1:
+        fail(f"18a: dispatches captured more than once: {report}")
+    if out["shared_block_maps"] <= 0:
+        fail("18a: no prefix block was mapped")
+    if not finite.ok():
+        fail("18a: non-finite logits")
+    if launches != expected:
+        fail("18a: launch counts differ from layers x dispatches x sites")
+    del rt, rep, res
+    gc.collect()
+    return out
+
+
+def serve_multilora_example(cfg, params, device: Dict) -> Dict:
+    """18b: ``examples/serve_multilora.py``'s work function on phase 4's
+    full-width weights: T0 from one measured prefill, the adaptive
+    scheduler, ``InferenceEngine.generate`` per batch."""
+    from repro_torch import kernels
+    from repro_torch.examples import serve_multilora as ex
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    profile = torch.randint(0, cfg.vocab_size, (1, ex.PROMPT_LEN),
+                            generator=gen, device="cuda", dtype=torch.int32)
+
+    def draw_prompts(served: int, b: int) -> torch.Tensor:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(served)
+        return torch.randint(0, cfg.vocab_size, (b, ex.PROMPT_LEN),
+                             generator=g, device="cuda", dtype=torch.int32)
+
+    with FiniteLogits() as finite:
+        kernels.reset_launches()
+        rep = ex.run(cfg, params, profile, draw_prompts, device="cuda",
+                     **EXAMPLE_MULTILORA)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    new, L = EXAMPLE_MULTILORA["max_new"], cfg.num_layers
+    sizes = [d[2] for d in rep["dispatches"]]
+    captures = rep["captures"]
+    calls = len(sizes) + 1                       # + the profiling prefill
+    steps = len(sizes) * (new - 1) + len(captures)   # + eager before capture
+    expected = engine_launches(cfg, calls, steps)
+    print(f"18b: T0 {rep['t0_s'] * 1e3:.2f} ms measured (one prefill of 1 x "
+          f"{ex.PROMPT_LEN} tokens); batches {sizes}; captures "
+          f"{ {str(k): n for k, n in captures.items()} }; launches "
+          f"{launches}, expected {expected} ({calls} prefill calls, {steps} "
+          f"decode steps incl. the eager run before each capture); "
+          f"{rep['tokens']} tokens in {rep['wall_s']:.2f} s on "
+          f"{_smi(device)}")
+    if rep["served"] != EXAMPLE_MULTILORA["requests"] or \
+            any(d[3] != (d[2], new) for d in rep["dispatches"]):
+        fail(f"18b: served {rep['served']} requests, shapes "
+             f"{[d[3] for d in rep['dispatches']]}")
+    if sorted(k[0] for k in captures) != sorted(set(sizes)) or \
+            set(captures.values()) != {1}:
+        fail(f"18b: expected one capture per batch size: {captures}")
+    if not finite.ok():
+        fail("18b: non-finite logits")
+    if launches != expected:
+        fail("18b: launch counts differ from layers x calls x sites")
+    return {"t0_s": rep["t0_s"], "batches": sizes, "launches": launches,
+            "expected": expected, "tokens": rep["tokens"],
+            "wall_s": rep["wall_s"], "tokens_per_s":
+            rep["tokens"] / rep["wall_s"]}
+
+
+def smoke_examples(device: Dict) -> Dict:
+    """18c: ``quickstart``, ``train_lora`` and ``serverless_sim`` through
+    their ``main`` on the card at the reference's SMOKE sizes; their own
+    asserts hold inside."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.examples import quickstart, serverless_sim, train_lora
+    out: Dict[str, Dict] = {}
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    rep = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    # one generate of 8 tokens: a prefill call, 7 steps and the eager one
+    # before the step's capture
+    expected = engine_launches(get_smoke("llama2_7b"), 1, 8)
+    on_cpu = quickstart.simulate()
+    print(f"18c quickstart: zero-copy {rep['zero_copy']}, launches "
+          f"{launches}, expected {expected}; simulator lines equal to a "
+          f"CPU run: {rep['simulator'] == on_cpu} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if launches != expected:
+        fail("18c: quickstart's launch counts differ from layers x calls x "
+             "sites")
+    if rep["simulator"] != on_cpu:
+        fail("18c: quickstart's simulator lines differ from the CPU's")
+    out["quickstart"] = {"launches": launches, "tokens": rep["tokens"],
+                         "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    rep = train_lora.main(["--device", "cuda", "--out",
+                           str(ROOT / "build" / "train_lora_ckpts")])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"18c train_lora: pretrain {rep['history'][0]:.4f} -> "
+          f"{rep['history'][-1]:.4f}, LoRA {rep['head']:.4f} -> "
+          f"{rep['tail']:.4f}, checkpoint {rep['nbytes']} B, launches "
+          f"{launches} ({time.perf_counter() - t0:.1f} s)")
+    if any(launches.values()):
+        fail("18c: the training path launched a kernel")
+    out["train_lora"] = {"history": rep["history"], "head": rep["head"],
+                         "tail": rep["tail"], "nbytes": rep["nbytes"],
+                         "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    rep = serverless_sim.main(["--device", "cuda"])
+    print(f"18c serverless_sim: max TTFT reduction "
+          f"{rep['max_ttft_reduction']:.4f}, max cost reduction "
+          f"{rep['max_cost_reduction']:.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out["serverless_sim"] = dict(rep, seconds=time.perf_counter() - t0)
+    return out
+
+
+def examples_phase(cfg, params, device: Dict) -> Dict:
+    """Phase 18 (see the module docstring)."""
+    t0 = phase("phase 18: the examples (repro_torch.examples) on the card; "
+               "18a and 18b at Llama-2-7B's full width and depth")
+    out = {"serve_continuous": serve_continuous_example(cfg, params, device),
+           "serve_multilora": serve_multilora_example(cfg, params, device),
+           "smoke": smoke_examples(device)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 18 ok ({out['phase_s']:.1f} s; budget "
+          f"{EXAMPLES_BUDGET_S:.0f} s), {_smi(device)}")
+    if out["phase_s"] > EXAMPLES_BUDGET_S:
+        fail(f"phase 18 took {out['phase_s']:.1f} s, over its "
+             f"{EXAMPLES_BUDGET_S:.0f} s")
+    # the examples' engines and runtimes hold phase 4's weights in
+    # reference cycles (a dispatch and its bound step): collect them, so
+    # that ``del params`` frees the weights before the later phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def start_isolated(phase_id: str, device: Dict) -> Callable[[], Dict]:
     """``isolated``, started in the background: returns a function that
     waits for the child, prints what it printed, and returns its report
-    (a host-only phase runs beside the card's phases this way)."""
+    (a host-only phase runs beside the card's phases this way).  The
+    child writes to a file, so that it never waits on a full pipe."""
     tmp = tempfile.mkdtemp()
-    report = Path(tmp) / "phase.json"
-    child = subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--child-phase",
-         phase_id, "--child-report", str(report), "--child-device",
-         json.dumps(device)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    report, log = Path(tmp) / "phase.json", Path(tmp) / "phase.log"
+    with open(log, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--child-phase",
+             phase_id, "--child-report", str(report), "--child-device",
+             json.dumps(device)], stdout=f, stderr=subprocess.STDOUT)
 
     def wait() -> Dict:
-        out, _ = child.communicate(timeout=900)
-        print(out, end="")
+        child.wait(timeout=900)
+        print(log.read_text(), end="")
         if child.returncode:
             fail(f"phase {phase_id} failed in its child process (exit "
                  f"{child.returncode})")
@@ -5131,10 +5361,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     serve = serve_phase(cfg, params, device)
     launch = launcher_phase(cfg, params, device)
     overload = overload_phase(cfg, params, device)
+    examples = examples_phase(cfg, params, device)
     del params
     torch.cuda.empty_cache()
     parity = parity_phase()
     torch.cuda.empty_cache()
+    # 17a on the host, at the lowest priority, beside phases 8-17 on the
+    # card: alone after them it set the script's wall (127-221 s)
+    dry = start_isolated("17a", device)
     mixtral = isolated("8", device)
     rgemma = isolated("9", device)
     mamba = isolated("10", device)
@@ -5144,8 +5378,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     cold = isolated("14", device)
     whisper = isolated("15", device)
     training = isolated("16", device)
-    # 17a on the host beside 17b-d on the card
-    dry = start_isolated("17a", device)
     sharded = isolated("17", dict(
         device, phase16_losses=training["losses"][:SHARDED_TRAIN_STEPS]))
     dryrun_rep = dry()
@@ -5172,7 +5404,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.report.write_text(json.dumps(
             {"device": device, "build": build, "kernels": kern["cases"],
              "serve": serve, "launcher": launch, "overload": overload,
-             "parity": parity, "mixtral": mixtral,
+             "examples": examples, "parity": parity, "mixtral": mixtral,
              "recurrentgemma": rgemma, "mamba2": mamba,
              "nemotron": nemotron, "paligemma": paligemma,
              "launcher_zoo": zoo, "cold_start": cold, "whisper": whisper,

@@ -1,6 +1,8 @@
 """The port's own rules: ``repro_torch``, ``chip_smoke.py`` and
-``chip_variants.py`` import neither JAX nor the JAX package, and the smoke
-script refuses to run without a CUDA card."""
+``chip_variants.py`` import neither JAX nor the JAX package (nor the
+reference's ``benchmarks`` and ``examples``, whose setup the port keeps
+its own copy of), and the smoke script refuses to run without a CUDA
+card."""
 from __future__ import annotations
 
 import ast
@@ -16,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 VARIANTS = ROOT / "chip_variants.py"
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "benchmarks", "examples")
 
 
 def _modules():
@@ -69,6 +71,13 @@ def test_training_and_checkpoint_modules_are_walked():
         assert name in mods
 
 
+def test_example_modules_are_walked():
+    mods = _modules()
+    for name in ("paper_setup", "serverless_sim", "quickstart",
+                 "serve_multilora", "serve_continuous", "train_lora"):
+        assert f"repro_torch.examples.{name}" in mods
+
+
 @pytest.mark.parametrize("path",
                          sorted(PKG.rglob("*.py")) + [SMOKE, VARIANTS],
                          ids=lambda p: str(p.relative_to(ROOT)))
@@ -79,8 +88,10 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_scan_catches_a_reference_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import numpy\nfrom repro.models import layers\n"
-                   "import jax.numpy as jnp\nfrom repro_torch import x\n")
-    assert _banned_imports(bad) == ["bad.py:2 repro", "bad.py:3 jax"]
+                   "import jax.numpy as jnp\nfrom repro_torch import x\n"
+                   "from benchmarks.common import paper_workload\n")
+    assert _banned_imports(bad) == ["bad.py:2 repro", "bad.py:3 jax",
+                                    "bad.py:5 benchmarks"]
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():
