@@ -36,10 +36,13 @@ MAX_GROUP = 16           # query heads per kv head
 
 def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                slot_pos: torch.Tensor, pos: Union[int, torch.Tensor], *,
-               window: Optional[int] = None) -> torch.Tensor:
+               window: Optional[int] = None, return_lse: bool = False):
     """q: (B, H, hd); k, v: (B, S, K, hd) (engine cache layout); slot_pos:
     (S,) int32; pos: the current absolute decode position.  Returns
-    (B, H, hd)."""
+    (B, H, hd); with ``return_lse`` also each row's and head's log of the
+    sum of exp scores over its valid slots, (B, H) float32 (-inf with
+    none), from the partitions' (max, sum): what a merge across devices
+    that split the slots needs (``models/layers.py::_merge_partials``)."""
     B, H, hd = q.shape
     Bk, S, K, hd_k = k.shape
     pos_t = pos if isinstance(pos, torch.Tensor) else None
@@ -54,11 +57,14 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     extra = () if pos_t is None else (pos_t,)
     kind = cuda_lib.device_kind(q, k, v, slot_pos, *extra)
     if kind == "cpu":
-        return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
+        return decode_attention_ref(q, k, v, slot_pos, pos, window=window,
+                                    return_lse=return_lse)
     if kind == "meta":
-        return cuda_lib.meta_call(
+        out = cuda_lib.meta_call(
             "decode_attention", work(q, k, v, slot_pos, pos, window=window),
             torch.empty_like(q))
+        return (out, q.new_empty((B, H), dtype=torch.float32)) \
+            if return_lse else out
     cuda_lib.refuse_autograd("ring decode", q, k, v)
     code = cuda_lib.dtype_code(q, k, v)
     cuda_lib.require_int32(slot_pos, *extra)
@@ -83,6 +89,8 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         window if window is not None else 0, code,
         cuda_lib.stream_of(q)), "ring_decode")
     decode_gqa.launches += 1
+    if return_lse:
+        return out, torch.logsumexp(m + torch.log(l), -1).reshape(B, H)
     return out
 
 

@@ -21,9 +21,12 @@ from repro_torch.kernels.paged_attention.ref import masked_attention
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          slot_pos: torch.Tensor,
                          pos: Union[int, torch.Tensor], *,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         return_lse: bool = False):
     """q: (B, H, hd); k, v: (B, S, K, hd); slot_pos: (S,) int; pos: a
-    scalar.  Returns (B, H, hd) in q's dtype, computed in float32."""
+    scalar.  Returns (B, H, hd) in q's dtype, computed in float32; with
+    ``return_lse`` also the log of the sum of exp scores over the valid
+    slots, (B, H) float32 (-inf with none)."""
     B, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -33,4 +36,8 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         ok = ok & (slot_pos > pos - window)
     o = masked_attention(s, ok, v.float().permute(0, 2, 1, 3))
-    return o.reshape(B, H, hd).to(q.dtype)
+    out = o.reshape(B, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(ok, s, torch.full_like(s, -math.inf)).logsumexp(-1)
+    return out, lse.reshape(B, H)

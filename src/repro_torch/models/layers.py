@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.decode_attention.ops import decode_gqa
 from repro_torch.kernels.flash_attention.ops import flash_mha
@@ -365,7 +365,19 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
     if isinstance(cache["k"], DTensor):
         return _ring_attention_per_shard(cache, q, k, v, positions, window,
                                          prefix_len)
-    B, T = q.shape[:2]
+    _ring_write(cache, k, v, positions)
+    if q.shape[1] > 1:
+        return flash_mha(q, k, v, causal=True, window=window,
+                         prefix_len=prefix_len)
+    return decode_gqa(q[:, 0], cache["k"], cache["v"], cache["slot_pos"],
+                      positions[0, 0], window=window)[:, None]
+
+
+def _ring_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
+                positions: torch.Tensor) -> None:
+    """``_ring_attention``'s writes on plain tensors: the T new K/V and
+    their positions into the ring, in place, and ``idx`` advanced by T."""
+    T = k.shape[1]
     S = cache["k"].shape[1]
     idx = cache["idx"]
     if T > 1 and idx != 0:
@@ -373,8 +385,6 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
                          f"{idx}): queries at positions [0, T) would "
                          f"attend to older slots")
     if T > S:
-        out = flash_mha(q, k, v, causal=True, window=window,
-                        prefix_len=prefix_len)
         cache["k"].copy_(k[:, -S:])
         cache["v"].copy_(v[:, -S:])
         cache["slot_pos"].copy_(positions[0, -S:])
@@ -382,30 +392,67 @@ def _ring_attention(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
         cache["k"][:, :T] = k.to(cache["k"].dtype)
         cache["v"][:, :T] = v.to(cache["v"].dtype)
         cache["slot_pos"][:T] = positions[0]
-        out = flash_mha(q, k, v, causal=True, window=window,
-                        prefix_len=prefix_len)
     else:
         slot = torch.remainder(positions[0], S).long()           # (1,)
         cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
         cache["slot_pos"].index_copy_(0, slot, positions[0])
-        out = decode_gqa(q[:, 0], cache["k"], cache["v"],
-                         cache["slot_pos"], positions[0, 0],
-                         window=window)[:, None]
     cache["idx"] = idx + T
-    return out
+
+
+def _ring_split(pl, mesh, B: int, H: int, K: int, T: int, S: int):
+    """How ``_ring_attention_per_shard`` splits the attention on each mesh
+    dim that ``pl`` (the ring's batch and kv-head shards) leaves whole:
+    "heads" where the query heads left divide it and each share lies in
+    whole kv groups or inside one; else "rows" where the rows left divide
+    it; else, at decode, "kv" where the slots left divide it: each rank
+    attends over its own slots; else None (every rank repeats the
+    attention: a prefill whose heads and rows do not divide).  A split
+    composes after the ring's own shards of that tensor dim (DTensor's
+    chunk order), so it is taken only on a mesh dim after them."""
+    G = H // K
+    left = {0: B, 1: S, 2: H}
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            left[p.dim] //= mesh.size(i)
+    kinds = []
+    for i, p in enumerate(pl):
+        n = mesh.size(i)
+        after = {d: all(j < i for j, pj in enumerate(pl)
+                        if isinstance(pj, Shard) and pj.dim == d)
+                 for d in (0, 2)}
+        kind = None
+        if n == 1 or isinstance(p, Shard):
+            pass
+        elif (after[2] and left[2] % n == 0
+              and ((left[2] // n) % G == 0 or G % (left[2] // n) == 0)):
+            kind, left[2] = "heads", left[2] // n
+        elif after[0] and left[0] % n == 0:
+            kind, left[0] = "rows", left[0] // n
+        elif T == 1 and left[1] % n == 0:
+            kind, left[1] = "kv", left[1] // n
+        kinds.append(kind)
+    return kinds
 
 
 def _ring_attention_per_shard(cache: Dict[str, Any], q, k, v, positions,
                               window: Optional[int],
                               prefix_len: int) -> torch.Tensor:
-    """``_ring_attention`` on a DTensor ring cache, per shard: each
-    device writes and attends over its own rows and kv heads (the cache's
-    batch and head sharding; a ring sharded on the sequence or head_dim
-    is gathered on those mesh dims for the kernels and split again after
-    the write), as the reference's per-shard math does.  DTensor's own
-    in-place ops on a sharded ring (setitem, ``index_copy_``) may move
-    its placements, so none of them runs on the DTensors."""
+    """``_ring_attention`` on a DTensor ring cache, per shard.  Each
+    device writes its own rows and kv heads (the cache's batch and head
+    sharding; a ring sharded on the sequence or head_dim is gathered on
+    those mesh dims for the write and split again after it).  The
+    attention follows ``_per_shard``'s rule, that no device repeats
+    another's work that a split could spare (``_ring_split``): on a mesh
+    dim the ring leaves whole, each rank takes its share of the query
+    heads and the kv heads they read, or of the rows, or, at decode, of
+    the slots, whose (max, sum, out) partials are merged across the group
+    as ``split_kv_merge`` merges partitions (two all-reduces of (B, H)
+    statistics and outputs).  A share of rows is gathered again after the
+    kernel, so the output reaches the out projection as the ring's
+    kv-head split would: whole rows, heads split.  DTensor's own in-place
+    ops on a sharded ring (setitem, ``index_copy_``) may move its
+    placements, so none of them runs on the DTensors."""
     ck = cache["k"]
     mesh = ck.device_mesh
     pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
@@ -419,19 +466,86 @@ def _ring_attention_per_shard(cache: Dict[str, Any], q, k, v, positions,
             t = t.redistribute(mesh, want)
         return t.to_local()
 
+    B, T, H, _ = q.shape
+    K = k.shape[2]
+    kinds = _ring_split(pl, mesh, B, H, K, T, ck.shape[1])
+    qpl = [Shard(2) if kind == "heads" else Shard(0) if kind == "rows"
+           else p for p, kind in zip(pl, kinds)]
+
     lc = {"k": local(ck, pl), "v": local(cache["v"], pl),
           "slot_pos": local(cache["slot_pos"], rep), "idx": cache["idx"]}
     if isinstance(positions, DTensor):
         positions = positions.full_tensor()
-    out = _ring_attention(lc, local(q, pl), local(k, pl), local(v, pl),
-                          positions, window, prefix_len)
+    kl, vl = local(k, pl), local(v, pl)
+    _ring_write(lc, kl, vl, positions)
     for name, want in (("k", pl), ("v", pl), ("slot_pos", rep)):
         if list(cache[name].placements) != want:
             cache[name] = DTensor.from_local(
                 lc[name], mesh, want, run_check=False).redistribute(
                     mesh, cache[name].placements)
     cache["idx"] = lc["idx"]
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+    ql = local(q, qpl)
+    if T > 1:
+        kv = [kl, vl]
+    else:
+        kv = [lc["k"], lc["v"], lc["slot_pos"]]
+    G = H // K
+    h, off = H, 0               # query heads left, offset in the kv heads
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 2:
+            h //= mesh.size(i)
+    for i, kind in enumerate(kinds):
+        if kind is None:
+            continue
+        n, c = mesh.size(i), mesh.get_local_rank(i)
+        if kind == "heads":
+            h //= n
+            off += c * h
+        elif kind == "rows":
+            b = kv[0].shape[0] // n
+            kv[:2] = [t.narrow(0, c * b, b) for t in kv[:2]]
+        else:
+            s = kv[0].shape[1] // n
+            kv = [t.narrow(1, c * s, s) for t in kv[:2]] \
+                + [kv[2].narrow(0, c * s, s)]
+    kv[:2] = [t.narrow(2, off // G, max(1, h // G)).contiguous()
+              for t in kv[:2]]
+    kv_dims = [i for i, kind in enumerate(kinds) if kind == "kv"]
+    if T > 1:
+        out = flash_mha(ql, kv[0], kv[1], causal=True, window=window,
+                        prefix_len=prefix_len)
+    elif not kv_dims:
+        out = decode_gqa(ql[:, 0], *kv, positions[0, 0],
+                         window=window)[:, None]
+    else:
+        o, lse = decode_gqa(ql[:, 0], *kv, positions[0, 0], window=window,
+                            return_lse=True)
+        out = _merge_partials(o, lse, mesh, kv_dims)[:, None]
+    res = DTensor.from_local(out, mesh, qpl, run_check=False)
+    if "rows" in kinds:
+        res = res.redistribute(mesh, [Replicate() if kind == "rows" else p
+                                      for p, kind in zip(qpl, kinds)])
+    return res
+
+
+def _merge_partials(o: torch.Tensor, lse: torch.Tensor, mesh,
+                    dims) -> torch.Tensor:
+    """Merge each rank's attention over its own slots, ``o`` (B, H, hd)
+    normalised by its ``lse`` (B, H, log of the sum of exp scores, -inf
+    with no slot), across the mesh ``dims``: out = sum_r e^(lse_r - L) o_r
+    / sum_r e^(lse_r - L) with L the largest lse, as ``split_kv_merge``
+    merges a kernel's partitions."""
+    def reduce(t, op):
+        pl = [Partial(op) if i in dims else Replicate()
+              for i in range(mesh.ndim)]
+        return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+
+    top = reduce(lse, "max")
+    w = torch.exp(lse - torch.where(torch.isinf(top), 0.0, top))[..., None]
+    tot = reduce(torch.cat([o.float() * w, w], -1), "sum")
+    return (tot[..., :-1] / tot[..., -1:].clamp(min=1e-30)).to(o.dtype)
 
 
 def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,

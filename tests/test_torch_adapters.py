@@ -12,6 +12,7 @@ must keep its ``data_ptr()`` (the port writes the bank in place so that
 captured CUDA graphs stay valid).  Token streams are greedy and must be
 equal exactly.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

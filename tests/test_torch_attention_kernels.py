@@ -11,6 +11,7 @@ chip_smoke.py holds the kernels to).  Every compared row keeps at least one
 key: the reference averages every key of a row that keeps none, the port
 returns zeros, and no caller has such a row.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,6 +183,45 @@ def test_ring_decode_matches_pallas_and_oracle(B, S, H, K, written, window,
     mine = decode_attention_ref(_t(q), _t(k), _t(v), _t(sp), pos,
                                 window=window)
     np.testing.assert_allclose(mine.numpy(), np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,K,written,window,s_block", DECODE_CASES)
+def test_ring_decode_lse_merges_halves_to_pallas(B, S, H, K, written, window,
+                                                 s_block):
+    """``return_lse``: the log of the sum of exp scores over the valid
+    slots, against numpy's; the two halves of the ring attended apart and
+    merged by their lse (as ``layers._merge_partials`` merges ranks) equal
+    the reference's Pallas kernel over the whole ring."""
+    q, k, v = _decode_inputs(B, S, H, K)
+    sp = _ring(S, written)
+    pos = written - 1
+    out, lse = decode_gqa(_t(q), _t(k), _t(v), _t(sp), pos, window=window,
+                          return_lse=True)
+    np.testing.assert_array_equal(
+        out.numpy(), decode_gqa(_t(q), _t(k), _t(v), _t(sp), pos,
+                                window=window).numpy())
+    ok = (sp >= 0) & (sp <= pos)
+    if window is not None:
+        ok &= sp > pos - window
+    G = H // K
+    qg = q.reshape(B, K, G, -1).astype(np.float64)
+    sc = np.einsum("bkgh,bskh->bkgs", qg, k.astype(np.float64)) \
+        / np.sqrt(q.shape[-1])
+    sc = np.where(ok, sc, -np.inf)
+    m = sc.max(-1)
+    want = (m + np.log(np.exp(sc - m[..., None]).sum(-1))).reshape(B, H)
+    np.testing.assert_allclose(lse.numpy(), want, **TOL)
+    h = S // 2
+    parts = [decode_gqa(_t(q), _t(k[:, a:b].copy()), _t(v[:, a:b].copy()),
+                        _t(sp[a:b].copy()), pos, window=window,
+                        return_lse=True) for a, b in ((0, h), (h, S))]
+    top = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(l_ - top)[..., None] for _, l_ in parts]
+    merged = (w[0] * parts[0][0] + w[1] * parts[1][0]) / (w[0] + w[1])
+    pallas = jax_decode_gqa(_j(q), _j(k), _j(v), _j(sp),
+                            jnp.asarray(pos, jnp.int32), window=window,
+                            s_block=s_block)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(pallas), **TOL)
 
 
 def test_ring_decode_ignores_future_and_empty_slots():

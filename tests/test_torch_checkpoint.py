@@ -8,6 +8,7 @@ Whisper encoder included), the reference's checkpoint-retry case
 (``tests/test_robustness.py``), and the launcher's checkpoint read back
 by the reference.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import json
 import os
 

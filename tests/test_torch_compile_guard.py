@@ -5,6 +5,7 @@ key of every new input signature.  Plus a runtime replay mixing greedy
 and sampled requests under ``{decode: 1, prefill: 1}``: sampling
 parameters are data, never a new shape.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ P V, a few bf16 units of the output at most).  The reference's rows with
 no attended key are junk by its own account (it averages the garbage
 block), so an inactive row is held only to the plain version: exact zeros.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import math
 
 import jax.numpy as jnp

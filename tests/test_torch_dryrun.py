@@ -26,6 +26,7 @@
   ``work()`` on real inputs equals a brute-force count of its mask.
 * ``adapt_config`` and ``build_step``'s kinds for every arch x shape.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import json
 import os
 import subprocess
@@ -81,6 +82,7 @@ from repro_torch.launch.mesh import fake_world
 from repro_torch.launch.specs import build_step
 
 cfg = get_config("llama2_7b").with_(num_layers=2)
+NEMOTRON2 = get_config("nemotron_4_340b").with_(num_layers=2)
 out = {}
 for multi, shapes in ((False, ("train_4k", "prefill_32k", "decode_32k")),
                       (True, ("train_4k",))):
@@ -90,6 +92,11 @@ for multi, shapes in ((False, ("train_4k", "prefill_32k", "decode_32k")),
                                save=False, world=False, config=cfg)
             out[f"{shape}/{r['mesh']}"] = dict(r["cost"],
                                               n_devices=r["n_devices"])
+        if not multi:
+            r = dryrun.run_one("nemotron_4_340b", "decode_32k", save=False,
+                               world=False, config=NEMOTRON2)
+            out["nemotron2/decode_32k/pod16x16"] = dict(
+                r["cost"], n_devices=r["n_devices"])
 for shape in ("train_4k", "prefill_32k", "decode_32k"):
     step = build_step(cfg, shape)
     with cuda_lib.record_work() as work, dryrun.StepCounter() as c:
@@ -98,6 +105,23 @@ for shape in ("train_4k", "prefill_32k", "decode_32k"):
         "flops": c.flops + sum(w.flops for _, w in work),
         "analytic": dryrun.analytic_flops(cfg, shape)}
 json.dump(out, open(sys.argv[1], "w"))
+"""
+
+# the reference's depth probe d2 (``repro/launch/dryrun.py::_probe_reports``:
+# the config at twice its layer pattern, compiled by XLA over the forced
+# host devices that importing the module sets up) for Nemotron-4-340B
+# decode_32k on 16 x 16: per-device FLOPs of 2 layers
+REF_PROBE_SCRIPT = """
+import json, sys
+from repro.launch import dryrun
+from repro.configs import get_config
+from repro.launch.mesh import make_production_mesh
+from repro.launch.sharding import BASELINE
+cfg = get_config("nemotron_4_340b")
+probes = dryrun._probe_reports(cfg, "decode_32k",
+                               make_production_mesh(multi_pod=False),
+                               BASELINE)
+json.dump({"pattern": list(cfg.pattern), **probes}, open(sys.argv[1], "w"))
 """
 
 
@@ -174,6 +198,11 @@ def dry(tmp_path_factory):
         [sys.executable, str(tmp / "flops.py"), str(tmp / "flops.json")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=str(ROOT))
+    (tmp / "probe.py").write_text(REF_PROBE_SCRIPT)
+    rproc = subprocess.Popen(
+        [sys.executable, str(tmp / "probe.py"), str(tmp / "probe.json")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT))
     from repro.configs import get_config as ref_config
     from repro.launch.specs import adapt_config, build_step
     want = {}
@@ -189,8 +218,11 @@ def dry(tmp_path_factory):
     assert proc.returncode == 0, out[-3000:] + err[-5000:]
     fout, ferr = fproc.communicate(timeout=300)
     assert fproc.returncode == 0, fout[-3000:] + ferr[-5000:]
+    rout, rerr = rproc.communicate(timeout=300)
+    assert rproc.returncode == 0, rout[-3000:] + rerr[-5000:]
     got = json.loads((tmp / "bytes.json").read_text())
     got["flops"] = json.loads((tmp / "flops.json").read_text())
+    got["reference_probe"] = json.loads((tmp / "probe.json").read_text())
     return got, want, tmp / "results", out
 
 
@@ -295,6 +327,20 @@ def test_step_flops_per_device_match_analytic(dry, key):
     assert 1.0 - 1e-9 <= r["flops_over_analytic"] <= 1.03, r
 
 
+def test_nemotron_decode_flops_within_reference_probe(dry):
+    """Nemotron-4-340B at 2 layers, decode_32k on 16 x 16: its 8 kv heads
+    do not divide "model", so the ring is split on head_dim; each device
+    still takes its share of the attention (6 query heads and the kv head
+    they read), and its FLOPs stay within 3% of the reference's depth
+    probe d2 for the same cell (the whole data shard's attention on every
+    model rank read 2.6x it)."""
+    ref = dry[0]["reference_probe"]
+    assert ref["pattern"] == ["attn"]          # d2 = 2 layers
+    r = dry[0]["flops"]["nemotron2/decode_32k/pod16x16"]
+    assert r["n_devices"] == 256
+    assert 0 < r["flops"] <= 1.03 * ref["d2"]["flops"], (r["flops"], ref)
+
+
 def _wrapper_cases():
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
@@ -356,6 +402,12 @@ def test_meta_branch_returns_the_kernel_shape(name, monkeypatch):
             {"flash": "flash_attention", "decode": "decode_attention",
              "paged": "paged_attention", "prefill": "paged_prefill",
              "sgmv": "sgmv"}[name]]
+        if name == "decode":                # the split-KV merge's lse too
+            with cuda_lib.record_work() as work:
+                out, lse = fn(*meta, **kw, return_lse=True)
+            assert out.shape == want.shape and lse.device.type == "meta"
+            assert lse.shape == want.shape[:2] and lse.dtype == torch.float32
+            assert [w[0] for w in work] == ["decode_attention"]
 
 
 def test_work_counts_equal_brute_force():

@@ -12,6 +12,7 @@ Tolerances, float32: logits within atol = rtol = 1e-4 (layers of float32
 matmuls summed in another order); ring caches (k, v) within 1e-4, slot
 positions and ``idx`` equal; greedy tokens equal.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ keeps one leaf per layer where the reference stacks them, so only
 ``train_lora``'s losses, each step a float32-accumulated bfloat16 product
 of another framework, are held within 1e-3 absolute.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import re
 

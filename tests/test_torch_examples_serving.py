@@ -18,6 +18,7 @@ the port's work function on the reference's weights (carried over by
   time, is equal.  Every line is equal, and so are every request's greedy
   tokens and the whole event list.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 import re
 import types

@@ -16,6 +16,7 @@ the weight bridge keeps float32 leaves of a bf16 checkpoint float32, and
 the paged attention wrappers' contract and plain versions at
 RecurrentGemma-9B's head_dim 256 and G = 16.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

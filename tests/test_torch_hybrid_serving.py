@@ -7,6 +7,7 @@ bridge (float32, LoRA B drawn nonzero).
 Tolerance of the logits and state rows: 1e-5 x max(1, max |reference|),
 as in ``tests/test_torch_hybrid.py``; greedy token streams are equal.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ its own copy of), and the smoke script refuses to run without a CUDA
 card."""
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import ast
 import os
 import pkgutil

@@ -7,6 +7,7 @@ in summation order.  Rows whose block table is all -1 (inactive decode
 slots) are excluded: the reference averages garbage there, the port
 returns zeros; both are discarded by the runtime.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

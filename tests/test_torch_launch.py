@@ -8,6 +8,7 @@ come from different generators, so tokens are not compared here
 (``tests/test_torch_engine.py`` holds the engine's tokens against the
 reference on shared weights).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import contextlib
 import inspect
 import io

@@ -7,6 +7,7 @@ whose position lies past the block table (its write must land in the
 garbage block, as the reference's out-of-range ``take_along_axis`` fill
 makes it) and an inactive row (table all -1, also garbage).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

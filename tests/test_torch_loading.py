@@ -15,6 +15,7 @@ Exact comparisons throughout (copies bit for bit, the estimate's algebra
 ``==``), except the tokens, which hold the reference's greedy choices over
 logits that agree within 1e-4 (``tests/test_torch_engine.py``).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -6,6 +6,7 @@ and the bridge itself.
 Tolerance: logits within atol 1e-4 (two layers of float32 matmuls summed
 in another order), greedy tokens equal.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

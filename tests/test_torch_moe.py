@@ -9,6 +9,7 @@ summed in another order) and 2^-7 x max(1, max |ref|) in bfloat16 (two
 units of bf16 rounding); aux losses within 1e-5 x max(1, |ref|) (float32
 arithmetic on the same rounded logits).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

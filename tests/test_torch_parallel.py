@@ -26,6 +26,7 @@ script written to a temporary directory), held against the reference:
 Inputs are seeded numpy arrays; the reference computes while the ranks
 run.  The ranks tear their group down; the parent never starts one.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os
 import subprocess
 import sys
@@ -159,6 +160,84 @@ RANKS = textwrap.dedent('''
         float(m1["loss"])
     for i, (a, b) in enumerate(zip(tree_leaves(g0), tree_leaves(g1))):
         res[f"g0_{i}"], res[f"g1_{i}"] = a.numpy(), b.full_tensor().numpy()
+
+    # ring prefill and decode with one kv head, which does not divide
+    # "model": the ring falls back to head_dim or to the sequence.  As
+    # DTensors against the same steps on plain tensors; spies on the
+    # wrappers layers.py calls sum the attention kernels' work() a rank
+    import dataclasses
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as lspecs
+    from repro_torch.launch.sharding import BASELINE
+    from repro_torch.models import layers
+
+    work = {"prefill": 0, "decode": 0}
+
+    def spy(fn, count, key):
+        def call(*a, **kw):
+            work[key] += count(*a, window=kw.get("window")).flops
+            return fn(*a, **kw)
+        return call
+
+    layers.flash_mha = spy(fops.flash_mha, fops.work, "prefill")
+    layers.decode_gqa = spy(dops.decode_gqa, dops.work, "decode")
+
+    def placed(tree, specs):
+        return dryrun._map_with_specs(tree, specs, lambda t, sp: (
+            DTensor.from_local(shard_of(t, sp, mesh), mesh,
+                               to_placements(sp, mesh), run_check=False)))
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    for H, B in ((2, 4), (3, 4), (3, 2)):
+        rcfg = ModelConfig(name="ring", family="dense", num_layers=2,
+                           d_model=48, num_heads=H, num_kv_heads=1,
+                           head_dim=16, d_ff=64, vocab_size=64,
+                           dtype="float32")
+        rparams = tf.init_params(rcfg, torch.Generator().manual_seed(1),
+                                 "cpu", lora_adapters=None)
+        toks = torch.from_numpy(np.random.default_rng(H * 10 + B).integers(
+            0, 64, (B, 6)).astype(np.int32))
+        for fb in ("hd", "seq"):
+            opts = dataclasses.replace(BASELINE, kv_fallback=fb)
+            tag = f"ring_{H}_{B}_{fb}"
+            for dt in (False, True):
+                side = "dt" if dt else "plain"
+                cache = lspecs.abstract_cache(rcfg, B, 8, device="cpu")
+                args = (rparams, {"tokens": toks}, cache)
+                if dt:
+                    sp = dryrun.arg_specs(lspecs.StepSpec(
+                        "prefill_step", None, args), mesh, rcfg, opts)
+                    res[f"{tag}_placements"] = np.array(
+                        [str(x) for x in to_placements(sp["cache"][0]["k"],
+                                                       mesh)])
+                    args = tuple(placed(a, sp[k]) for a, k in zip(
+                        args, ("params", "batch", "cache")))
+                work.update(prefill=0, decode=0)
+                with implicit_replication():
+                    logits, ring = lspecs.prefill_fn(rcfg)(*args)
+                    outs = [full(logits)]
+                    tok = outs[0].argmax(-1).to(torch.int32)
+                    # 3 decode steps: positions 6-8, the last wraps slot 0
+                    for p_ in range(6, 9):
+                        logits, ring = lspecs.serve_fn(rcfg)(
+                            args[0], tok, ring,
+                            torch.tensor(p_, dtype=torch.int32))
+                        outs.append(full(logits))
+                        tok = outs[-1].argmax(-1).to(torch.int32)
+                res[f"{tag}_{side}_logits"] = torch.stack(outs).numpy()
+                for li, layer in enumerate(ring):
+                    for name in ("k", "v", "slot_pos"):
+                        res[f"{tag}_{side}_{name}{li}"] = \
+                            full(layer[name]).numpy()
+                w = torch.tensor([work["prefill"], work["decode"]],
+                                 dtype=torch.float64)
+                dist.all_reduce(w, op=dist.ReduceOp.MAX)   # the most a rank
+                res[f"{tag}_{side}_work"] = w.numpy()
+    layers.flash_mha, layers.decode_gqa = fops.flash_mha, dops.decode_gqa
     if rank == 0:
         np.savez(out_path, **res)
     dist.barrier()
@@ -327,3 +406,42 @@ def test_sharded_lora_step_equals_unsharded(ranks):
     for i in range(n):
         g0, g1 = got[f"g0_{i}"], got[f"g1_{i}"]
         assert np.abs(g1 - g0).max() <= 1e-4 * np.abs(g0).max()
+
+
+# (query heads, rows, ring fallback) -> the most a rank's prefill and
+# decode kernels may do, as a share of the same steps unsharded: the data
+# axis halves the rows; on "model" the attention splits its query heads
+# (H = 2), its rows (4 rows: 2 a data shard), or at decode its slots (2
+# rows, H = 3: neither divides; the rank of slots 0-3 sees 4 valid slots
+# at each of positions 6-8, 12 of the 23 a row sees whole), while such a
+# prefill runs whole on "model"'s ranks
+RING_CASES = {(2, 4, "hd"): (0.25, 0.25), (2, 4, "seq"): (0.25, 0.25),
+              (3, 4, "hd"): (0.25, 0.25), (3, 4, "seq"): (0.25, 0.25),
+              (3, 2, "hd"): (0.5, 12 / 46), (3, 2, "seq"): (0.5, 12 / 46)}
+
+
+@pytest.mark.parametrize("heads,rows,fallback", list(RING_CASES))
+def test_sharded_ring_attention_splits_over_model(ranks, heads, rows,
+                                                  fallback):
+    """A ring prefill of 6 tokens and 3 decode steps (the last wraps
+    slot 0) of a 2-layer float32 model with one kv head, as DTensors on
+    the 2 x 2 mesh under ``kv_fallback`` "hd" and "seq": the ring split on
+    head_dim or on the sequence over "model", the logits and every
+    layer's ring within 1e-5 of the same steps on plain tensors, and no
+    rank's attention kernels doing more than their share of the work."""
+    got, _ = ranks
+    tag = f"ring_{heads}_{rows}_{fallback}"
+    assert list(got[f"{tag}_placements"]) == \
+        ["S(0)", "S(3)" if fallback == "hd" else "S(1)"]
+    np.testing.assert_allclose(got[f"{tag}_dt_logits"],
+                               got[f"{tag}_plain_logits"], atol=1e-5,
+                               rtol=1e-5)
+    for layer in range(2):
+        for name in ("k", "v", "slot_pos"):
+            np.testing.assert_allclose(got[f"{tag}_dt_{name}{layer}"],
+                                       got[f"{tag}_plain_{name}{layer}"],
+                                       atol=1e-5, rtol=1e-5)
+    plain, dt = got[f"{tag}_plain_work"], got[f"{tag}_dt_work"]
+    assert (plain > 0).all()
+    share = np.array(RING_CASES[heads, rows, fallback])
+    assert (dt <= share * plain * (1 + 1e-12)).all(), (dt, plain)

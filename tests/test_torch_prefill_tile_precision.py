@@ -18,6 +18,7 @@ rounding of P costs at most a few bf16 units of the output, so the
 emulation must stay inside that budget against the float32 plain
 versions; this test checks it before any run on the card.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import math
 
 import jax.numpy as jnp

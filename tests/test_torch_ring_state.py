@@ -12,6 +12,7 @@ states; the attention rings' slots, positions and K/V) must agree within
 1e-5 x max(1, max |reference|): the scans combine in another order than
 the reference's ``associative_scan`` and einsums.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ The reference's checkpoint-retry case runs against the port's
 ``checkpoint/store.py`` in ``tests/test_torch_checkpoint.py``
 (``test_checkpoint_load_retries_through_fault_hook``).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@
 * ``keep_mask`` and ``sampling_distribution`` are held against ``repro``
   (the draws themselves cannot match its threefry keys).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

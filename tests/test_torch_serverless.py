@@ -14,6 +14,7 @@ inputs; the two CoV-bucket tests and the two workload tests repeat each
 other, so each pair is one parametrised test.  The qualitative claims of
 ``tests/test_system.py`` are held on the port's simulator.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import copy
 import dataclasses
 

@@ -5,6 +5,7 @@ multi-adapter trace replayed through the reference's ContinuousRuntime and
 the port's on the CPU, under deterministic fake clocks, must admit and
 reject the same requests and emit the same greedy token streams.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

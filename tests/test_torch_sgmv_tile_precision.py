@@ -20,6 +20,7 @@ Tolerances, as ``chip_smoke.py`` holds the kernels to the plain version
 (the implementations differ only in summation order) and 2^-7 in bfloat16
 (each side rounds once).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

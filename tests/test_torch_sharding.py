@@ -11,6 +11,7 @@ port leaf is compared with the reference's spec for the leaf where
 ``checkpoint/bridge.py::reference_tree`` puts it, without the stacked
 period dim (``sharding.reference_place``).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 

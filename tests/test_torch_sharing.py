@@ -5,6 +5,7 @@ against the reference's functions on the same weights.
 Tolerances, float32: merged weights within atol = rtol = 1e-5 (one
 float32 product A @ B summed in another order); logits within 1e-4.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

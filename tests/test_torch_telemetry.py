@@ -9,6 +9,7 @@ Both runtimes take the same timer readings in the same order, so the span
 sequences and the Chrome traces must be equal event for event, and the
 metrics files must hold the same keys and the same counter values.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import json
 
 import numpy as np

@@ -21,6 +21,7 @@ seen is 3.7e-6, Mamba2); the attention functions within 1e-6 x that;
 remat's logits equal bit for bit and its gradients within 1e-6 of each
 leaf's largest.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,7 @@ many gradient elements near zero); AdamW alone within
 1e-6 x max(1, |reference|) in float32 and one bfloat16 unit (2^-8
 relative) in bfloat16; the schedules within 1e-6 relative.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

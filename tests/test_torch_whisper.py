@@ -15,6 +15,7 @@ contract and reduce in other orders); the MLPs in float32 within 1e-5 x
 max(1, max |reference|) and in bfloat16 within 2^-7 x that (one rounding
 of a float32 intermediate may fall either way); greedy tokens equal.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import contextlib
 import io
 import sys

@@ -12,6 +12,7 @@ Also the wrappers' contracts: each kernel takes hd 32, 64, 128, 192 and
 Tolerances: float32, atol = rtol = 1e-5 (the implementations differ only
 in summation order); every compared row keeps at least one key.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ pool, the shared-block decrement of ``tests/test_prefix_sharing.py``,
 ``window_reclamation=False``, and a preemption of a slot that already
 reclaimed blocks (its demotion must stop at the first -1 entry).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ Tolerances: float32 logits within atol = rtol = 1e-4 of the reference's
 float32 within 1e-5 x max(1, max |reference|) and in bfloat16 within
 2^-7 x that (one rounding of a float32 intermediate may fall either way);
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

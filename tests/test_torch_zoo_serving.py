@@ -9,6 +9,7 @@ PaliGemma-3B (text-only, as the reference's runtime serves it) and
 SmolLM-360M (G = 3): the greedy token streams must be equal.  Every bias
 leaf is drawn nonzero, as in ``test_torch_zoo.py``.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch
