@@ -29,7 +29,14 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    flash not causal over 1500 x 1500 and 32 x 1500, ring decode over 1500
    static slots, and phase 17's: flash causal over one row of 32768
    tokens, whose plain version runs by blocks of query rows, and ring
-   decode of two rows over 32768 slots), each bound from the wrapper
+   decode of two rows over 32768 slots; then flash with a query offset,
+   a sharded ring prefill's chunk, at Phi-3-medium-14B's heads (K 10,
+   G 4, hd 128): 2 rows over 4096 keys, chunks of 512 queries at
+   offsets 0, 1536 and 3584 and one under a 1000-key window, each over
+   the keys up to its last query, in both dtypes, and each chunk's rows
+   held against the same rows of one call over all 4096 queries: bit
+   for bit where they are (offsets a multiple of 64 / G line up the
+   tiles and stages), else within the tolerance), each bound from the wrapper
    module's ``work()``, which the dry run's kernel FLOPs read too,
    with its median device time, the plain version's, a library yardstick
    where one PyTorch call computes the same function, the least time the
@@ -185,16 +192,21 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    the fake 16x16 and 2x16x16 worlds (meta tensors as DTensors):
    Llama-2-7B x the four shapes, Mixtral-8x22B x the four shapes
    (OPTIMIZED) and Nemotron-4-340B decode_32k on both meshes, and
-   Llama-2-7B's and Nemotron-4-340B's decode_32k under OPTIMIZED on
-   16x16; the
+   Llama-2-7B's and Nemotron-4-340B's decode_32k under OPTIMIZED,
+   Mixtral-8x22B's decode_32k (BASELINE) and Phi-3-medium-14B's
+   prefill_32k on 16x16; the
    argument bytes must equal the reference's arithmetic (``DRYRUN_GB``),
    and Llama-2-7B's per-device FLOPs of its train, prefill and decode
    steps times the devices must be within ``DRYRUN_FLOPS_TOL`` of the
    hand count ``dryrun.analytic_flops`` (no device repeating another's
    work); Nemotron-4-340B's decode_32k runs must be within
    ``DRYRUN_NEMOTRON_MAX`` of it (its ring is split on head_dim or the
-   sequence, and each model rank takes its share of the attention); every
-   other run with a hand count prints its ratio.
+   sequence, and each model rank takes its share of the attention);
+   Mixtral-8x22B's decode_32k (BASELINE and OPTIMIZED: the dropless
+   math, its experts left where they are stored) and Phi-3-medium-14B's
+   prefill_32k (its ring prefill split on the queries) within
+   ``DRYRUN_FLOPS_TOL`` of theirs; every other run with a hand count
+   prints its ratio.
    17b: ``build_step``'s prefill and serve steps of Llama-2-7B at full
    width and depth as DTensors on a one-rank NCCL mesh: one row of
    32768 tokens (flash causal at 32768), then 8 decode steps of two rows
@@ -466,12 +478,27 @@ _DRYRUN_BOTH = [("llama2_7b", s, False) for s in
        ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
     + [("nemotron_4_340b", "decode_32k", False)]
 DRYRUN_RUNS = {False: _DRYRUN_BOTH + [("llama2_7b", "decode_32k", True),
-                                      ("nemotron_4_340b", "decode_32k", True)],
+                                      ("nemotron_4_340b", "decode_32k", True),
+                                      ("mixtral_8x22b", "decode_32k", False),
+                                      ("phi3_medium_14b", "prefill_32k",
+                                       False)],
                True: _DRYRUN_BOTH}
-# Llama-2-7B's FLOPs per device x devices over the hand count: at most
-# this above 1 (rank-16 LoRA products on partial sums whose rows do not
-# divide are the rest)
+# FLOPs per device x devices over the hand count of Llama-2-7B's runs,
+# Mixtral-8x22B's decode_32k (no device running rows it does not own
+# through experts it does not hold: F12, 120x before) and
+# Phi-3-medium-14B's prefill_32k (its heads and rows do not divide
+# "model": the ring prefill splits the queries, F13, 5.95x before): at
+# most this above 1 (rank-16 LoRA products on partial sums whose rows do
+# not divide, and the router on every row at decode, are the rest)
 DRYRUN_FLOPS_TOL = 0.03
+DRYRUN_GATED = {("llama2_7b", s) for s in
+                ("train_4k", "prefill_32k", "decode_32k")} | {
+    ("mixtral_8x22b", "decode_32k"), ("phi3_medium_14b", "prefill_32k")}
+# phase 3's flash chunks with a query offset (a sharded ring prefill's,
+# ``layers._zigzag_prefill``) at Phi-3-medium-14B's heads: rows x keys,
+# the chunk, and (offset, window) of each case
+FLASH_OFFSET_ROWS, FLASH_OFFSET_KEYS, FLASH_OFFSET_CHUNK = 2, 4096, 512
+FLASH_OFFSETS = ((0, None), (1536, None), (3584, None), (1536, 1000))
 # Nemotron-4-340B decode_32k's ratio: its ring is split on head_dim (or
 # the sequence) over "model", and each model rank must still take its
 # share of the attention (F11: every rank ran it whole, 4.85x)
@@ -938,6 +965,59 @@ def flash_case(gen, dtype, B: int, T: int, K: int, G: int,
                         prefix_len=prefix)))
 
 
+def flash_offset_case(gen, dtype, q0: int, window: Optional[int],
+                      shared: Dict) -> Dict:
+    """A sharded ring prefill's chunk (``layers._zigzag_prefill``): the
+    queries [q0, q0 + FLASH_OFFSET_CHUNK) of FLASH_OFFSET_ROWS rows of
+    FLASH_OFFSET_KEYS tokens at Phi-3-medium-14B's heads, over the keys up
+    to the chunk's last query, through ``flash_mha(q_offset=q0)``.
+    ``whole`` gives the same rows of one call over all the queries;
+    ``shared`` keeps the inputs and that call per (dtype, window)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_mha, work
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    phi = get_config("phi3_medium_14b")
+    K, hd = phi.num_kv_heads, phi.head_dim_
+    H, B, T, m = phi.num_heads, FLASH_OFFSET_ROWS, FLASH_OFFSET_KEYS, \
+        FLASH_OFFSET_CHUNK
+    G = H // K
+    key = (dtype, window)
+    if key not in shared:
+        shared.clear()                      # one (dtype, window) at a time
+        q = _randn(gen, B, T, H, hd, dtype=dtype)
+        k = _randn(gen, B, T, K, hd, dtype=dtype)
+        v = _randn(gen, B, T, K, hd, dtype=dtype)
+        shared[key] = (q, k, v, flash_mha(q, k, v, window=window))
+    q, k, v, whole = shared[key]
+    end = q0 + m
+    qc = q[:, q0:end].contiguous()
+    kc, vc = k[:, :end].contiguous(), v[:, :end].contiguous()
+    q4 = qc.transpose(1, 2).contiguous()
+    k4 = kc.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    v4 = vc.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    i = torch.arange(q0, end, device="cuda")[:, None]
+    j = torch.arange(end, device="cuda")[None, :]
+    ok = j <= i
+    if window is not None:
+        ok = ok & (j > i - window)
+    return dict(
+        shape=f"B={B} q_offset={q0} Tq={m} Tk={end} H={H} K={K} hd={hd} "
+              f"causal window={window} prefix=0",
+        kernel=lambda: flash_mha(qc, kc, vc, window=window, q_offset=q0),
+        plain=lambda: flash_ref(                              # noqa: E731
+            qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            window=window, q_offset=q0).transpose(1, 2),
+        library=lambda: F.scaled_dot_product_attention(       # noqa: E731
+            q4, k4, v4, attn_mask=ok),
+        library_label="scaled_dot_product_attention over (B, H, T, hd) "
+                      "copies, K/V repeated per head, a mask",
+        zero_rows=[], q_offset=q0, whole=whole[:, q0:end],
+        # the chunk's 64-row tiles (64 / G queries each) and its stages of
+        # 64 keys line up with the whole call's: the same sums, bit for bit
+        aligned=q0 % (64 // G) == 0,
+        **bound_of(work(qc, kc, vc, window=window, q_offset=q0)))
+
+
 def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
                      window: Optional[int] = None, hd: int = 128,
                      sdpa_mask: bool = True) -> Dict:
@@ -1207,6 +1287,12 @@ def kernels_phase() -> Dict[str, Dict]:
         ("decode_attention", bf, lambda: ring_decode_case(
             gen, bf, SHARDED_DECODE_ROWS, SHARDED_CONTEXT, 32, 1,
             SHARDED_CONTEXT + SHARDED_DECODE_STEPS - 1))]
+    # a sharded ring prefill's chunks: flash with a query offset
+    shared: Dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        makers += [("flash_attention", dtype,
+                    lambda d=dtype, q0=q0, w=w: flash_offset_case(
+                        gen, d, q0, w, shared)) for q0, w in FLASH_OFFSETS]
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for i, (name, dtype, make) in enumerate(makers):
@@ -1238,6 +1324,21 @@ def kernels_phase() -> Dict[str, Dict]:
                "bytes": c["bytes"], "ops": c["ops"],
                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                "library": c["library_label"]}
+        if "whole" in c:
+            # the chunk's rows against one call over all the queries
+            row["q_offset"] = c["q_offset"]
+            row["equal_to_whole"] = bool(torch.equal(got, c["whole"]))
+            row["max_abs_diff_to_whole"] = float(
+                (got.float() - c["whole"].float()).abs().max())
+            if c["aligned"] and not row["equal_to_whole"]:
+                fail(f"{name} {c['shape']} {dtype}: an offset aligned with "
+                     f"the tiles must give the whole call's rows bit for "
+                     f"bit; they differ by "
+                     f"{row['max_abs_diff_to_whole']:.3e}")
+            if not row["max_abs_diff_to_whole"] <= tol:
+                fail(f"{name} {c['shape']} {dtype}: the chunk's rows differ "
+                     f"from the whole call's by "
+                     f"{row['max_abs_diff_to_whole']:.3e} > {tol:.3e}")
         if dtype == torch.bfloat16 or i >= timed:
             row["ms"] = device_ms(c["kernel"], 50, flush)
             row["plain_ms"] = device_ms(c["plain"], 10, flush)
@@ -1255,6 +1356,7 @@ def kernels_phase() -> Dict[str, Dict]:
         results.append(row)
         summary.setdefault(name, row)
         del c, got, want
+    shared.clear()
     torch.cuda.empty_cache()
     refused = alignment_cases(gen)
     lse_err = ring_lse_check(gen)
@@ -4826,7 +4928,7 @@ def dryrun_phase(device: Dict) -> Dict:
                           f"{r['cost']['flops']} FLOPs a device x "
                           f"{r['n_devices']} = {ratio!r} x the hand count "
                           f"{r['cost']['flops_analytic'] * r['n_devices']}")
-                    if arch == "llama2_7b" and not (
+                    if (arch, shape) in DRYRUN_GATED and not (
                             1 - 1e-9 <= ratio <= 1 + DRYRUN_FLOPS_TOL):
                         fail(f"dry run {arch} {shape} {r['mesh']}: FLOPs "
                              f"{ratio} x the hand count (a device repeats "
@@ -5511,6 +5613,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
+        if name == "flash_attention":
+            # the sharded ring prefill's chunks (phase 3), not on the
+            # one-card path: no launch counts
+            line[-1]["query_offset_cases"] = [
+                {key: c.get(key) for key in (
+                    "dtype", "q_offset", "shape", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "equal_to_whole", "max_abs_diff_to_whole")}
+                for c in kern["cases"] if "q_offset" in c]
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(

@@ -26,6 +26,15 @@
 // A row that sees no key at all (possible only without causality's own
 // diagonal) writes zeros, with the max(l, 1e-30) guard of flash.py:83.
 //
+// Query offset (q0): query i sits at position q0 + i, key j at j, so a
+// sharded ring prefill can hand each rank its own chunks of the queries
+// over the keys up to its last one.  Every position the masks and the
+// walk bounds read (q_first, q_last, the warp's qw_lo / qw_hi, each row's
+// qp, and the edges derived from them) is shifted by q0; the rows of q
+// and out stay indexed from 0.  With q0 a multiple of 64 / G a chunk's
+// tiles and stages line up with the whole call's, so its rows come out
+// bit for bit the same.
+//
 // Which tile step (prefill_tile.cuh) runs is set by the dtype:
 //  * bf16: the tensor-core step, 4 warps; K/V stages in a ring of two
 //    buffers filled by cp.async, Q staged in the second (68 KB of shared
@@ -67,7 +76,7 @@ template <int HD, bool PREFIX>
 __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Tq, int Tk,
-    int K, int G, int causal, int window, int prefix, float scale) {
+    int K, int G, int causal, int window, int prefix, int q0, float scale) {
   using rt::tile::kLDP;
   using rt::tile::kRPT;
   using rt::tile::kThreads;
@@ -85,8 +94,8 @@ __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
   const int r0 = blockIdx.y * kM;
   const int r_end = min(rows, r0 + kM);  // exclusive
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q_first = r0 / G;
-  const int q_last = (r_end - 1) / G;
+  const int q_first = q0 + r0 / G;  // positions of the tile's queries
+  const int q_last = q0 + (r_end - 1) / G;
 
   for (int i = tid; i < kM * V4; i += kThreads) {
     const int r = i / V4, d = (i % V4) * 4, rr = r0 + r;
@@ -103,7 +112,7 @@ __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) {
     const int rr = r0 + ty * kRPT + i;
-    qp[i] = rr < r_end ? rr / G : -1;
+    qp[i] = rr < r_end ? q0 + rr / G : -1;
   }
   rt::tile::Rows<HD> rows_st;
   rows_st.init();
@@ -158,7 +167,7 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
     flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       int Tq, int Tk, int K, int G, int causal, int window,
-                      int prefix, float scale_log2) {
+                      int prefix, int q0, float scale_log2) {
   namespace tc = rt::tile::tc;
   constexpr int NS = kStagesBf16, LD = tc::ld<HD>(), CH = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -175,18 +184,19 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
   tc::stage_q<HD>(Qs, q, b, Tq, H, h, G, r0, r_end);
   rt::cp_async_commit();
 
-  // the warp's rows: query range [qw_lo, qw_hi] and each lane's two rows
+  // the warp's rows: query positions [qw_lo, qw_hi] and each lane's two
+  // rows' positions
   const int w0 = r0 + 16 * warp;
   const bool live = w0 < r_end;
-  const int qw_lo = w0 / G, qw_hi = (min(r_end, w0 + 16) - 1) / G;
+  const int qw_lo = q0 + w0 / G, qw_hi = q0 + (min(r_end, w0 + 16) - 1) / G;
   int qp[2];  // -1 for a dead row
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int rr = w0 + (lane >> 2) + 8 * i;
-    qp[i] = rr < r_end ? rr / G : -1;
+    qp[i] = rr < r_end ? q0 + rr / G : -1;
   }
 
-  const int q_first = r0 / G, q_last = (r_end - 1) / G;
+  const int q_first = q0 + r0 / G, q_last = q0 + (r_end - 1) / G;
   const int t_lo =
       window > 0 ? max(0, q_first - window + 1) / kKT * kKT : 0;
   const int t_hi = causal ? min(PREFIX ? max(q_last, prefix - 1) : q_last,
@@ -239,7 +249,7 @@ __global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
 template <int HD, bool PREFIX>
 int launch_kernel(int dtype, const void* q, const void* k, const void* v,
                   void* out, int B, int Tq, int Tk, int K, int G, int causal,
-                  int window, int prefix, cudaStream_t s) {
+                  int window, int prefix, int q0, cudaStream_t s) {
   const double scale = 1.0 / std::sqrt(static_cast<double>(HD));
   dim3 grid(B * K, (Tq * G + kM - 1) / kM);
   if (dtype == rt::DTYPE_BF16) {
@@ -250,7 +260,7 @@ int launch_kernel(int dtype, const void* q, const void* k, const void* v,
     flash_kernel_bf16<HD, PREFIX><<<grid, rt::tile::tc::kThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, K, G,
-        causal, window, prefix,
+        causal, window, prefix, q0,
         static_cast<float>(rt::tile::tc::kLog2e * scale));
     return 0;
   }
@@ -261,56 +271,56 @@ int launch_kernel(int dtype, const void* q, const void* k, const void* v,
   flash_kernel_f32<HD, PREFIX><<<grid, rt::tile::kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Tq, Tk, K, G,
-      causal, window, prefix, static_cast<float>(scale));
+      causal, window, prefix, q0, static_cast<float>(scale));
   return 0;
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            int B, int Tq, int Tk, int K, int G, int causal, int window,
-           int prefix, cudaStream_t s) {
+           int prefix, int q0, cudaStream_t s) {
   return causal && prefix > 0
              ? launch_kernel<HD, true>(dtype, q, k, v, out, B, Tq, Tk, K, G,
-                                       causal, window, prefix, s)
+                                       causal, window, prefix, q0, s)
              : launch_kernel<HD, false>(dtype, q, k, v, out, B, Tq, Tk, K, G,
-                                        causal, window, prefix, s);
+                                        causal, window, prefix, q0, s);
 }
 
 }  // namespace
 
 // q (B, Tq, K*G, hd); k/v (B, Tk, K, hd); out like q; all contiguous.
-// Query i and key j sit at positions i and j.  causal != 0 keeps keys
-// j <= i, and also keys j < prefix (prefix <= 0 means none); window > 0
-// keeps keys j > i - window; window <= 0 means none.  hd 32, 64, 128, 192
-// or 256.
+// Query i sits at position p = q0 + i and key j at j.  causal != 0 keeps
+// keys j <= p, and also keys j < prefix (prefix <= 0 means none); window
+// > 0 keeps keys j > p - window; window <= 0 means none.  hd 32, 64, 128,
+// 192 or 256.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, int B, int Tq, int Tk, int K, int G,
-                          int hd, int causal, int window, int prefix,
+                          int hd, int causal, int window, int prefix, int q0,
                           int dtype, void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || K < 1 || G < 1)
+  if (B < 1 || Tq < 1 || Tk < 1 || K < 1 || G < 1 || q0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int bad;
   switch (hd) {
     case 32:
       bad = launch<32>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal, window,
-                       prefix, s);
+                       prefix, q0, s);
       break;
     case 64:
       bad = launch<64>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal, window,
-                       prefix, s);
+                       prefix, q0, s);
       break;
     case 128:
       bad = launch<128>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal,
-                        window, prefix, s);
+                        window, prefix, q0, s);
       break;
     case 192:
       bad = launch<192>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal,
-                        window, prefix, s);
+                        window, prefix, q0, s);
       break;
     case 256:
       bad = launch<256>(dtype, q, k, v, out, B, Tq, Tk, K, G, causal,
-                        window, prefix, s);
+                        window, prefix, q0, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "sgmv": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "paged_decode": [_P] * 9 + [_I] * 10 + [_P],
     "paged_prefill": [_P] * 7 + [_I] * 10 + [_P],
-    "flash_attn": [_P] * 4 + [_I] * 10 + [_P],
+    "flash_attn": [_P] * 4 + [_I] * 11 + [_P],
     "ring_decode": [_P] * 9 + [_I] * 9 + [_P],
     "decode_smem_bytes": [_I] * 4,
 }

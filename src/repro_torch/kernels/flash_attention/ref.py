@@ -1,10 +1,11 @@
 """Plain PyTorch version of dense GQA attention with causal and
 sliding-window masks (port of ``repro/kernels/flash_attention/ref.py``).
 
-Query ``i`` and key ``j`` sit at positions ``i`` and ``j``.  A key is kept
-when ``j <= i`` or ``j < prefix_len`` (causal; the reference model's
-prefix-LM mask, ``_scores_mask(kind="prefix")``) and ``j > i - window``
-(with a window).  Masked
+Query ``i`` sits at position ``q_offset + i`` and key ``j`` at ``j`` (a
+chunk of a longer sequence's queries over its keys).  A key is kept when
+``j <= q`` or ``j < prefix_len`` for the query's position ``q`` (causal;
+the reference model's prefix-LM mask, ``_scores_mask(kind="prefix")``)
+and ``j > q - window`` (with a window).  Masked
 keys get probability exactly 0, as in the kernel; a query that keeps no
 key yields zeros (the reference's softmax over -1e30 would average every
 key there; no caller has such a row).
@@ -21,7 +22,7 @@ from repro_torch.kernels.paged_attention.ref import masked_attention
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              prefix_len: int = 0) -> torch.Tensor:
+              prefix_len: int = 0, q_offset: int = 0) -> torch.Tensor:
     """q: (B, H, Tq, hd); k, v: (B, K, Tk, hd).  Returns (B, H, Tq, hd) in
     q's dtype, computed in float32."""
     B, H, Tq, hd = q.shape
@@ -29,7 +30,7 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // K
     qg = q.reshape(B, K, G, Tq, hd).float()
     s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
-    qp = torch.arange(Tq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(Tq, device=q.device)[:, None]
     kp = torch.arange(Tk, device=q.device)[None, :]
     ok = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
     if causal:

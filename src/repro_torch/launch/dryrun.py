@@ -22,11 +22,11 @@ allocated or computed.  The report reads:
     DTensor desugar each op into its shard-local ops and collectives
     before counting, so a product column-sharded 4 ways counts a quarter
     of its global FLOPs), plus each kernel's ``work()`` (its meta branch
-    computes nothing); for a dense decoder also ``analytic_flops`` over
-    the devices, and the ratio of the two: 1 when no device repeats
-    another's work.  The products place their operands themselves
-    (``models/layers.py::matmul``), so the count does not hang on the
-    strategy a torch release's DTensor picks;
+    computes nothing); for a dense or dropless MoE decoder also
+    ``analytic_flops`` over the devices, and the ratio of the two: 1 when
+    no device repeats another's work.  The products place their operands
+    themselves (``models/layers.py::matmul``), so the count does not hang
+    on the strategy a torch release's DTensor picks;
   * collectives by kind: count and result bytes per device;
   * temp/peak bytes: null, with the reason (no meta-safe tracker).
 The two-pod mesh's steps execute with ("pod", "data") flattened into one
@@ -146,28 +146,37 @@ class StepCounter:
         return self.mode.__exit__(*exc)
 
 
-def analytic_flops(cfg, shape_name: str) -> Optional[int]:
+def analytic_flops(cfg, shape_name: str,
+                   capacity: bool = False) -> Optional[int]:
     """The step's FLOPs over all devices, counted by hand, for a
-    decoder-only dense model (SwiGLU or squared-ReLU MLP, no window or
-    image prefix); None for any other config.  The products count 2 per
-    multiply-add; attention counts as the step computes it:
+    decoder-only dense or MoE model (SwiGLU or squared-ReLU MLP, no image
+    prefix, a sliding window or none); None for any other config, and for
+    an MoE whose step runs the capacity dispatch (``capacity``: its
+    products follow the data).  An MoE counts its dropless dispatch as
+    the port runs it (``models/moe.py::_moe_math``): the router, then
+    every expert over every row.  The products count 2 per multiply-add;
+    attention counts as the step computes it:
       * train_4k (LoRA, remat): forward, the remat recompute, which stops
         once the last tensor the backward needs is back (so each layer's
-        down projection runs twice, not three times), and the backward's
-        input gradients (the backbone is frozen, so no weight gradients
-        but the adapters'; layer 0's q/k/v input needs none).  Attention
-        is ``attention_chunked``'s full blocks past 2048 positions (else
-        ``attention_core``'s full scores): 4 B T^2 H hd a pass, the
-        backward twice that;
-      * prefill_32k: one forward, the flash kernel's causal pairs, logits
-        of the last position;
+        down projection runs twice, not three times; an MoE's runs three
+        times, its combine needing the experts' outputs), and the
+        backward's input gradients (the backbone is frozen, so no weight
+        gradients but the adapters'; layer 0's q/k/v input needs none).
+        Attention is ``attention_chunked``'s full blocks past 2048
+        positions (else ``attention_core``'s full scores): 4 B T^2 H hd a
+        pass, the backward twice that;
+      * prefill_32k: one forward, the flash kernel's causal pairs inside
+        the window (``flash_attention.ops.visible_pairs``), logits of the
+        last position;
       * decode_32k: one token a row, the ring-decode kernel over the whole
-        ring (its ``work()`` on meta tensors).
+        ring, the window long at most (its ``work()`` on meta tensors).
     Held against the counted FLOPs times the devices, it shows work that
     a device repeats (a product or an attention block left unsplit)."""
-    from repro_torch.models.config import SQRELU, SWIGLU
-    if (cfg.family != "dense" or cfg.mlp_for not in (SWIGLU, SQRELU)
-            or cfg.sliding_window is not None
+    from repro_torch.kernels.flash_attention.ops import visible_pairs
+    from repro_torch.models.config import MOE, SQRELU, SWIGLU
+    moe = cfg.mlp_for == MOE                         # SwiGLU experts
+    if (cfg.family not in ("dense", "moe") or (moe and capacity)
+            or cfg.mlp_for not in (SWIGLU, SQRELU, MOE)
             or shape_name not in ("train_4k", "prefill_32k", "decode_32k")):
         return None
     sh = INPUT_SHAPES[shape_name]
@@ -175,7 +184,10 @@ def analytic_flops(cfg, shape_name: str) -> Optional[int]:
     L, D, F, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, hd = cfg.num_heads, cfg.head_dim_
     Hq, Kv = H * hd, cfg.num_kv_heads * hd
-    mlp = (3 if cfg.mlp_for == SWIGLU else 2) * D * F
+    E = cfg.num_experts if moe else 1
+    mlp = (2 if cfg.mlp_for == SQRELU else 3) * D * F * E \
+        + (D * E if moe else 0)                      # the router
+    W = cfg.sliding_window
     proj = {"q": (D, Hq), "k": (D, Kv), "v": (D, Kv), "o": (Hq, D)}
     per_tok = D * Hq + 2 * D * Kv + Hq * D + mlp
     r = cfg.lora.rank if cfg.lora else 0
@@ -183,17 +195,17 @@ def analytic_flops(cfg, shape_name: str) -> Optional[int]:
              if t in proj]
     lora = sum(2 * r * (a + b) for a, b in sites)   # a token, forward
     if shape_name == "decode_32k":
-        ring = B * T * 4 * hd * H                   # every slot visible
+        ring = B * min(T, W or T) * 4 * hd * H      # every slot visible
         return L * (B * (2 * per_tok + lora) + ring) + 2 * B * D * V
     if shape_name == "prefill_32k":
-        pairs = T * (T + 1) // 2
+        pairs = visible_pairs(T, T, window=W)
         return (L * (B * T * (2 * per_tok + lora) + 4 * hd * H * B * pairs)
                 + 2 * B * D * V)
     N = B * T
     Tp = -(-T // 1024) * 1024 if T > 2048 else T
     att = 4 * B * Tp * Tp * H * hd
     fwd = N * (2 * per_tok + lora) + att
-    recompute = fwd - N * 2 * D * F
+    recompute = fwd - (0 if moe else N * 2 * D * F)
     back = (N * (2 * per_tok + 2 * lora) + 2 * att)
     first = N * 2 * (D * Hq + 2 * D * Kv) + N * sum(
         2 * r * a for t, (a, b) in proj.items()
@@ -386,13 +398,17 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             raise AssertionError("the flattened mesh shards differently")
     args = distributed_args(step, specs, mesh)
     t_build = time.perf_counter() - t0
+    sh = INPUT_SHAPES[shape_name]
     set_opt_modes(mesh, opts)
     try:
         counts = run_step(step, args, mesh)
+        capacity = moe_mod.runs_capacity(
+            cfg, sh["global_batch"],
+            1 if step.name == "serve_step" else sh["seq_len"])
     finally:
         set_opt_modes(None, None)
     t_run = time.perf_counter() - t0 - t_build
-    analytic = analytic_flops(cfg, shape_name)
+    analytic = analytic_flops(cfg, shape_name, capacity)
     n_dev = int(mesh.size())
     report = {
         "arch": arch, "shape": shape_name, "mesh": name, "step": step.name,

@@ -406,10 +406,13 @@ def _ring_split(pl, mesh, B: int, H: int, K: int, T: int, S: int):
     "heads" where the query heads left divide it and each share lies in
     whole kv groups or inside one; else "rows" where the rows left divide
     it; else, at decode, "kv" where the slots left divide it: each rank
-    attends over its own slots; else None (every rank repeats the
-    attention: a prefill whose heads and rows do not divide).  A split
-    composes after the ring's own shards of that tensor dim (DTensor's
-    chunk order), so it is taken only on a mesh dim after them."""
+    attends over its own slots; else, at prefill, "queries" on the first
+    such dim whose 2n divides T: each rank takes two chunks of T / 2n
+    queries (``_zigzag_prefill``); else None (every rank repeats the
+    attention: a prefill whose heads and rows do not divide and whose T
+    does not divide 2n, or a second such dim).  A split composes after
+    the ring's own shards of that tensor dim (DTensor's chunk order), so
+    it is taken only on a mesh dim after them."""
     G = H // K
     left = {0: B, 1: S, 2: H}
     for i, p in enumerate(pl):
@@ -431,6 +434,8 @@ def _ring_split(pl, mesh, B: int, H: int, K: int, T: int, S: int):
             kind, left[0] = "rows", left[0] // n
         elif T == 1 and left[1] % n == 0:
             kind, left[1] = "kv", left[1] // n
+        elif T > 1 and "queries" not in kinds and T % (2 * n) == 0:
+            kind = "queries"
         kinds.append(kind)
     return kinds
 
@@ -448,9 +453,10 @@ def _ring_attention_per_shard(cache: Dict[str, Any], q, k, v, positions,
     heads and the kv heads they read, or of the rows, or, at decode, of
     the slots, whose (max, sum, out) partials are merged across the group
     as ``split_kv_merge`` merges partitions (two all-reduces of (B, H)
-    statistics and outputs).  A share of rows is gathered again after the
-    kernel, so the output reaches the out projection as the ring's
-    kv-head split would: whole rows, heads split.  DTensor's own in-place
+    statistics and outputs), or, at prefill, of the queries.  A share of
+    rows or of queries is gathered again after the kernel, so the output
+    reaches the out projection as the ring's kv-head split would: whole
+    rows and positions, heads split.  DTensor's own in-place
     ops on a sharded ring (setitem, ``index_copy_``) may move its
     placements, so none of them runs on the DTensors."""
     ck = cache["k"]
@@ -505,14 +511,17 @@ def _ring_attention_per_shard(cache: Dict[str, Any], q, k, v, positions,
         elif kind == "rows":
             b = kv[0].shape[0] // n
             kv[:2] = [t.narrow(0, c * b, b) for t in kv[:2]]
-        else:
+        elif kind == "kv":
             s = kv[0].shape[1] // n
             kv = [t.narrow(1, c * s, s) for t in kv[:2]] \
                 + [kv[2].narrow(0, c * s, s)]
     kv[:2] = [t.narrow(2, off // G, max(1, h // G)).contiguous()
               for t in kv[:2]]
     kv_dims = [i for i, kind in enumerate(kinds) if kind == "kv"]
-    if T > 1:
+    if "queries" in kinds:
+        out = _zigzag_prefill(ql, kv[0], kv[1], mesh, kinds.index("queries"),
+                              window, prefix_len)
+    elif T > 1:
         out = flash_mha(ql, kv[0], kv[1], causal=True, window=window,
                         prefix_len=prefix_len)
     elif not kv_dims:
@@ -527,6 +536,38 @@ def _ring_attention_per_shard(cache: Dict[str, Any], q, k, v, positions,
         res = res.redistribute(mesh, [Replicate() if kind == "rows" else p
                                       for p, kind in zip(qpl, kinds)])
     return res
+
+
+def _zigzag_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                    dim: int, window: Optional[int],
+                    prefix_len: int) -> torch.Tensor:
+    """Causal prefill of all T queries split over mesh ``dim``'s n ranks.
+    T is cut into 2n chunks of T / 2n; rank c takes chunks c and 2n-1-c,
+    so each rank's causal pairs are 1/n of the whole (an early chunk's
+    short walk pairs with a late one's long walk).  Each chunk goes to the
+    flash kernel at its query offset over the keys up to its last query
+    (or to the prefix's end); the chunks are gathered over the group and
+    put back in position order: (B, T, H, hd) on every rank."""
+    n, c = mesh.size(dim), mesh.get_local_rank(dim)
+    B, T = q.shape[:2]
+    m = T // (2 * n)
+    outs = []
+    for j in (c, 2 * n - 1 - c):
+        end = min(T, max((j + 1) * m, prefix_len))
+        outs.append(flash_mha(
+            q[:, j * m:(j + 1) * m].contiguous(), k[:, :end].contiguous(),
+            v[:, :end].contiguous(), causal=True, window=window,
+            prefix_len=prefix_len, q_offset=j * m))
+    mine = torch.cat(outs, 1)
+    got = DTensor.from_local(
+        mine, mesh, [Shard(1) if i == dim else Replicate()
+                     for i in range(mesh.ndim)], run_check=False
+    ).redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    # the group's chunks arrive in rank order: 0, 2n-1, 1, 2n-2, ...
+    slot = [2 * j if j < n else 2 * (2 * n - 1 - j) + 1
+            for j in range(2 * n)]
+    got = got.reshape(B, 2 * n, m, *got.shape[2:])[:, slot]
+    return got.reshape(B, T, *got.shape[3:])
 
 
 def _merge_partials(o: torch.Tensor, lse: torch.Tensor, mesh,

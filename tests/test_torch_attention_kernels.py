@@ -120,7 +120,54 @@ def test_flash_bfloat16_within_one_rounding():
     _assert_bf16_close(got, want)
 
 
-@pytest.mark.parametrize("bad", ["kv_heads", "window", "empty_keys"])
+OFFSET_CASES = [
+    # B, T, H, K, q0, t, window, prefix_len, keys: "all" T or "upto" the
+    # chunk's last query (or the prefix's end), as the sharded prefill
+    pytest.param(2, 64, 4, 2, 16, 16, None, 0, "all", id="causal"),
+    pytest.param(1, 70, 4, 1, 33, 21, None, 0, "upto", id="causal-odd-upto"),
+    pytest.param(2, 64, 2, 1, 40, 24, 16, 0, "all", id="window16"),
+    pytest.param(1, 72, 4, 2, 48, 24, 20, 0, "upto", id="window20-upto"),
+    pytest.param(1, 48, 4, 2, 8, 16, None, 20, "upto", id="prefix-inside"),
+    pytest.param(2, 48, 4, 2, 24, 24, 12, 30, "all", id="prefix-window"),
+]
+
+
+@pytest.mark.parametrize("B,T,H,K,q0,t,window,prefix,keys", OFFSET_CASES)
+def test_flash_query_offset_equals_rows_of_the_whole(B, T, H, K, q0, t,
+                                                     window, prefix, keys):
+    """``q_offset``: the queries [q0, q0 + t) of a length-T sequence over
+    its keys (all T, or those up to the chunk's last query or the
+    prefix's end) equal rows [q0, q0 + t) of the reference's attention
+    over the whole sequence: its ``flash_ref`` and its Pallas
+    ``flash_mha`` in interpret mode, or, behind a prefix, which those
+    lack, ``attention_core`` under ``_scores_mask(kind="prefix")``; the
+    port's ``flash_ref`` likewise.  float32 within 1e-5."""
+    q, k, v = _flash_inputs(B, T, T, H, K, seed=2)
+    n = T if keys == "all" else max(q0 + t, prefix)
+    kw = dict(causal=True, window=window, prefix_len=prefix, q_offset=q0)
+    got = flash_mha(_t(q[:, q0:q0 + t]), _t(k[:, :n]), _t(v[:, :n]), **kw)
+    tr = (0, 2, 1, 3)
+    mine = flash_ref(_t(q[:, q0:q0 + t].transpose(tr)),
+                     _t(k[:, :n].transpose(tr)), _t(v[:, :n].transpose(tr)),
+                     **kw).transpose(1, 2)
+    if prefix:
+        pos = jnp.broadcast_to(jnp.arange(T), (B, T))
+        mask = _scores_mask(pos, pos, "prefix", window, prefix)
+        wants = [attention_core(_j(q), _j(k), _j(v), mask)]
+    else:
+        wants = [jax_flash_ref(_j(q.transpose(tr)), _j(k.transpose(tr)),
+                               _j(v.transpose(tr)), causal=True,
+                               window=window).transpose(tr),
+                 jax_flash_mha(_j(q), _j(k), _j(v), causal=True,
+                               window=window, q_block=16, kv_block=16)]
+    for want in wants:
+        want = np.asarray(want)[:, q0:q0 + t]
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(mine.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("bad", ["kv_heads", "window", "empty_keys",
+                                 "negative_q_offset", "q_offset_past_keys"])
 def test_flash_rejects_bad_shapes(bad):
     q, k, v = (_t(x) for x in _flash_inputs(1, 8, 8, 4, 2))
     kw = {}
@@ -128,6 +175,10 @@ def test_flash_rejects_bad_shapes(bad):
         k = v = k[:, :, :1].repeat(1, 1, 3, 1)      # 4 % 3 != 0
     elif bad == "window":
         kw["window"] = 0
+    elif bad == "negative_q_offset":
+        kw["q_offset"] = -1
+    elif bad == "q_offset_past_keys":                # causal: 1 + 8 > 8
+        kw["q_offset"] = 1
     else:
         k = v = k[:, :0]
     with pytest.raises(ValueError):

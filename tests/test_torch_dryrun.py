@@ -21,6 +21,13 @@
   the attention blocks); sharded, each device's count times the devices
   is within 3% of it (the rest: rank-16 LoRA products on partial sums
   whose rows do not divide; 1.7% on the two-pod mesh).
+* MoE and windows (F12, F13): Mixtral-8x22B (dropless, window 4096) and
+  Phi-3-medium-14B (heads and prefill rows that do not divide "model")
+  at 2 layers: the hand count equals the plain meta count, and each
+  device's count times the devices is within 3% above it; Mixtral's
+  experts' bmm is its 1/256 share, and its decode (both option sets),
+  prefill and train steps are within 1.03x the reference's depth probe
+  d2 (a third subprocess compiles them with XLA).
 * Every kernel wrapper's meta branch returns the kernel's output shape,
   calls no plain version, and records the ``work()`` its bound counts;
   ``work()`` on real inputs equals a brute-force count of its mask.
@@ -81,8 +88,16 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world
 from repro_torch.launch.specs import build_step
 
+from repro_torch.launch.sharding import BASELINE, OPTIMIZED
+
 cfg = get_config("llama2_7b").with_(num_layers=2)
 NEMOTRON2 = get_config("nemotron_4_340b").with_(num_layers=2)
+# MoE and sliding-window cells at 2 layers: (name, arch, shape, OPTIMIZED)
+CELLS = [("mixtral2", "mixtral_8x22b", s, False)
+         for s in ("decode_32k", "prefill_32k", "train_4k")] + [
+    ("mixtral2", "mixtral_8x22b", "decode_32k", True),
+    ("mixtral2", "mixtral_8x22b", "prefill_32k", True),
+    ("phi3_2", "phi3_medium_14b", "prefill_32k", False)]
 out = {}
 for multi, shapes in ((False, ("train_4k", "prefill_32k", "decode_32k")),
                       (True, ("train_4k",))):
@@ -97,31 +112,65 @@ for multi, shapes in ((False, ("train_4k", "prefill_32k", "decode_32k")),
                                world=False, config=NEMOTRON2)
             out["nemotron2/decode_32k/pod16x16"] = dict(
                 r["cost"], n_devices=r["n_devices"])
-for shape in ("train_4k", "prefill_32k", "decode_32k"):
-    step = build_step(cfg, shape)
+            for name, arch, shape, opt in CELLS:
+                r = dryrun.run_one(
+                    arch, shape, save=False, world=False,
+                    config=get_config(arch).with_(num_layers=2),
+                    opts=OPTIMIZED if opt else BASELINE)
+                out[f"{name}/{shape}/{r['mesh']}{'-opt' if opt else ''}"] = \
+                    dict(r["cost"], n_devices=r["n_devices"])
+
+
+def plain(key, c2, shape):
+    step = build_step(c2, shape)
     with cuda_lib.record_work() as work, dryrun.StepCounter() as c:
         step.fn(*step.args)
-    out[f"{shape}/plain"] = {
-        "flops": c.flops + sum(w.flops for _, w in work),
-        "analytic": dryrun.analytic_flops(cfg, shape)}
+    out[key] = {"flops": c.flops + sum(w.flops for _, w in work),
+                "bmm": c.flops_by_op.get("aten.bmm", 0),
+                "analytic": dryrun.analytic_flops(c2, shape)}
+
+
+for shape in ("train_4k", "prefill_32k", "decode_32k"):
+    plain(f"{shape}/plain", cfg, shape)
+for name, arch, shape, opt in CELLS:
+    if not opt:
+        plain(f"{name}/{shape}/plain",
+              get_config(arch).with_(num_layers=2), shape)
 json.dump(out, open(sys.argv[1], "w"))
 """
 
 # the reference's depth probe d2 (``repro/launch/dryrun.py::_probe_reports``:
 # the config at twice its layer pattern, compiled by XLA over the forced
 # host devices that importing the module sets up) for Nemotron-4-340B
-# decode_32k on 16 x 16: per-device FLOPs of 2 layers
+# decode_32k on 16 x 16: per-device FLOPs of 2 layers; and d2 alone
+# (``_compile_stats``, what ``_probe_reports`` compiles for it) for
+# Mixtral-8x22B's decode_32k (both option sets), prefill_32k and
+# train_4k, and Phi-3-medium-14B's prefill_32k
 REF_PROBE_SCRIPT = """
 import json, sys
 from repro.launch import dryrun
 from repro.configs import get_config
 from repro.launch.mesh import make_production_mesh
-from repro.launch.sharding import BASELINE
+from repro.launch.sharding import BASELINE, OPTIMIZED
+mesh = make_production_mesh(multi_pod=False)
 cfg = get_config("nemotron_4_340b")
-probes = dryrun._probe_reports(cfg, "decode_32k",
-                               make_production_mesh(multi_pod=False),
-                               BASELINE)
-json.dump({"pattern": list(cfg.pattern), **probes}, open(sys.argv[1], "w"))
+probes = dryrun._probe_reports(cfg, "decode_32k", mesh, BASELINE)
+out = {"pattern": list(cfg.pattern), **probes}
+for name, arch, cells in (
+        ("mixtral", "mixtral_8x22b", (("decode_32k", False),
+                                      ("decode_32k", True),
+                                      ("prefill_32k", False),
+                                      ("train_4k", False))),
+        ("phi3", "phi3_medium_14b", (("prefill_32k", False),))):
+    c = get_config(arch)
+    out[f"{name}_pattern"] = list(c.pattern)
+    d2 = c.with_(num_layers=2 * len(c.pattern), layer_pattern=c.pattern * 2)
+    for shape, opt in cells:
+        out[f"{name}/{shape}{'-opt' if opt else ''}"] = dryrun._compile_stats(
+            d2, shape, mesh, OPTIMIZED if opt else BASELINE)
+        print(name, shape, opt, out[f"{name}/{shape}{'-opt' if opt else ''}"][
+            "flops"])
+json.dump(out, open(sys.argv[1], "w"))
 """
 
 
@@ -479,3 +528,84 @@ def test_activation_spec_hook():
             tf.set_activation_spec(None)
         assert list(y.placements) == [Shard(0), Replicate()]
         assert y.shape == (4, 8, 32) and y.to_local().shape == (2, 8, 32)
+
+
+MOE_CELLS = ["mixtral2/decode_32k/pod16x16", "mixtral2/prefill_32k/pod16x16",
+             "mixtral2/train_4k/pod16x16", "mixtral2/decode_32k/pod16x16-opt",
+             "phi3_2/prefill_32k/pod16x16"]
+
+
+@pytest.mark.parametrize("key", MOE_CELLS)
+def test_moe_and_window_flops_per_device_match_analytic(dry, key):
+    """Mixtral-8x22B (MoE, window 4096) and Phi-3-medium (40 heads and 32
+    prefill rows: neither divides "model"; its ring prefill splits the
+    queries) at 2 layers on 16 x 16: the hand count equals the plain
+    meta count, and each device's count times the devices is within 3%
+    above it: no device repeats the experts' products (F12: 120-125x
+    before) or the prefill's attention (F13: 5.95x before).  Under
+    OPTIMIZED, decode falls back to the dropless math, which the hand
+    count covers."""
+    r = dry[0]["flops"][key]
+    name, shape = key.split("/")[:2]
+    want = dry[0]["flops"][f"{name}/{shape}/plain"]
+    assert want["analytic"] == want["flops"]
+    assert r["flops_analytic"] * r["n_devices"] == want["analytic"]
+    assert 1.0 - 1e-9 <= r["flops_over_analytic"] <= 1.03, r
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "train_4k"])
+def test_moe_bmm_per_device_is_its_share(dry, shape):
+    """Mixtral at 2 layers under BASELINE: the experts' products (every
+    bmm of prefill and training; at decode, less the attention
+    projections' matmuls that DTensor lowers to bmm for one token a row)
+    come to the plain meta count / 256 a device within 1%."""
+    r = dry[0]["flops"][f"mixtral2/{shape}/pod16x16"]
+    share = dry[0]["flops"][f"mixtral2/{shape}/plain"]["bmm"] / 256
+    bmm = r["aten_flops_by_op"]["aten.bmm"]
+    if shape == "decode_32k":
+        cfg = get_config("mixtral_8x22b")
+        # per layer and device (8 rows of one token), two products of the
+        # attention that torch's matmul lowers to bmm on these local
+        # views: x (8, 1, D) @ a projection's (D, D / 16) block, and x's
+        # D / 16 features @ LoRA's A block (D / 16, r)
+        bmm -= 2 * 2 * 8 * (cfg.d_model // 16) * (cfg.d_model
+                                                  + cfg.lora.rank)
+    assert abs(bmm / share - 1) <= 0.01, (bmm, share)
+
+
+def test_moe_capacity_cells_keep_no_hand_count(dry):
+    """Mixtral prefill_32k under OPTIMIZED runs the capacity dispatch,
+    whose products follow the data: no hand count."""
+    r = dry[0]["flops"]["mixtral2/prefill_32k/pod16x16-opt"]
+    assert r["flops_analytic"] is None and r["flops_over_analytic"] is None
+
+
+@pytest.mark.parametrize("cell", ["decode_32k", "decode_32k-opt",
+                                  "prefill_32k", "train_4k"])
+def test_mixtral_flops_within_reference_probe(dry, cell):
+    """Mixtral-8x22B at 2 layers on 16 x 16 (BASELINE; decode also under
+    OPTIMIZED): a device's FLOPs at most 1.03x the reference's depth probe
+    d2 for the same cell (its experts gathered whole on every device read
+    120x, 120x, 125x and 123x)."""
+    ref = dry[0]["reference_probe"]
+    assert ref["mixtral_pattern"] == ["attn"]     # d2 = 2 layers
+    shape, _, opt = cell.partition("-")
+    r = dry[0]["flops"][f"mixtral2/{shape}/pod16x16{'-' + opt if opt else ''}"]
+    d2 = ref[f"mixtral/{cell}"]["flops"]
+    assert 0 < r["flops"] <= 1.03 * d2, (r["flops"], d2)
+
+
+def test_flash_work_counts_the_shifted_pairs():
+    """``visible_pairs`` / ``work`` with a query offset: queries at
+    positions [q0, q0 + t) against the mask counted element by element,
+    causal with a prefix and a window."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    T, q0, t, W, P = 64, 24, 16, 12, 30
+    i = torch.arange(q0, q0 + t)[:, None]
+    j = torch.arange(T)[None]
+    ok = ((j <= i) | (j < P)) & (j > i - W)
+    assert fops.visible_pairs(t, T, window=W, prefix_len=P,
+                              q_offset=q0) == int(ok.sum())
+    q, k = torch.empty(2, t, 4, 32), torch.empty(2, T, 2, 32)
+    assert fops.work(q, k, k, window=W, prefix_len=P, q_offset=q0).flops \
+        == 4 * 32 * 4 * 2 * int(ok.sum())

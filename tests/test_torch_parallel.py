@@ -118,7 +118,124 @@ RANKS = textwrap.dedent('''
         for k, t in wg.items():
             res[f"grad_{dispatch}_{k}"] = t.grad.numpy()
     moe.set_dispatch("ragged")
+
+    # no rank runs rows it does not own through experts it does not hold:
+    # the experts as the sharding policy stores them ((None, data, model):
+    # D over "data", F over "model"; wo F over "data", D over "model"),
+    # x's rows over "data"; the fallback under the parallel mesh (plain
+    # weights, and those DTensors) and a DTensor MoE with no parallel mesh
+    # (8 rows of one token: decode, 4 x 8 and 4 x 32 tokens: the
+    # shard-local path), each against the plain math on every token, and
+    # each rank's bmm FLOPs against the plain math's; then the gradients
+    # through the decode path
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.dryrun import StepCounter
+    specs = {"router": (None, None), "wi": (None, "data", "model"),
+             "wg": (None, "data", "model"), "wo": (None, "data", "model")}
+
+    def stored(tree, specs=specs):
+        return {"router": {"w": distribute_tensor(
+                    tree["router"]["w"], mesh,
+                    to_placements(specs["router"], mesh))},
+                **{k: distribute_tensor(tree[k], mesh,
+                                        to_placements(specs[k], mesh))
+                   for k in ("wi", "wg", "wo")}}
+
+    def rows(t):
+        return distribute_tensor(t, mesh, to_placements(("data", None, None),
+                                                        mesh))
+
+    def bmm_flops(fn):
+        with StepCounter() as c:
+            out = fn()
+        return out, c.flops_by_op.get("aten.bmm", 0)
+
+    # d_ff 63 does not divide "model", the 4 experts do: the shard-local
+    # path slices the experts, decode's path the rows; stored as the
+    # policy would: D over "data" (wi / wg), D over "model" (wo)
+    ocfg = ModelConfig(name="m", family="moe", num_layers=1, d_model=32,
+                       num_heads=2, num_kv_heads=1, d_ff=63, vocab_size=64,
+                       num_experts=4, experts_per_token=2, dtype="float32")
+    po = {"router": pm_["router"],
+          **{k: torch.from_numpy(inp[f"{k}_odd"]) for k in ("wi", "wg",
+                                                              "wo")}}
+    variants = {"": (cfg, pm_, stored(pm_)),
+                "_odd": (ocfg, po, stored(po, {
+                    "router": (None, None), "wi": (None, "data", None),
+                    "wg": (None, "data", None),
+                    "wo": (None, None, "model")}))}
+    for tag in ("x_dec", "x_small", "x", "x_dec_odd", "x_odd"):
+        xt = torch.from_numpy(inp[tag.replace("_odd", "")])
+        mcfg, pm, pd = variants["_odd" if tag.endswith("_odd") else ""]
+        (want, want_aux), plain = bmm_flops(
+            lambda: moe._moe_math(pm, mcfg, xt.reshape(-1, 32)))
+        res[f"moe_plain_{tag}"] = want.reshape(xt.shape).numpy()
+        for k, v in want_aux.items():
+            res[f"moe_plain_aux_{tag}_{k}"] = v.numpy()
+        runs = {"nomesh": lambda: moe.apply_moe(pd, mcfg, rows(xt),
+                                                return_aux=True)}
+        if tag in ("x_dec", "x_small"):
+            runs["fallback_plain"] = lambda: moe._apply_moe_parallel(
+                pm_, cfg, xt)
+            runs["fallback_dt"] = lambda: moe._apply_moe_parallel(
+                pd, cfg, rows(xt))
+        for name, fn in runs.items():
+            moe.set_parallel_mesh(None if name == "nomesh" else mesh)
+            (o, aux), n = bmm_flops(fn)
+            full = o.full_tensor() if isinstance(o, DTensor) else o
+            res[f"moe_{name}_{tag}"] = full.numpy()
+            for k, v in aux.items():
+                res[f"moe_{name}_aux_{tag}_{k}"] = (
+                    v.full_tensor() if isinstance(v, DTensor) else v).numpy()
+            share = torch.tensor([n / plain], dtype=torch.float64)
+            dist.all_reduce(share, op=dist.ReduceOp.MAX)   # the most a rank
+            res[f"moe_{name}_share_{tag}"] = share.numpy()
+    # the capacity dispatch: which inputs run it through the parallel mesh
+    # (64 local tokens with F dividing "model"; not the fallback's 16, not
+    # d_ff 63's expert slices), and a DTensor input with no parallel mesh
+    # refused, where a plain one still runs the capacity math
+    moe.set_dispatch("capacity")
+    moe.set_parallel_mesh(mesh)
+    res["moe_runs_capacity"] = np.array([
+        moe.runs_capacity(c, *inp[t].shape[:2])
+        for c, t in ((cfg, "x"), (cfg, "x_small"), (ocfg, "x"))])
     moe.set_parallel_mesh(None)
+    try:
+        moe.apply_moe(stored(pm_), cfg, rows(torch.from_numpy(inp["x"])))
+        res["moe_capacity_dtensor_refused"] = 0
+    except ValueError:
+        res["moe_capacity_dtensor_refused"] = 1
+    _, aux = moe.apply_moe(pm_, cfg, torch.from_numpy(inp["x_small"]),
+                           return_aux=True)
+    res["moe_capacity_plain_drop"] = aux["drop_fraction"].numpy()
+    moe.set_dispatch("ragged")
+    xt = torch.from_numpy(inp["x_dec"])
+    cot = torch.from_numpy(inp["r"][:, :2]).reshape(8, 1, 32)
+    for side in ("plain", "dt"):
+        leaves = {k: torch.from_numpy(inp[k]).requires_grad_(True)
+                  for k in ("router", "wi", "wg", "wo")}
+        xg = xt.clone().requires_grad_(True)
+        tree = {"router": {"w": leaves["router"]}, "wi": leaves["wi"],
+                "wg": leaves["wg"], "wo": leaves["wo"]}
+        if side == "dt":
+            tree, xin = stored(tree), rows(xg)
+        else:
+            xin = xg
+        o, aux = moe.apply_moe(tree, cfg, xin, return_aux=True)
+        if side == "dt":
+            o, aux = o.full_tensor(), {k: v.full_tensor()
+                                       for k, v in aux.items()}
+        ((o * cot).sum() + 0.3 * aux["load_balance_loss"]
+         + 0.7 * aux["router_z_loss"]).backward()
+        if side == "dt":
+            leaves = {k: (tree["router"]["w"] if k == "router"
+                          else tree[k]).grad.full_tensor() for k in leaves}
+            leaves["x"] = xin.grad.full_tensor()
+        else:
+            leaves = {k: t.grad for k, t in leaves.items()}
+            leaves["x"] = xg.grad
+        for k, g in leaves.items():
+            res[f"moe_grad_{side}_{k}"] = g.numpy()
 
     # a LoRA step over the mesh against the same step unsharded
     lcfg = ModelConfig(name="wide", family="dense", num_layers=2,
@@ -175,14 +292,17 @@ RANKS = textwrap.dedent('''
 
     work = {"prefill": 0, "decode": 0}
 
-    def spy(fn, count, key):
+    def spy(fn, count, key, names):
         def call(*a, **kw):
-            work[key] += count(*a, window=kw.get("window")).flops
+            work[key] += count(*a, **{k: kw[k] for k in names
+                                      if k in kw}).flops
             return fn(*a, **kw)
         return call
 
-    layers.flash_mha = spy(fops.flash_mha, fops.work, "prefill")
-    layers.decode_gqa = spy(dops.decode_gqa, dops.work, "decode")
+    layers.flash_mha = spy(fops.flash_mha, fops.work, "prefill",
+                           ("causal", "window", "prefix_len", "q_offset"))
+    layers.decode_gqa = spy(dops.decode_gqa, dops.work, "decode",
+                            ("window",))
 
     def placed(tree, specs):
         return dryrun._map_with_specs(tree, specs, lambda t, sp: (
@@ -199,11 +319,11 @@ RANKS = textwrap.dedent('''
                            dtype="float32")
         rparams = tf.init_params(rcfg, torch.Generator().manual_seed(1),
                                  "cpu", lora_adapters=None)
-        toks = torch.from_numpy(np.random.default_rng(H * 10 + B).integers(
-            0, 64, (B, 6)).astype(np.int32))
-        for fb in ("hd", "seq"):
+        for fb, T in ((fb, T) for fb in ("hd", "seq") for T in (6, 8)):
+            toks = torch.from_numpy(np.random.default_rng(
+                H * 10 + B).integers(0, 64, (B, T)).astype(np.int32))
             opts = dataclasses.replace(BASELINE, kv_fallback=fb)
-            tag = f"ring_{H}_{B}_{fb}"
+            tag = f"ring_{H}_{B}_{fb}_t{T}"
             for dt in (False, True):
                 side = "dt" if dt else "plain"
                 cache = lspecs.abstract_cache(rcfg, B, 8, device="cpu")
@@ -221,8 +341,9 @@ RANKS = textwrap.dedent('''
                     logits, ring = lspecs.prefill_fn(rcfg)(*args)
                     outs = [full(logits)]
                     tok = outs[0].argmax(-1).to(torch.int32)
-                    # 3 decode steps: positions 6-8, the last wraps slot 0
-                    for p_ in range(6, 9):
+                    # 3 decode steps into the 8 slots: positions 6-8
+                    # (the last wraps slot 0), or 8-10 (wrapping 0-2)
+                    for p_ in range(T, T + 3):
                         logits, ring = lspecs.serve_fn(rcfg)(
                             args[0], tok, ring,
                             torch.tensor(p_, dtype=torch.int32))
@@ -251,8 +372,8 @@ D, F, E = 32, 64, 4
 def _inputs():
     """Seeded float32 MoE weights at the reference's init scales (router
     and wi/wg N(0, 1/D), wo N(0, 1/F)) and tokens: 4 x 32 (64 local tokens
-    a data shard: the parallel path) and 4 x 8 (16: the fallback), with
-    the cotangent ``r`` of the gradient check."""
+    a data shard: the parallel path), 4 x 8 (16: the fallback) and 8 x 1
+    (decode), with the cotangent ``r`` of the gradient checks."""
     rng = np.random.default_rng(0)
 
     def n(*shape, scale=1.0):
@@ -266,6 +387,11 @@ def _inputs():
     # every small token leans to expert 0: capacity dispatch would drop
     # some (32 picks of it for 20 places), the dropless math none
     inp["x_small"] += 4.0 * router[:, 0] / np.linalg.norm(router[:, 0])
+    inp["x_dec"] = n(8, 1, D)                  # decode: 8 rows, one token
+    # experts of d_ff 63, which does not divide a mesh dim of 2
+    inp["wi_odd"], inp["wg_odd"] = (n(E, D, 63, scale=D ** -0.5)
+                                    for _ in range(2))
+    inp["wo_odd"] = n(E, 63, D, scale=63 ** -0.5)
     return inp
 
 
@@ -408,40 +534,101 @@ def test_sharded_lora_step_equals_unsharded(ranks):
         assert np.abs(g1 - g0).max() <= 1e-4 * np.abs(g0).max()
 
 
-# (query heads, rows, ring fallback) -> the most a rank's prefill and
-# decode kernels may do, as a share of the same steps unsharded: the data
-# axis halves the rows; on "model" the attention splits its query heads
-# (H = 2), its rows (4 rows: 2 a data shard), or at decode its slots (2
-# rows, H = 3: neither divides; the rank of slots 0-3 sees 4 valid slots
-# at each of positions 6-8, 12 of the 23 a row sees whole), while such a
-# prefill runs whole on "model"'s ranks
-RING_CASES = {(2, 4, "hd"): (0.25, 0.25), (2, 4, "seq"): (0.25, 0.25),
-              (3, 4, "hd"): (0.25, 0.25), (3, 4, "seq"): (0.25, 0.25),
-              (3, 2, "hd"): (0.5, 12 / 46), (3, 2, "seq"): (0.5, 12 / 46)}
+# (query heads, rows, ring fallback) -> prompt length -> the most a
+# rank's prefill and decode kernels may do, as a share of the same steps
+# unsharded: the data axis halves the rows; on "model" the attention
+# splits its query heads (H = 2) or its rows (4 rows: 2 a data shard).
+# Where neither divides (2 rows, H = 3): an 8-token prefill splits its
+# queries (chunks 0 and 3 of 4 on one rank, 1 and 2 on the other: 18 of
+# the 36 causal pairs each) and the decode of the full ring its slots (8
+# valid, 4 a rank); a 6-token prefill, which 2n = 4 chunks do not divide,
+# runs whole on "model"'s ranks, and at positions 6-8 the rank of slots
+# 0-3 sees 4 valid slots at each step, 12 of the 23 a row sees whole
+RING_CASES = {
+    (2, 4, "hd"): {6: (0.25, 0.25), 8: (0.25, 0.25)},
+    (2, 4, "seq"): {6: (0.25, 0.25), 8: (0.25, 0.25)},
+    (3, 4, "hd"): {6: (0.25, 0.25), 8: (0.25, 0.25)},
+    (3, 4, "seq"): {6: (0.25, 0.25), 8: (0.25, 0.25)},
+    (3, 2, "hd"): {6: (0.5, 12 / 46), 8: (0.25, 0.25)},
+    (3, 2, "seq"): {6: (0.5, 12 / 46), 8: (0.25, 0.25)}}
 
 
 @pytest.mark.parametrize("heads,rows,fallback", list(RING_CASES))
 def test_sharded_ring_attention_splits_over_model(ranks, heads, rows,
                                                   fallback):
-    """A ring prefill of 6 tokens and 3 decode steps (the last wraps
-    slot 0) of a 2-layer float32 model with one kv head, as DTensors on
-    the 2 x 2 mesh under ``kv_fallback`` "hd" and "seq": the ring split on
-    head_dim or on the sequence over "model", the logits and every
-    layer's ring within 1e-5 of the same steps on plain tensors, and no
-    rank's attention kernels doing more than their share of the work."""
+    """A ring prefill of 6 tokens, and one of 8, into 8 slots, each
+    followed by 3 decode steps (which wrap a slot), of a 2-layer float32
+    model with one kv head, as DTensors on the 2 x 2 mesh under
+    ``kv_fallback`` "hd" and "seq": the ring split on head_dim or on the
+    sequence over "model", the logits and every layer's ring within 1e-5
+    of the same steps on plain tensors, and no rank's attention kernels
+    doing more than their share of the work."""
     got, _ = ranks
-    tag = f"ring_{heads}_{rows}_{fallback}"
-    assert list(got[f"{tag}_placements"]) == \
-        ["S(0)", "S(3)" if fallback == "hd" else "S(1)"]
-    np.testing.assert_allclose(got[f"{tag}_dt_logits"],
-                               got[f"{tag}_plain_logits"], atol=1e-5,
-                               rtol=1e-5)
-    for layer in range(2):
-        for name in ("k", "v", "slot_pos"):
-            np.testing.assert_allclose(got[f"{tag}_dt_{name}{layer}"],
-                                       got[f"{tag}_plain_{name}{layer}"],
-                                       atol=1e-5, rtol=1e-5)
-    plain, dt = got[f"{tag}_plain_work"], got[f"{tag}_dt_work"]
-    assert (plain > 0).all()
-    share = np.array(RING_CASES[heads, rows, fallback])
-    assert (dt <= share * plain * (1 + 1e-12)).all(), (dt, plain)
+    for T, shares in RING_CASES[heads, rows, fallback].items():
+        tag = f"ring_{heads}_{rows}_{fallback}_t{T}"
+        assert list(got[f"{tag}_placements"]) == \
+            ["S(0)", "S(3)" if fallback == "hd" else "S(1)"]
+        np.testing.assert_allclose(got[f"{tag}_dt_logits"],
+                                   got[f"{tag}_plain_logits"], atol=1e-5,
+                                   rtol=1e-5)
+        for layer in range(2):
+            for name in ("k", "v", "slot_pos"):
+                np.testing.assert_allclose(
+                    got[f"{tag}_dt_{name}{layer}"],
+                    got[f"{tag}_plain_{name}{layer}"], atol=1e-5, rtol=1e-5)
+        plain, dt = got[f"{tag}_plain_work"], got[f"{tag}_dt_work"]
+        assert (plain > 0).all()
+        share = np.array(shares)
+        assert (dt <= share * plain * (1 + 1e-12)).all(), (T, dt, plain)
+
+
+@pytest.mark.parametrize("tag", ["x_dec", "x_small", "x", "x_dec_odd",
+                                 "x_odd"])
+def test_moe_splits_rows_and_experts_over_the_mesh(ranks, tag):
+    """The experts as the sharding policy stores them and x's rows over
+    "data": with no parallel mesh (decode's 8 x 1, then 4 x 8 tokens, and
+    4 x 32 on the shard-local path; "_odd": d_ff 63, which "model" does
+    not divide, so the shard-local path slices the 4 experts) and through
+    the parallel mesh's fallback (plain weights, and those DTensors), the
+    output and the aux losses equal the plain dropless math on all tokens
+    within 2e-5, and no rank's bmm FLOPs exceed a quarter of the plain
+    math's: no rank runs rows it does not own through experts it does
+    not hold."""
+    got, _ = ranks
+    want = got[f"moe_plain_{tag}"]
+    names = ["nomesh"] + (["fallback_plain", "fallback_dt"]
+                          if tag in ("x_dec", "x_small") else [])
+    for name in names:
+        np.testing.assert_allclose(got[f"moe_{name}_{tag}"], want,
+                                   atol=2e-5, rtol=2e-5)
+        for k in ("load_balance_loss", "router_z_loss"):
+            np.testing.assert_allclose(
+                got[f"moe_{name}_aux_{tag}_{k}"],
+                got[f"moe_plain_aux_{tag}_{k}"], atol=2e-5, rtol=2e-5)
+        share = float(got[f"moe_{name}_share_{tag}"][0])
+        assert share <= 0.25 * (1 + 1e-12), (name, share)
+
+
+def test_moe_capacity_dispatch_needs_the_parallel_mesh(ranks):
+    """Under the capacity dispatch the parallel mesh runs the capacity
+    math only on its shard-local path with the experts sliced on F (64
+    local tokens, d_ff 64), dropless on its fallback (16 local tokens) and
+    on d_ff 63's expert slices, as the reference's shard_map does; with no
+    parallel mesh a DTensor input is refused (the dropless math would not
+    drop what the reference's plain path drops), while a plain input runs
+    the capacity math and drops (its small tokens lean to expert 0)."""
+    got, _ = ranks
+    assert list(got["moe_runs_capacity"]) == [True, False, False]
+    assert int(got["moe_capacity_dtensor_refused"]) == 1
+    assert float(got["moe_capacity_plain_drop"]) > 0
+
+
+def test_moe_decode_gradients_equal_plain(ranks):
+    """The gradients of x and of every weight through the decode path
+    (the experts left where they are stored, the tokens moved to them)
+    equal the plain math's within 2e-5 of each leaf's largest."""
+    got, _ = ranks
+    for k in ("x", "router", "wi", "wg", "wo"):
+        g = got[f"moe_grad_plain_{k}"]
+        d = np.abs(got[f"moe_grad_dt_{k}"] - g).max()
+        assert d <= 2e-5 * np.abs(g).max(), (k, d, np.abs(g).max())
