@@ -303,6 +303,12 @@ REQUESTS = 12
 SYSTEM_PROMPT = 128          # per-adapter shared prefix (8 whole blocks)
 MAX_PROMPT = 768
 OUTPUT_TOKENS = 32
+# Phase 3's paged prefill at block sizes whose pieces of a stage no TMA
+# box fits (the kernel's key-by-key copy): Llama-2-7B's history of up to
+# 768 keys in blocks of 4 and of 12
+SMALL_BLOCK_SERVE = {bs: dict(SERVE, block_size=bs,
+                              max_blocks_per_slot=-(-MAX_PROMPT // bs))
+                     for bs in (4, 12)}
 
 # Phase 5: the warm-function launcher's flags.  Its scheduler forms
 # batches of 1-3 rows at these flags; phase 3 times the ring-engine kernels
@@ -626,15 +632,39 @@ def build_phase() -> Dict:
           f"{len(usage)} kernel instantiations, "
           f"{sum(u.get('spill_stores', 0) for u in usage)} bytes of spill "
           f"stores in all")
-    # the tensor-core prefill steps (bf16) and the float32 flash and
-    # paged prefill at hd 192 and 256: registers and spills
+    # the Hopper prefill steps (bf16: every head dim, one or two consumer
+    # warpgroups, flash with and without the prefix rule), their merge,
+    # and the float32 flash and paged prefill at hd 192 and 256:
+    # registers and spills
     for u in usage:
-        if "_bf16" in u["function"] or re.search(
+        m = re.search(r"(flash_kernel|paged_prefill)_bf16ILi(\d+)ELi(\d)E"
+                      r"(?:Lb([01])E)?", u["function"])
+        if m:
+            u["prefill"] = {"kernel": m[1].replace("_kernel", ""),
+                            "hd": int(m[2]), "warpgroups": int(m[3]),
+                            "prefix": m[4] == "1"}
+            print(f"ptxas {u['prefill']['kernel']} bf16 hd {m[2]}, {m[3]} "
+                  f"consumer warpgroup(s) ({64 * int(m[3])}-row tiles)"
+                  + (", prefix rule" if m[4] == "1" else "")
+                  + f": {u['registers']} registers a thread at launch "
+                  f"(setmaxnreg moves the producer's to the consumers), "
+                  f"spill stores {u.get('spill_stores')} B, spill loads "
+                  f"{u.get('spill_loads')} B")
+        elif "prefill_split_merge" in u["function"] or re.search(
                 r"(flash_kernel|paged_prefill)_f32ILi(192|256)E",
                 u["function"]):
             print(f"ptxas {u['function']}: {u['registers']} registers, "
                   f"spill stores {u.get('spill_stores')} B, spill loads "
                   f"{u.get('spill_loads')} B")
+    # ptxas serialises a kernel's wgmma where it cannot keep them in
+    # flight (a call, too few registers, an operand defined mid-pipeline)
+    serial = sorted({ln.split("in the function")[1].strip(" '")[:120]
+                     for ln in info.log.splitlines()
+                     if "wgmma.mma_async instructions are serialized" in ln
+                     and "in the function" in ln})
+    print(f"ptxas: wgmma serialised in {len(serial)} functions")
+    if serial:
+        fail(f"ptxas serialised the wgmma of {serial}")
     # the split-KV decode steps: also their shared memory, the dynamic
     # part at the wrappers' partition and G query heads per kv head
     from repro_torch.kernels.decode_attention.ops import PARTITION
@@ -828,17 +858,28 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
 def prefill_case(gen, dtype, K: int = 32, G: int = 1,
                  window: Optional[int] = None, serve: Dict = SERVE,
                  starts=(0, MAX_PROMPT - SERVE["prefill_chunk"]),
-                 hd: int = 128) -> Dict:
+                 hd: int = 128, parts: int = 1) -> Dict:
     """Runtime prefill: a chunk of ``prefill_chunk`` queries for each of
     ``prefill_rows`` rows over its paged history, at Llama-2-7B head
     widths by default (``H = K * G`` query heads of ``hd``), each chunk
-    starting at a block boundary in [``starts``]."""
-    from repro_torch.kernels.paged_prefill.ops import paged_prefill_gqa, work
+    starting at a block boundary in [``starts``].  In bf16 the library's
+    rule must split the walk into ``parts`` key partitions (the values
+    tests/test_torch_prefill_tile_precision.py asserts of its copy)."""
+    from repro_torch.kernels.paged_prefill.ops import (paged_prefill_gqa,
+                                                       partitions, work)
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
     B, C = serve["prefill_rows"], serve["prefill_chunk"]
     NB, bs, MB = serve["num_blocks"], serve["block_size"], \
         serve["max_blocks_per_slot"]
     H = K * G
+    S = 1
+    if dtype == torch.bfloat16:
+        S = partitions(B, C, K, G, bs, MB, hd, window,
+                       torch.device("cuda", torch.cuda.current_device()))
+        if S != parts:
+            fail(f"paged prefill at B={B} C={C} K={K} G={G} hd={hd} bs={bs} "
+                 f"MB={MB} window={window}: the library's rule gives {S} "
+                 f"key partitions, expected {parts}")
     kp = _randn(gen, K, NB, bs, hd, dtype=dtype)
     vp = _randn(gen, K, NB, bs, hd, dtype=dtype)
     q = _randn(gen, B, C, H, hd, dtype=dtype)
@@ -867,7 +908,7 @@ def prefill_case(gen, dtype, K: int = 32, G: int = 1,
     q4 = q.permute(0, 2, 1, 3).contiguous()
     return dict(
         shape=f"B={B} C={C} K={K} G={G} hd={hd} NB={NB} bs={bs} MB={MB} "
-              f"window={window} history_keys={keys}",
+              f"window={window} history_keys={keys} partitions={S}",
         kernel=lambda: paged_prefill_gqa(q, kp, vp, tbl, q_pos,
                                          window=window),
         plain=lambda: paged_prefill_ref(q, kp, vp, tbl, q_pos,
@@ -974,6 +1015,7 @@ def flash_offset_case(gen, dtype, q0: int, window: Optional[int],
     ``whole`` gives the same rows of one call over all the queries;
     ``shared`` keeps the inputs and that call per (dtype, window)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.flash_attention.ops import flash_mha, work
     from repro_torch.kernels.flash_attention.ref import flash_ref
     phi = get_config("phi3_medium_14b")
@@ -990,6 +1032,10 @@ def flash_offset_case(gen, dtype, q0: int, window: Optional[int],
         shared[key] = (q, k, v, flash_mha(q, k, v, window=window))
     q, k, v, whole = shared[key]
     end = q0 + m
+    lib = cuda_lib.library()
+    code = cuda_lib.DTYPE_CODES[dtype]
+    tile = lib.flash_tile_rows(hd, G, m, end, window or 0, code)
+    whole_tile = lib.flash_tile_rows(hd, G, T, T, window or 0, code)
     qc = q[:, q0:end].contiguous()
     kc, vc = k[:, :end].contiguous(), v[:, :end].contiguous()
     q4 = qc.transpose(1, 2).contiguous()
@@ -1011,10 +1057,11 @@ def flash_offset_case(gen, dtype, q0: int, window: Optional[int],
             q4, k4, v4, attn_mask=ok),
         library_label="scaled_dot_product_attention over (B, H, T, hd) "
                       "copies, K/V repeated per head, a mask",
-        zero_rows=[], q_offset=q0, whole=whole[:, q0:end],
-        # the chunk's 64-row tiles (64 / G queries each) and its stages of
-        # 64 keys line up with the whole call's: the same sums, bit for bit
-        aligned=q0 % (64 // G) == 0,
+        zero_rows=[], q_offset=q0, whole=whole[:, q0:end], tile_rows=tile,
+        # the chunk's tiles (tile / G queries each, the library's rule) and
+        # its stages line up with the whole call's: the same sums, bit for
+        # bit
+        aligned=tile == whole_tile and q0 % (tile // G) == 0,
         **bound_of(work(qc, kc, vc, window=window, q_offset=q0)))
 
 
@@ -1101,6 +1148,10 @@ def kernels_phase() -> Dict[str, Dict]:
                                   window=128)),
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, K=8, G=4)),
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, window=128)),
+        ("paged_prefill", bf, lambda: prefill_case(
+            gen, bf, serve=SMALL_BLOCK_SERVE[4])),
+        ("paged_prefill", bf, lambda: prefill_case(
+            gen, bf, K=8, G=4, serve=SMALL_BLOCK_SERVE[12])),
         ("paged_attention", bf, lambda: decode_case(gen, bf, K=8, G=4)),
         ("paged_attention", bf, lambda: decode_case(gen, bf, window=128)),
         # SGMV at the prefills' row layouts: the runtime's 4 rows x 64
@@ -1154,7 +1205,7 @@ def kernels_phase() -> Dict[str, Dict]:
             ("paged_prefill", dtype, lambda d=dtype: prefill_case(
                 gen, d, K=rg.num_kv_heads, G=G16, hd=rg.head_dim_,
                 window=rw, serve=rgs,
-                starts=(rw, rhi - rgs["prefill_chunk"])))]
+                starts=(rw, rhi - rgs["prefill_chunk"]), parts=4))]
         for D, O in ((mb.d_model, fused), (mb.d_inner, mb.d_model)):
             makers += [
                 ("sgmv", dtype, lambda d=dtype, D=D, O=O: sgmv_case(
@@ -1327,6 +1378,7 @@ def kernels_phase() -> Dict[str, Dict]:
         if "whole" in c:
             # the chunk's rows against one call over all the queries
             row["q_offset"] = c["q_offset"]
+            row["tile_rows"] = c["tile_rows"]
             row["equal_to_whole"] = bool(torch.equal(got, c["whole"]))
             row["max_abs_diff_to_whole"] = float(
                 (got.float() - c["whole"].float()).abs().max())
@@ -1844,6 +1896,7 @@ def _kernel_kind(name: str) -> str:
                       ("flash_kernel", "flash_attention"),
                       ("ring_decode", "decode_attention"),
                       ("split_kv_merge", "decode_merge"),
+                      ("prefill_split_merge", "prefill_merge"),
                       ("memcpy", "copy"), ("memset", "copy")):
         if key in low:
             return kind

@@ -18,9 +18,13 @@ variant, its error against the plain version, the library yardstick's
 time (SDPA for attention) and the bound.
 
 Sets:
-  1  prefill: what bounds the step: copies only (no compute), compute only
-     (no copies), one more ring stage, three CTAs per SM for flash;
-  2  prefill: ring depth of paged prefill, order of flash's tiles;
+  1  prefill (the Hopper step): what bounds it: copies only (no compute),
+     compute only (no TMA copies), 64-row tiles everywhere (one consumer
+     warpgroup), 128-row tiles wherever there are 128 rows (whatever the
+     head dim and walk), one stage after the other (no overlap);
+  2  prefill: paged prefill without key partitions, flash's tiles in
+     order instead of the longest walks first, two CTAs an SM where three
+     fit (flash at hd 32 and 64);
   3  decode (ring and paged): partitions of 32 and 128 slots against 64,
      copies only (no scores, no P V), compute only (no copies), the
      partition kernel without the merge kernel, a merge whose loop has
@@ -28,6 +32,12 @@ Sets:
      decode reading its table beside ``pos``; v0 and SDPA are also timed
      with an L2 flush that reads instead of writes (``clean_flush_us``),
      and v0's kernels one by one under the profiler (``v0_kernels_us``);
+  5  paged prefill's key partitions: the library's rule (v0) against no
+     split, 2, 4 and 8 parts whatever the grid (``("SPLIT", n)``: the
+     wrapper's ``partitions`` replaced), at phase 3's paged shapes and at
+     block sizes 4 and 12 (no TMA box fits their pieces); then phases 9
+     and 11 (RecurrentGemma-9B, Nemotron-4-340B) end to end under v0 and
+     S1, each printed as one JSON line of its prefill breakdown;
   4  SGMV (bf16) at the phase-3 row layouts and the warm-function decode
      batch: v0 is the first version's CUDA-core kernels (one CTA per row
      and 128-feature slice, then one thread per output column) against
@@ -58,26 +68,45 @@ import chip_smoke as cs
 SETS = {
     "1": ("prefill", {
         "v0": [],
-        "ns+1": [("flash_attn.cu", "constexpr int kStagesBf16 = 2;",
-                  "constexpr int kStagesBf16 = 3;"),
-                 ("paged_prefill.cu", "constexpr int kStagesBf16 = 3;",
-                  "constexpr int kStagesBf16 = 4;")],
-        "flash3cta": [("flash_attn.cu",
-                       "__launch_bounds__(rt::tile::tc::kThreads, 2)",
-                       "__launch_bounds__(rt::tile::tc::kThreads, 3)")],
-        "nocompute": [("prefill_tile.cuh", "    stage(s, s % NS);\n", "")],
-        "nocopy": [("prefill_tile.cuh", "    if (s < n) issue(s, s);\n", ""),
-                   ("prefill_tile.cuh",
-                    "    if (s + NS - 1 < n) issue(s + NS - 1, "
-                    "(s + NS - 1) % NS);\n", "")],
+        "nocompute": [("prefill_tile.cuh",
+                       "  while (ja <= jb && skip(ja)) ++ja;",
+                       "  ja = jb + 1;")],
+        "nocopy": [
+            ("flash_attn.cu",
+             "        rt::mbar_arrive_tx(&sm.full[slot], 2 * C::kTileBytes);\n",
+             "        rt::mbar_arrive(&sm.full[slot]);\n        return;\n"),
+            ("paged_prefill.cu", "__popc(read) * 2 * Cf::NCH * R * Cf::SWB",
+             "0"),
+            ("paged_prefill.cu", "        if (phys >= 0) {\n"
+             "          const int row", "        if (false) {\n"
+             "          const int row")],
+        "tile64": [("prefill_tile.cuh", "  return rows >= 128 && (hd > 128 "
+                    "|| (hd == 128 && walk >= 512)) ? 128 : 64;",
+                    "  return 64;")],
+        "tile128": [("prefill_tile.cuh", "  return rows >= 128 && (hd > 128 "
+                     "|| (hd == 128 && walk >= 512)) ? 128 : 64;",
+                     "  return rows >= 128 ? 128 : 64;")],
+        "serial": [("prefill_tile.cuh", "  if (C::NS < 3 && ja <= jb) {",
+                    "  if (ja <= jb) {")],
     }),
     "2": ("prefill", {
         "v0": [],
-        "paged-ns2": [("paged_prefill.cu", "constexpr int kStagesBf16 = 3;",
-                       "constexpr int kStagesBf16 = 2;")],
+        "paged-no-split": [("paged_prefill.cu",
+                            "  using Cf = CfgBf16<HD, NWG>;\n  // a stage",
+                            "  using Cf = CfgBf16<HD, NWG>;\n  S = 1;\n"
+                            "  // a stage")],
         "flash-in-order": [("flash_attn.cu",
-                            "const int r0 = (gridDim.y - 1 - blockIdx.y) "
-                            "* kM;", "const int r0 = blockIdx.y * kM;")],
+                            "const int r0 = (gridDim.x - 1 - blockIdx.x) * "
+                            "C::kM;", "const int r0 = blockIdx.x * C::kM;")],
+        "occ2": [("prefill_tile.cuh", "constexpr int kMaxOcc = KPOS ? 2 : 3;",
+                  "constexpr int kMaxOcc = 2;")],
+    }),
+    "5": ("paged", {
+        "v0": [],
+        "S1": [("SPLIT", 1)],
+        "S2": [("SPLIT", 2)],
+        "S4": [("SPLIT", 4)],
+        "S8": [("SPLIT", 8)],
     }),
     "3": ("decode", {
         "v0": [],
@@ -175,8 +204,8 @@ SETS = {
 
 
 def setting(patches, key: str):
-    """The value a variant gives ``key`` ("PARTITION", "SGMV"), if
-    any."""
+    """The value a variant gives ``key`` ("PARTITION", "SGMV", "SPLIT"),
+    if any."""
     return next((p[1] for p in patches if p[0] == key), None)
 
 
@@ -223,12 +252,15 @@ def build_variants(variants):
             cuda_lib.library.cache_clear()
             info = cuda_lib.build()
             for u in cs.ptxas_usage(info.log):
-                if ("_bf16ILi128" in u["function"] or
+                if (u.get("spill_stores") or "_bf16ILi128" in u["function"] or
                         "_decode_part_kernelI13__nv_bfloat16Li128ELi1E"
                         in u["function"] or "sgmv_" in u["function"]):
                     print(f"{name}: {u['function'][:60]}... "
                           f"{u['registers']} registers, spill stores "
                           f"{u.get('spill_stores')} B", flush=True)
+            for ln in info.log.splitlines():
+                if "warning" in ln and "wgmma" in ln:   # a serialised wgmma
+                    print(f"{name}: {ln.strip()[:200]}", flush=True)
             built[sources] = libs[name] = cuda_lib.library()
     finally:
         cuda_lib.CSRC, cuda_lib.BUILD_ROOT = base, build_root
@@ -238,10 +270,12 @@ def build_variants(variants):
 
 def main() -> int:
     kind, variants = SETS[sys.argv[1] if len(sys.argv) > 1 else "1"]
-    cs.device_phase()
+    device = cs.device_phase()
+    from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.decode_attention import ops as ring_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_prefill import ops as pp_ops
     from repro_torch.kernels.sgmv import ops as sgmv_ops
     libs = build_variants(variants)
     gen = torch.Generator(device="cuda")
@@ -250,13 +284,52 @@ def main() -> int:
                         device="cuda")
     bf, T, Bl = torch.bfloat16, cs.LAUNCH["prompt_len"], cs.LAUNCH_BATCH
     S, last = cs.LAUNCH_CONTEXT, T + cs.LAUNCH["max_new"] - 2
+    rg, nm = get_config(cs.RGEMMA), get_config(cs.NEMOTRON)
+    rgs, nms, nhi = cs.RGEMMA_SERVE, cs.NEMOTRON_SERVE, cs.NEMOTRON_PROMPT[1]
+    paged = {
+        "paged": lambda: cs.prefill_case(gen, bf),
+        "paged GQA": lambda: cs.prefill_case(gen, bf, K=8, G=4),
+        "paged window 128": lambda: cs.prefill_case(gen, bf, window=128),
+        "paged G 6 window 4096": lambda: cs.prefill_case(
+            gen, bf, K=8, G=6, window=4096, serve=cs.MIXTRAL_SERVE,
+            starts=(4096, cs.MIXTRAL_PROMPT[1]
+                    - cs.MIXTRAL_SERVE["prefill_chunk"])),
+        "paged RG-9B": lambda: cs.prefill_case(
+            gen, bf, K=rg.num_kv_heads, G=rg.num_heads // rg.num_kv_heads,
+            hd=rg.head_dim_, window=rg.sliding_window, serve=rgs,
+            starts=(rg.sliding_window,
+                    cs.RGEMMA_PROMPT[1] - rgs["prefill_chunk"]), parts=4),
+        "paged Nemotron": lambda: cs.prefill_case(
+            gen, bf, K=nm.num_kv_heads, G=nm.num_heads // nm.num_kv_heads,
+            hd=nm.head_dim_, serve=nms,
+            starts=(nhi - 2 * nms["prefill_chunk"],
+                    nhi - nms["prefill_chunk"])),
+    }
     cases = {
         "prefill": {
             "flash B=3": lambda: cs.flash_case(gen, bf, Bl, T, 32, 1),
             "flash B=8": lambda: cs.flash_case(gen, bf, 8, T, 32, 1),
             "flash GQA": lambda: cs.flash_case(gen, bf, Bl, T, 8, 4),
-            "paged": lambda: cs.prefill_case(gen, bf),
-            "paged GQA": lambda: cs.prefill_case(gen, bf, K=8, G=4),
+            "flash window 128": lambda: cs.flash_case(gen, bf, Bl, T, 32, 1,
+                                                      window=128),
+            "flash SmolLM 8 x 256": lambda: cs.flash_case(
+                gen, bf, cs.ZOO_ROWS, cs.ZOO_PROMPT, 5, 3, hd=64),
+            "flash prefix 100 window 40": lambda: cs.flash_case(
+                gen, bf, 2, 150, 2, 4, window=40, prefix=100),
+            "flash hd 192 G 12": lambda: cs.flash_case(
+                gen, bf, cs.RING_ROWS, 512, 8, 12, hd=192),
+            "flash Whisper encoder": lambda: cs.flash_case(
+                gen, bf, cs.WHISPER_ROWS, 1500, 16, 1, hd=64, causal=False),
+            "flash 1 x 32768": lambda: cs.flash_case(
+                gen, bf, cs.SHARDED_PREFILL_ROWS, cs.SHARDED_CONTEXT, 32, 1),
+            **paged,
+        },
+        "paged": {
+            **paged,
+            "paged bs 4": lambda: cs.prefill_case(
+                gen, bf, serve=cs.SMALL_BLOCK_SERVE[4]),
+            "paged bs 12 GQA": lambda: cs.prefill_case(
+                gen, bf, K=8, G=4, serve=cs.SMALL_BLOCK_SERVE[12]),
         },
         "decode": {
             "ring B=3": lambda: cs.ring_decode_case(gen, bf, Bl, S, 32, 1,
@@ -280,6 +353,7 @@ def main() -> int:
     }[kind]
     order = list(variants) + list(reversed(variants))
     real, part = cuda_lib.library, ring_ops.PARTITION
+    split_rule = pp_ops.partitions
     sgmv_names = {name: getattr(sgmv_ops, name)
                   for v in variants.values()
                   for name in (setting(v, "SGMV") or {})}
@@ -291,9 +365,12 @@ def main() -> int:
         for name, value in {**sgmv_names,
                             **(setting(variants[n], "SGMV") or {})}.items():
             setattr(sgmv_ops, name, value)
+        split = setting(variants[n], "SPLIT")
+        pp_ops.partitions = (lambda *a, S=split: S) if split else split_rule
 
     try:
         for cname, make in cases.items():
+            use("v0")           # a case is made under the library's rules
             c = make()
             want = c["plain"]()
             us = {n: [] for n in variants}
@@ -324,9 +401,25 @@ def main() -> int:
                     use(n)
                     line["kernels_us"][n] = kernel_split(c["kernel"], flush)
             print(json.dumps(line), flush=True)
+        if kind == "paged":
+            for label, run in (("phase 9", cs.recurrentgemma_phase),
+                               ("phase 11", cs.nemotron_phase)):
+                for n in ("v0", "S1"):
+                    use(n)
+                    out = run(device)
+                    pre = out["breakdown"]["prefill_admission"]
+                    print(json.dumps({
+                        "e2e": label, "variant": n,
+                        "ttft_p50_s": out.get("ttft_p50_s"),
+                        "dispatches": pre["dispatches"],
+                        "prefill_wall_ms": pre["wall_ms"],
+                        "prefill_device_busy_ms": pre["device_busy_ms"],
+                        "device_ms_by_kind": pre["device_ms_by_kind"]}),
+                        flush=True)
     finally:
         cuda_lib.library = real
         ring_ops.PARTITION = paged_ops.PARTITION = part
+        pp_ops.partitions = split_rule
         for name, value in sgmv_names.items():
             setattr(sgmv_ops, name, value)
     return 0

@@ -4,48 +4,60 @@
 // Replaces: src/repro/kernels/flash_attention/flash.py:33, `_flash_kernel`
 // under `flash_attention` (its pl.pallas_call at :107).
 //
-// Bound on this card: bytes for the warm-function launcher's prefill at
-// Llama-2-7B widths (3 rows x 500 tokens, 32 heads of 128, bf16): q, k, v
-// and o are 49.2 MB (14.7 us at 3.35 TB/s) against 6.2 GFLOP of causal
-// products (6.2 us at 989 TFLOP/s on the tensor cores).  Each CTA reads
-// the keys of its own causal range again (from L2 for the most part), so
-// what sets the time in practice is the rate at which the CTAs' copies
-// and tensor-core products overlap, not device memory alone.
+// Bound on this card, bf16, per the shapes its callers give it:
+//  * the warm-function launcher's prefill at Llama-2-7B widths (3 rows x
+//    500 tokens, 32 heads of 128): bytes, q, k, v and o 49.2 MB (14.7 us
+//    at 3.35 TB/s) against 6.2 GFLOP of causal products (6.2 us);
+//  * phase 17's sharded prefill (1 x 32768 causal) and Whisper's 1500-frame
+//    encoder: operations (8.8 TFLOP, 8.9 ms; 36.9 GFLOP, 37.3 us).
+// The CTAs re-read the keys of their own walks (from L2 for the most
+// part), and what sets the time is how well the tensor-core products, the
+// softmax between them and the copies overlap.
 //
 // Design.  The TPU grid's sequential kv axis, whose scratch (m, l, acc)
 // persisted across steps, becomes a loop inside one CTA.  One CTA per
-// (batch row, kv head, tile of 64 query-head rows); tile row r is query
-// r / G of query head h * G + r % G, so all G heads of a kv head share the
+// (batch row, kv head, tile of query-head rows); tile row r is query r / G
+// of query head h * G + r % G, so all G heads of a kv head share the
 // staged keys (GQA without K/V replication).  q, k and v are read in place
-// in the model's (B, T, H, hd) / (B, T, K, hd) layout.  Tiles run from the
-// last (the longest causal walk) to the first, so the long walks start in
-// the first wave.  The CTA walks keys only from the window's first key
+// in the model's (B, T, H, hd) / (B, T, K, hd) layout.  The grid's fast
+// axis is the tile, so the CTAs in flight walk the keys of few (row, kv
+// head)s and share them in L2; tiles run from the last (the longest causal
+// walk) to the first.  The CTA walks keys only from the window's first key
 // (rounded down to a stage boundary) to the tile's last query (causal) or
-// to the last key — the work the Pallas kernel skips with pl.when — in
-// stages of 64 keys.  Rows past Tq are neither computed into nor written.
-// A row that sees no key at all (possible only without causality's own
-// diagonal) writes zeros, with the max(l, 1e-30) guard of flash.py:83.
+// to the last key — the work the Pallas kernel skips with pl.when.  Rows
+// past Tq are neither computed into nor written.  A row that sees no key
+// at all (possible only without causality's own diagonal) writes zeros,
+// with the max(l, 1e-30) guard of flash.py:83.
 //
 // Query offset (q0): query i sits at position q0 + i, key j at j, so a
 // sharded ring prefill can hand each rank its own chunks of the queries
 // over the keys up to its last one.  Every position the masks and the
-// walk bounds read (q_first, q_last, the warp's qw_lo / qw_hi, each row's
-// qp, and the edges derived from them) is shifted by q0; the rows of q
-// and out stay indexed from 0.  With q0 a multiple of 64 / G a chunk's
-// tiles and stages line up with the whole call's, so its rows come out
-// bit for bit the same.
+// walk bounds read is shifted by q0; the rows of q and out stay indexed
+// from 0.  Where a chunk's call and the whole call take the same tile
+// (flash_tile_rows) and q0 is a multiple of its queries, kM / G, the
+// chunk's tiles and stages line up with the whole call's, so its rows come
+// out bit for bit the same.
 //
 // Which tile step (prefill_tile.cuh) runs is set by the dtype:
-//  * bf16: the tensor-core step, 4 warps; K/V stages in a ring of two
-//    buffers filled by cp.async, Q staged in the second (68 KB of shared
-//    memory and 199 registers a thread at hd 128, so two CTAs fit on an
-//    SM).  Per-element masks run only on a warp's stages that cross its
-//    causal diagonal, its window's first key or Tk; a stage that masks
-//    all of a warp's rows is skipped by that warp.
-//  * float32: the CUDA-core step of 256 threads, with 16-byte loads staged
-//    synchronously into float32 rows.
-// Split-KV is not used: at the serving shapes the grid already holds
-// 6 or more CTAs per SM (768 at 3 rows x 500 tokens).
+//  * bf16: the Hopper step, rt::tile::wg: a producer warpgroup whose one
+//    thread keeps a ring of K/V stages in flight with TMA (4-d tensor maps
+//    over k and v, (hd, K, Tk, B), boxes of 64 columns x KT keys; keys past
+//    Tk read zeros), and one or two consumer warpgroups of 64 query-head
+//    rows each on wgmma.  Tile rule (wg::tile_rows over flash_walk, the
+//    longest walk: Tk, or the window and a tile's queries): 128 rows where
+//    there are 128 and hd is 192 or 256, or 128 with a walk of 512 keys or
+//    more; else 64.  So the launcher's 3 x 500, the zoo's 8 x 256, the
+//    narrow windows and Whisper (hd 64) take 64-row tiles, two CTAs an SM;
+//    the long walks (1 x 32768, Phi-3's 4096-key chunks), hd 192 and hd
+//    256 take 128.  Per-element masks run only on a warp's stages that
+//    cross its causal diagonal, its window's first key or Tk; the stages
+//    that mask all of a warpgroup's rows are not computed by it.  Shared
+//    memory and registers per head dim: prefill_tile.cuh.
+//  * float32: the CUDA-core step of 256 threads, 64-row tiles, with 16-byte
+//    loads staged synchronously into float32 rows (164 KB at hd 192, 212
+//    KB at hd 256).
+// Split-KV is not used: at the serving shapes the grid already holds 3 or
+// more waves of CTAs (768 tiles at 3 rows x 500 tokens).
 //
 // Prefix-LM (PaliGemma's image prefix, the reference's mask kind
 // "prefix"): with prefix > 0 a key at position < prefix is visible to
@@ -55,12 +67,6 @@
 // tiles wholly inside the prefix attend bidirectionally over it.  The
 // rule is a template flag (PREFIX), so the causal kernels without a
 // prefix compile to the code they had without the rule.
-//
-// hd 192 and 256 (Nemotron-4-340B, PaliGemma-3B, RecurrentGemma-9B) take
-// the hd-256 route of the tensor-core step (prefill_tile.cuh, q_in_smem:
-// Q's fragments reloaded per stage from a buffer of their own) with the
-// same two ring stages: 125 KB at hd 192, 165 KB at hd 256, one CTA an
-// SM.  float32: 164 KB and 212 KB.
 #include <cmath>
 
 #include "prefill_tile.cuh"
@@ -160,110 +166,152 @@ __global__ void __launch_bounds__(rt::tile::kThreads) flash_kernel_f32(
 }
 
 // ------------------------------------------------------------ bfloat16
-constexpr int kStagesBf16 = 2;
+template <int HD, int NWG>
+using CfgBf16 = rt::tile::wg::Cfg<HD, NWG, false>;
 
-template <int HD, bool PREFIX>
-__global__ void __launch_bounds__(rt::tile::tc::kThreads, 2)
-    flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
+template <int HD, int NWG, bool PREFIX>
+__global__ void __launch_bounds__(CfgBf16<HD, NWG>::kThreads,
+                                  CfgBf16<HD, NWG>::kOcc)
+    flash_kernel_bf16(const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const bf16* __restrict__ q, bf16* __restrict__ out,
                       int Tq, int Tk, int K, int G, int causal, int window,
                       int prefix, int q0, float scale_log2) {
-  namespace tc = rt::tile::tc;
-  constexpr int NS = kStagesBf16, LD = tc::ld<HD>(), CH = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NS][kKT][LD]
-  bf16* Vs = Ks + NS * kKT * LD;                 // [NS][kKT][LD]
-  bf16* Qs = tc::q_buffer<HD, NS>(Ks);           // [kM][LD]
+  namespace wg = rt::tile::wg;
+  using C = CfgBf16<HD, NWG>;
+  constexpr int KT = C::KT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const wg::Smem<C> sm(smem_raw);
 
-  const int b = blockIdx.x / K, h = blockIdx.x % K;
+  // the tiles of one (row, kv head) are neighbours in the grid, so the
+  // CTAs in flight share their keys in L2
+  const int b = blockIdx.y / K, h = blockIdx.y % K;
   const int H = K * G, rows = Tq * G;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kM;  // longest walks first
-  const int r_end = min(rows, r0 + kM);              // exclusive
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  tc::stage_q<HD>(Qs, q, b, Tq, H, h, G, r0, r_end);
-  rt::cp_async_commit();
-
-  // the warp's rows: query positions [qw_lo, qw_hi] and each lane's two
-  // rows' positions
-  const int w0 = r0 + 16 * warp;
-  const bool live = w0 < r_end;
-  const int qw_lo = q0 + w0 / G, qw_hi = q0 + (min(r_end, w0 + 16) - 1) / G;
-  int qp[2];  // -1 for a dead row
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int rr = w0 + (lane >> 2) + 8 * i;
-    qp[i] = rr < r_end ? q0 + rr / G : -1;
-  }
-
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * C::kM;  // longest first
+  const int r_end = min(rows, r0 + C::kM);               // exclusive
   const int q_first = q0 + r0 / G, q_last = q0 + (r_end - 1) / G;
-  const int t_lo =
-      window > 0 ? max(0, q_first - window + 1) / kKT * kKT : 0;
+  const int t_lo = window > 0 ? max(0, q_first - window + 1) / KT * KT : 0;
   const int t_hi = causal ? min(PREFIX ? max(q_last, prefix - 1) : q_last,
                                Tk - 1)
                          : Tk - 1;  // inclusive
-  const int n = t_hi >= t_lo ? (t_hi - t_lo) / kKT + 1 : 0;
-  // under causality the warp's rows see keys up to these (the prefix
-  // widens each row's edge to at least prefix - 1)
-  const int edge_lo = PREFIX ? max(qw_lo, prefix - 1) : qw_lo;
-  const int edge_hi = PREFIX ? max(qw_hi, prefix - 1) : qw_hi;
+  const int n = t_hi >= t_lo ? (t_hi - t_lo) / KT + 1 : 0;
+  sm.init_barriers();
 
-  tc::Rows<HD> st;
-
-  auto issue = [&](int s, int buf) {
-    const int k0 = t_lo + s * kKT;
-    bf16* Kb = Ks + buf * kKT * LD;
-    bf16* Vb = Vs + buf * kKT * LD;
-    for (int c = tid; c < kKT * CH; c += tc::kThreads) {
-      const int kk = c / CH, ch = c % CH, t = k0 + kk;
-      const bool ok = t <= t_hi;
-      const size_t off =
-          ok ? ((static_cast<size_t>(b) * Tk + t) * K + h) * HD + ch * 8 : 0;
-      rt::cp_async16(Kb + kk * LD + ch * 8, k + off, ok);
-      rt::cp_async16(Vb + kk * LD + ch * 8, v + off, ok);
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread copies
+    wg::producer_regs<C>();
+    const CUtensorMap *kp = &kmap, *vp = &vmap;
+    if (threadIdx.x == 0) {
+      rt::tma_prefetch(kp);
+      rt::tma_prefetch(vp);
     }
-  };
-  auto stage = [&](int s, int buf) {
-    const int k0 = t_lo + s * kKT, k1 = k0 + kKT - 1;
-    if (!live || (causal && k0 > edge_hi) ||
-        (window > 0 && k1 <= qw_lo - window))
-      return;  // every key of the stage is masked for every row
-    const bool masked = k1 > t_hi || (causal && k1 > edge_lo) ||
-                        (window > 0 && k0 <= qw_hi - window);
-    tc::attend_stage<HD>(
-        Ks + buf * kKT * LD, Vs + buf * kKT * LD, scale_log2, masked,
-        [&](int i, int kk) {
-          const int t = k0 + kk;
+    if (threadIdx.x == 0)
+      wg::produce<C>(0, n, sm, [&](int s, int slot) {
+        const int k0 = t_lo + s * KT;
+        rt::mbar_arrive_tx(&sm.full[slot], 2 * C::kTileBytes);
+#pragma unroll
+        for (int j = 0; j < C::NCH; ++j) {
+          const int off = slot * C::kTileBytes + j * KT * C::SWB;
+          rt::tma_load_4d(sm.k + off, kp, &sm.full[slot], j * C::SW, h, k0,
+                          b);
+          rt::tma_load_4d(sm.v + off, vp, &sm.full[slot], j * C::SW, h, k0,
+                          b);
+        }
+      });
+  } else {  // the consumer warpgroups
+    wg::consumer_regs<C>();
+    const int w = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    wg::stage_q<C>(sm.q, q, b, Tq, H, h, G, w, r0, r_end, tid);
+
+    // the warpgroup's rows: query positions [qg_lo, qg_hi]; the warp's:
+    // [qw_lo, qw_hi]; each lane's two rows' positions
+    const int g0 = r0 + 64 * w, w0 = g0 + 16 * (tid >> 5);
+    const bool live = g0 < r_end;
+    const int qg_lo = q0 + g0 / G, qg_hi = q0 + (min(r_end, g0 + 64) - 1) / G;
+    const int qw_lo = q0 + w0 / G, qw_hi = q0 + (min(r_end, w0 + 16) - 1) / G;
+    int qp[2];  // -1 for a dead row
+  #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = w0 + (lane >> 2) + 8 * i;
+      qp[i] = rr < r_end ? q0 + rr / G : -1;
+    }
+    // under causality the rows see keys up to these (the prefix widens
+    // each row's edge to at least prefix - 1)
+    const int edge_g = PREFIX ? max(qg_hi, prefix - 1) : qg_hi;
+    const int edge_lo = PREFIX ? max(qw_lo, prefix - 1) : qw_lo;
+
+    wg::Rows<HD> st;
+    st.init();
+    wg::consume<C>(
+        0, n, sm, w, scale_log2,
+        [&](int s) {  // every key of the stage is masked for every row
+          const int k0 = t_lo + s * KT, k1 = k0 + KT - 1;
+          return !live || (causal && k0 > edge_g) ||
+                 (window > 0 && k1 <= qg_lo - window);
+        },
+        [&](int s) {  // the warp's rows need per-key masks
+          const int k0 = t_lo + s * KT, k1 = k0 + KT - 1;
+          return k1 > t_hi || (causal && k1 > edge_lo) ||
+                 (window > 0 && k0 <= qw_hi - window);
+        },
+        [&](int s, int i, int kk) {
+          const int t = t_lo + s * KT + kk;
           bool ok = qp[i] >= 0 && t <= t_hi;
           if (causal) ok = ok && (t <= qp[i] || (PREFIX && t < prefix));
           if (window > 0) ok = ok && t > qp[i] - window;
           return ok;
         },
         st);
-  };
-  tc::walk<HD, NS>(n, Qs, st, issue, stage);
-  tc::store_rows<HD>(st, Qs, out, b, Tq, H, h, G, r0, r_end);
+    wg::store_rows<C>(st, sm.q, out, b, Tq, H, h, G, w, r0, r_end);
+  }
 }
 
 // ------------------------------------------------------------- launch
+template <int HD, int NWG, bool PREFIX>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Tq, int Tk, int K, int G, int causal, int window,
+                int prefix, int q0, float scale_log2, cudaStream_t s) {
+  using C = CfgBf16<HD, NWG>;
+  // k and v (B, Tk, K, HD) as 4-d maps (HD, K, Tk, B); a box is SW
+  // columns of KT keys of one (row, kv head); keys past Tk read zeros
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(Tk),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {HD * 2ull, HD * 2ull * K,
+                                 HD * 2ull * K * Tk};
+  const cuuint32_t box[4] = {C::SW, 1, C::KT, 1};
+  CUtensorMap km, vm;
+  if (!rt::bf16_tensor_map(&km, k, 4, dims, strides, box, C::SWB) ||
+      !rt::bf16_tensor_map(&vm, v, 4, dims, strides, box, C::SWB))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr =
+      rt::allow_smem(flash_kernel_bf16<HD, NWG, PREFIX>, C::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((Tq * G + C::kM - 1) / C::kM, B * K);
+  flash_kernel_bf16<HD, NWG, PREFIX><<<grid, C::kThreads, C::kBytes, s>>>(
+      km, vm, static_cast<const bf16*>(q), static_cast<bf16*>(out), Tq, Tk,
+      K, G, causal, window, prefix, q0, scale_log2);
+  return 0;
+}
+
 template <int HD, bool PREFIX>
 int launch_kernel(int dtype, const void* q, const void* k, const void* v,
                   void* out, int B, int Tq, int Tk, int K, int G, int causal,
                   int window, int prefix, int q0, cudaStream_t s) {
   const double scale = 1.0 / std::sqrt(static_cast<double>(HD));
-  dim3 grid(B * K, (Tq * G + kM - 1) / kM);
   if (dtype == rt::DTYPE_BF16) {
-    const size_t smem = rt::tile::tc::smem_bytes<HD, kStagesBf16>();
-    static const cudaError_t attr =
-        rt::allow_smem(flash_kernel_bf16<HD, PREFIX>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    flash_kernel_bf16<HD, PREFIX><<<grid, rt::tile::tc::kThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, K, G,
-        causal, window, prefix, q0,
-        static_cast<float>(rt::tile::tc::kLog2e * scale));
-    return 0;
+    const float sl2 = static_cast<float>(rt::tile::wg::kLog2e * scale);
+    return rt::tile::wg::tile_rows(HD, Tq * G,
+                                   rt::tile::wg::flash_walk(Tk, G, window)) ==
+                   128
+               ? launch_bf16<HD, 2, PREFIX>(q, k, v, out, B, Tq, Tk, K, G,
+                                            causal, window, prefix, q0, sl2,
+                                            s)
+               : launch_bf16<HD, 1, PREFIX>(q, k, v, out, B, Tq, Tk, K, G,
+                                            causal, window, prefix, q0, sl2,
+                                            s);
   }
+  dim3 grid(B * K, (Tq * G + kM - 1) / kM);
   const size_t smem = rt::tile::smem_floats<HD>() * sizeof(float);
   static const cudaError_t attr =
       rt::allow_smem(flash_kernel_f32<HD, PREFIX>, smem);
@@ -275,13 +323,47 @@ int launch_kernel(int dtype, const void* q, const void* k, const void* v,
   return 0;
 }
 
+}  // namespace
+
+// The kernels with the prefix rule (PREFIX) are instantiated in a
+// translation unit of their own, flash_attn_prefix.cu, which includes this
+// file with REPRO_FLASH_PREFIX_TU defined: the two halves of the build
+// then compile in parallel.
+int flash_attn_prefix_launch(int dtype, const void* q, const void* k,
+                             const void* v, void* out, int B, int Tq, int Tk,
+                             int K, int G, int hd, int causal, int window,
+                             int prefix, int q0, cudaStream_t s);
+
+#ifdef REPRO_FLASH_PREFIX_TU
+int flash_attn_prefix_launch(int dtype, const void* q, const void* k,
+                             const void* v, void* out, int B, int Tq, int Tk,
+                             int K, int G, int hd, int causal, int window,
+                             int prefix, int q0, cudaStream_t s) {
+  switch (hd) {
+#define REPRO_CASE(HD)                                                      \
+  case HD:                                                                  \
+    return launch_kernel<HD, true>(dtype, q, k, v, out, B, Tq, Tk, K, G,     \
+                                   causal, window, prefix, q0, s);
+    REPRO_CASE(32)
+    REPRO_CASE(64)
+    REPRO_CASE(128)
+    REPRO_CASE(192)
+    REPRO_CASE(256)
+#undef REPRO_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#else
+namespace {
+
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            int B, int Tq, int Tk, int K, int G, int causal, int window,
            int prefix, int q0, cudaStream_t s) {
   return causal && prefix > 0
-             ? launch_kernel<HD, true>(dtype, q, k, v, out, B, Tq, Tk, K, G,
-                                       causal, window, prefix, q0, s)
+             ? flash_attn_prefix_launch(dtype, q, k, v, out, B, Tq, Tk, K, G,
+                                        HD, causal, window, prefix, q0, s)
              : launch_kernel<HD, false>(dtype, q, k, v, out, B, Tq, Tk, K, G,
                                         causal, window, prefix, q0, s);
 }
@@ -328,3 +410,19 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
   if (bad) return bad;
   return rt::launch_status();
 }
+
+// Query-head rows of one CTA's tile of a flash call (tile_rows,
+// prefill_tile.cuh; 64 in float32).  A call over a chunk of queries at an
+// offset that is a multiple of this / G gives the whole call's rows bit
+// for bit where the two calls' tiles are the same.
+extern "C" int flash_tile_rows(int hd, int G, int Tq, int Tk, int window,
+                               int dtype) {
+  if (G < 1 || Tq < 1 || Tk < 1 || (hd != 32 && hd != 64 && hd != 128 &&
+                                    hd != 192 && hd != 256))
+    return -1;
+  return dtype == rt::DTYPE_BF16
+             ? rt::tile::wg::tile_rows(hd, Tq * G,
+                                       rt::tile::wg::flash_walk(Tk, G, window))
+             : rt::tile::kM;
+}
+#endif  // REPRO_FLASH_PREFIX_TU

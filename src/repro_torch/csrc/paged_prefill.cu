@@ -1,66 +1,68 @@
 // Chunked paged prefill GQA attention with an in-kernel block-table walk.
 //
-// Replaces: src/repro/kernels/paged_prefill/prefill_attn.py,
-// `_prefill_kernel` under `paged_prefill_attention`.
+// Replaces: src/repro/kernels/paged_prefill/prefill_attn.py:52,
+// `_prefill_kernel` under `paged_prefill_attention` (its pl.pallas_call at
+// :136).
 //
 // Bound on this card: bytes for the shapes the serving path gives it.  A
 // chunk of C = 64 queries per row attends over the row's whole paged
 // history; the call must read each live history key and value once (16 KiB
-// per token per layer at Llama-2-7B widths, bf16) and does ~4*C flops per
-// key byte pair, i.e. ~128 flops per byte — below the bf16 tensor-core
-// ridge (~295), so the ideal kernel is memory-bound (9.2 us of bytes
-// against 1.7 us of products at 4 rows x 64 queries over 1632 keys).
+// per token per layer at Llama-2-7B widths, bf16) and does ~4*C*G flops
+// per key byte pair: below the bf16 tensor-core ridge (~295 per byte) up
+// to G = 1, so the ideal kernel is memory-bound (9.2 us of bytes against
+// 1.7 us of products at 4 rows x 64 queries over 1632 keys; Mixtral's
+// G = 6 over 4096 keys 26.1 us).  What stands in its way is the walk's
+// latency: each CTA walks one (row, kv head)'s history alone.
 //
-// Design: one CTA per (row, kv head, tile of 64 query-head rows).  Tile
-// row r is query r / G of query head h * G + r % G, so all G heads of a kv
-// head share the staged keys (GQA without K/V replication), and at the
-// serving shape (C = 64, G = 1) one tile holds the whole chunk: each
-// history key is read from device memory once per (row, kv head).  The CTA
-// walks logical key positions from the first one its window can see
-// (rounded down to a stage boundary) up to its last query — keys wholly in
-// the future or wholly outside the window are never visited — in stages of
-// 64 keys, each key resolved through the block table (a -1 entry is never
-// read; its key is staged as zeros and masked by kpos <= qpos, window and
-// table).
+// Design: one CTA per (row, kv head, tile of query-head rows, key
+// partition).  Tile row r is query r / G of query head h * G + r % G, so
+// all G heads of a kv head share the staged keys (GQA without K/V
+// replication), and a tile holds 64 / G or 128 / G queries.  The CTA walks
+// logical key positions from the first one its window can see (rounded
+// down to a stage boundary) up to its last query — keys wholly in the
+// future or wholly outside the window are never visited — in stages of KT
+// keys.  Queries sit at start[b] + c; the kernel also receives the
+// positions the plain version would take and traps unless they are that
+// contiguous run (a trap, not an assert: a call in the kernel would
+// serialise its wgmma).
 //
 // Which tile step (prefill_tile.cuh) runs is set by the dtype:
-//  * bf16: the tensor-core step, 4 warps; each key row (hd x 2 bytes,
-//    within a 16-key block that is contiguous per head in the
-//    (K, NB, bs, hd) pool) is copied by 16-byte cp.async into a ring of
-//    three K/V stages, so two stages are in flight while one is computed.
-//    Each stage also records its keys' positions (-1 for a key that is not
-//    read) for the masks.  Per-element masks run only on a warp's stages
-//    that cross its causal diagonal or its window's first key, or hold a
-//    key that is not read; a stage that masks all of a warp's rows is
-//    skipped by that warp.
-//  * float32: the CUDA-core step of 256 threads, with scalar loads staged
-//    synchronously into float32 rows.
-// Split-KV is not used.  At the serving shape the grid is 4 rows x 32 kv
-// heads = 128 CTAs, under one wave of 132 SMs, but with two 32 KB stages
-// in flight per CTA some 8 MB of copies can be in flight, above what the
-// card's memory rate needs at ~1 us of latency; the longest walk (768
-// keys in 12 stages) moves ~384 KB per CTA.  Shared memory: 103 KB at
-// hd 128 (the ring, Q staged in its third K buffer, the key positions).
-//
-// hd 256 (RecurrentGemma-9B: 16 query heads over 1 kv head) takes the
-// same kernels.  bf16: Q gets its own buffer and its fragments are
-// reloaded per stage (prefill_tile.cuh, q_in_smem), and the ring has two
-// stages: 2 x 2 x 64 x 264 x 2 bytes + Q's 33 KB = 166 KB.  float32: the
-// CUDA-core step's Q tile, K and V stage and probability tile at a
-// 260-float stride, 213 KB.
-// At G = 16 a 64-row tile holds 4 queries, so a chunk of 64 queries is 16
-// tiles per (row, kv head), and each tile walks the window's keys itself:
-// the history is read 16 times, where the bound reads it once.
-//
-// hd 192 (Nemotron-4-340B: 96 query heads over 8 kv heads, G = 12) takes
-// the hd-256 route in bf16 (Q's fragments from shared memory, 96 output
-// registers) but keeps three ring stages: 2 x 3 x 64 x 200 x 2 bytes + Q's
-// 25 KB = 176 KB.  A key row is 24 chunks of 16 bytes, which do not
-// divide the 128 threads, so each thread copies 12 chunks of a stage at a
-// stride of 128 chunks (the copy loop below).  float32 at hd 192: 164 KB.
-//
-// Queries sit at start[b] + c.  The kernel also receives the positions
-// the plain version would take and asserts they are that contiguous run.
+//  * bf16: the Hopper step, rt::tile::wg.  The producer warpgroup's first
+//    warp walks the block table: lane i takes piece i of a stage, R =
+//    gcd(bs, KT) keys of one block, and copies it with TMA from the pool
+//    (a 2-d map over (hd, K * NB * bs), boxes of 64 columns x R keys); a
+//    piece past the tile's last query or under a -1 table entry is
+//    zero-filled instead, so no stale or never-written shared memory
+//    reaches P V.  A box must start on the swizzle's 1 KB period, so where
+//    R is not a multiple of 8 (a block size such as 4 or 12) the warp
+//    copies the stage key by key with cp.async into the same slots, with
+//    zero-fill, and waits for it before it arrives (3.5-4.4x the time of
+//    blocks of 16 at Llama-2-7B's widths, chip_smoke.py phase 3).  The
+//    stage's key positions (-1 for a key not read) go to the masks.  Tile
+//    rule (wg::tile_rows over the walk the launcher knows
+//    of: the table's span, or the window and the chunk): 128 rows where
+//    there are 128 and hd is 192 or 256, or 128 over 512 keys or more;
+//    else 64 — so Llama's C = 64, G = 1 takes one consumer warpgroup, two
+//    CTAs an SM, and G = 4, 6, 12 and 16 take 128-row tiles (the history
+//    read once per 128 / G queries, where a 64-row tile reads it once
+//    per 64 / G).
+//    Key partitions: where four times the grid (rows x kv heads x tiles)
+//    still fits one CTA an SM, the walk is split into up to 4 parts of
+//    whole stages, each of 512 keys or more of the longest walk the
+//    launcher knows of (partitions(), read by the wrapper through
+//    paged_prefill_partitions).  Each part writes its unnormalised rows,
+//    max and sum in float32 to the wrapper's scratch, and
+//    prefill_split_merge merges them by log-sum-exp
+//    (rt::split_kv_merge_row), rounding once.  Of the serving shapes only
+//    RecurrentGemma-9B's (one kv head: 32 CTAs for 4 rows) is split, in
+//    4; Llama-2-7B's, Mixtral-8x22B's and Nemotron-4's grids of 64-192
+//    CTAs are not: there the merge cost more than the split saved.
+//    Shared memory and registers per head dim: prefill_tile.cuh (+4 bytes
+//    a key of positions a stage).
+//  * float32: the CUDA-core step of 256 threads, 64-row tiles, with scalar
+//    loads staged synchronously into float32 rows (164 KB at hd 192, 213
+//    KB at hd 256); no partitions.
+#include <algorithm>
 #include <cmath>
 
 #include "prefill_tile.cuh"
@@ -70,8 +72,6 @@ namespace {
 using rt::tile::kKT;
 using rt::tile::kM;
 using bf16 = __nv_bfloat16;
-
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one CTA
 
 // ------------------------------------------------------------- float32
 template <int HD>
@@ -184,162 +184,267 @@ __global__ void __launch_bounds__(rt::tile::kThreads) paged_prefill_f32(
 }
 
 // ------------------------------------------------------------ bfloat16
-// Stages of the bf16 ring: three where they fit one CTA's shared memory
-// beside Q (hd 192: 176 KB), else two (hd 256).
-template <int HD>
-__host__ __device__ constexpr int stages_bf16() {
-  return rt::tile::tc::smem_bytes<HD, 3>() + 3 * kKT * sizeof(int) <=
-                 kMaxSmem
-             ? 3
-             : 2;
-}
+template <int HD, int NWG>
+using CfgBf16 = rt::tile::wg::Cfg<HD, NWG, true>;
 
-template <int HD>
-__host__ __device__ constexpr size_t smem_bytes_bf16() {
-  return rt::tile::tc::smem_bytes<HD, stages_bf16<HD>()>() +
-         stages_bf16<HD>() * kKT * sizeof(int);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(rt::tile::tc::kThreads) paged_prefill_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ kp,
-    const bf16* __restrict__ vp, const int* __restrict__ tbl,
-    const int* __restrict__ start, const int* __restrict__ q_pos,
-    bf16* __restrict__ out, int C, int K, int G, int NB, int bs, int MB,
-    int window, float scale_log2) {
-  namespace tc = rt::tile::tc;
-  constexpr int NS = stages_bf16<HD>(), LD = tc::ld<HD>(), CH = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NS][kKT][LD]
-  bf16* Vs = Ks + NS * kKT * LD;                 // [NS][kKT][LD]
-  bf16* Qs = tc::q_buffer<HD, NS>(Ks);           // [kM][LD]
-  int* kpos = reinterpret_cast<int*>(smem_raw +  // [NS][kKT]
-                                     tc::smem_bytes<HD, NS>());
+template <int HD, int NWG>
+__global__ void __launch_bounds__(CfgBf16<HD, NWG>::kThreads,
+                                  CfgBf16<HD, NWG>::kOcc)
+    paged_prefill_bf16(const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const bf16* __restrict__ kpool,
+                       const bf16* __restrict__ vpool,
+                       const bf16* __restrict__ q, const int* __restrict__ tbl,
+                       const int* __restrict__ start,
+                       const int* __restrict__ q_pos, bf16* __restrict__ out,
+                       float* __restrict__ part_acc,
+                       float* __restrict__ part_m,
+                       float* __restrict__ part_l, int C, int K, int G,
+                       int NB, int bs, int MB, int window, int R,
+                       float scale_log2) {
+  namespace wg = rt::tile::wg;
+  using Cf = CfgBf16<HD, NWG>;
+  constexpr int KT = Cf::KT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const wg::Smem<Cf> sm(smem_raw);
 
   const int b = blockIdx.x / K, h = blockIdx.x % K;
   const int H = K * G, rows = C * G;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kM;  // longest walks first
-  const int r_end = min(rows, r0 + kM);              // exclusive
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * Cf::kM;  // longest first
+  const int r_end = min(rows, r0 + Cf::kM);               // exclusive
   const int st0 = start[b];
-
-  for (int c = r0 / G + tid; c <= (r_end - 1) / G; c += tc::kThreads)
-    assert(q_pos[static_cast<size_t>(b) * C + c] == st0 + c);
-  tc::stage_q<HD>(Qs, q, b, C, H, h, G, r0, r_end);
-  rt::cp_async_commit();
-
-  // the warp's rows: absolute query range [qw_lo, qw_hi] and each lane's
-  // two rows
-  const int w0 = r0 + 16 * warp;
-  const bool live = w0 < r_end;
-  const int qw_lo = st0 + w0 / G, qw_hi = st0 + (min(r_end, w0 + 16) - 1) / G;
-  int qp[2];  // -1 for a dead row
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int rr = w0 + (lane >> 2) + 8 * i;
-    qp[i] = rr < r_end ? st0 + rr / G : -1;
-  }
-
   const int q_first = st0 + r0 / G, q_last = st0 + (r_end - 1) / G;
-  const int t_lo =
-      window > 0 ? max(0, q_first - window + 1) / kKT * kKT : 0;
+  const int t_lo = window > 0 ? max(0, q_first - window + 1) / KT * KT : 0;
   const int t_hi = min(q_last, MB * bs - 1);  // inclusive
-  const int n = t_hi >= t_lo ? (t_hi - t_lo) / kKT + 1 : 0;
+  const int n = t_hi >= t_lo ? (t_hi - t_lo) / KT + 1 : 0;
+  // key partition blockIdx.z of gridDim.z walks stages [s0, s1)
+  const int S = gridDim.z, p = blockIdx.z;
+  const int s0 = p * n / S, s1 = (p + 1) * n / S;
+  sm.init_barriers();
 
-  tc::Rows<HD> st;
+  if (threadIdx.x < 128) {  // the producer warpgroup: its first warp
+    wg::producer_regs<Cf>();
+    const CUtensorMap *kp = &kmap, *vp = &vmap;
+    if (threadIdx.x == 0) {
+      rt::tma_prefetch(kp);
+      rt::tma_prefetch(vp);
+    }
+    const int lane = threadIdx.x;
+    if (lane < 32)
+      wg::produce<Cf>(s0, s1, sm, [&](int s, int slot) {
+        if (R % 8) {
+          // no TMA box fits a piece (it would not start on the swizzle's
+          // 1 KB period): the warp copies the stage key by key with
+          // cp.async into the same swizzled slots, zero-filling the keys
+          // it does not read, and arrives once they have landed
+          constexpr int CH = HD / 8;
+          for (int c = lane; c < KT * CH; c += 32) {
+            const int kk = c / CH, ch = c % CH, t = t_lo + s * KT + kk;
+            const int phys = t <= t_hi ? tbl[b * MB + t / bs] : -1;
+            if (phys >= NB) __trap();  // a table entry past the pool
+            if (ch == 0) sm.kpos[slot * KT + kk] = phys >= 0 ? t : -1;
+            const size_t src =
+                phys >= 0
+                    ? ((static_cast<size_t>(h) * NB + phys) * bs + t % bs) *
+                              HD +
+                          ch * 8
+                    : 0;
+            const uint32_t off =
+                slot * Cf::kTileBytes + wg::chunk_offset<Cf>(KT, kk, ch);
+            rt::cp_async16(sm.k + off, kpool + src, phys >= 0);
+            rt::cp_async16(sm.v + off, vpool + src, phys >= 0);
+          }
+          rt::cp_async_commit();
+          rt::cp_async_wait<0>();
+          rt::fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) rt::mbar_arrive(&sm.full[slot]);
+          return;
+        }
+        // lane i takes piece i of the stage: R keys of one table block (R
+        // divides bs and KT), one TMA box per SW columns of K and of V;
+        // a piece wholly past t_hi or under a -1 entry is zero-filled
+        // instead.  Its keys' positions go to the masks: -1 for a key
+        // past t_hi or not read.
+        const int pieces = KT / R, t = t_lo + s * KT + lane * R;
+        int phys = -1;
+        if (lane < pieces && t <= t_hi) {
+          phys = tbl[b * MB + t / bs];
+          if (phys >= NB) __trap();  // a table entry past the pool
+        }
+        if (lane < pieces)
+          for (int i = 0; i < R; ++i)
+            sm.kpos[slot * KT + lane * R + i] =
+                phys >= 0 && t + i <= t_hi ? t + i : -1;
+        const unsigned read = __ballot_sync(0xffffffffu, phys >= 0);
+        for (int i = 0; i < pieces; ++i) {
+          if ((read >> i) & 1u) continue;
+#pragma unroll
+          for (int j = 0; j < Cf::NCH; ++j)
+            for (int c = lane; c < R * Cf::SWB / 16; c += 32) {
+              const int off = slot * Cf::kTileBytes + j * KT * Cf::SWB +
+                              i * R * Cf::SWB + c * 16;
+              *reinterpret_cast<uint4*>(sm.k + off) = make_uint4(0, 0, 0, 0);
+              *reinterpret_cast<uint4*>(sm.v + off) = make_uint4(0, 0, 0, 0);
+            }
+        }
+        rt::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0)
+          rt::mbar_arrive_tx(&sm.full[slot],
+                             __popc(read) * 2 * Cf::NCH * R * Cf::SWB);
+        if (phys >= 0) {
+          const int row = (h * NB + phys) * bs + t % bs;
+#pragma unroll
+          for (int j = 0; j < Cf::NCH; ++j) {
+            const int off =
+                slot * Cf::kTileBytes + j * KT * Cf::SWB + lane * R * Cf::SWB;
+            rt::tma_load_2d(sm.k + off, kp, &sm.full[slot], j * Cf::SW, row);
+            rt::tma_load_2d(sm.v + off, vp, &sm.full[slot], j * Cf::SW, row);
+          }
+        }
+      });
+  } else {  // the consumer warpgroups
+    wg::consumer_regs<Cf>();
+    const int w = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    // the positions must be the contiguous run from start[b] (a trap, not
+    // an assert: a call in the kernel would serialise its wgmma)
+    for (int c = r0 / G + 128 * w + tid; c <= (r_end - 1) / G; c += 128 * NWG)
+      if (q_pos[static_cast<size_t>(b) * C + c] != st0 + c) __trap();
+    wg::stage_q<Cf>(sm.q, q, b, C, H, h, G, w, r0, r_end, tid);
 
-  // A thread copies chunks tid + i * kThreads of a stage's kKT * CH,
-  // i < CPT: chunk c is chunk c % CH of key c / CH.  Where CH divides the
-  // thread count (hd <= 128, 256) that is chunk tid % CH of keys
-  // tid / CH + i * (kThreads / CH); at hd 192 (CH = 24) a thread's chunks
-  // fall at other offsets of other keys.  The table entries of the next
-  // stage's keys are loaded while the current one computes (issue(s) ends
-  // with lookup(s + 1)).
-  constexpr int CPT = kKT * CH / tc::kThreads;
-  static_assert(kKT * CH % tc::kThreads == 0, "chunk layout");
-  // key and chunk of a thread's i-th chunk; where CH divides the thread
-  // count, the chunk is the same for every i and the key a fixed stride
-  auto key_of = [&](int i) {
-    if constexpr (tc::kThreads % CH == 0)
-      return tid / CH + i * (tc::kThreads / CH);
-    return (tid + i * tc::kThreads) / CH;
-  };
-  auto chunk_of = [&](int i) {
-    if constexpr (tc::kThreads % CH == 0) return tid % CH;
-    return (tid + i * tc::kThreads) % CH;
-  };
-  int phys[CPT];
-  auto lookup = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int t = t_lo + s * kKT + key_of(i);
-      phys[i] = s < n && t <= t_hi ? tbl[b * MB + t / bs] : -1;
-      assert(phys[i] < NB);
+    // the warpgroup's rows: absolute query range [qg_lo, qg_hi]; the
+    // warp's: [qw_lo, qw_hi]; each lane's two rows
+    const int g0 = r0 + 64 * w, w0 = g0 + 16 * (tid >> 5);
+    const bool live = g0 < r_end;
+    const int qg_lo = st0 + g0 / G, qg_hi = st0 + (min(r_end, g0 + 64) - 1) / G;
+    const int qw_lo = st0 + w0 / G, qw_hi = st0 + (min(r_end, w0 + 16) - 1) / G;
+    int qp[2];  // -1 for a dead row
+  #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = w0 + (lane >> 2) + 8 * i;
+      qp[i] = rr < r_end ? st0 + rr / G : -1;
     }
-  };
-  auto issue = [&](int s, int buf) {
-    bf16* Kb = Ks + buf * kKT * LD;
-    bf16* Vb = Vs + buf * kKT * LD;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int kk = key_of(i), ch = chunk_of(i), t = t_lo + s * kKT + kk;
-      const bool ok = phys[i] >= 0;
-      const size_t off =
-          ok ? ((static_cast<size_t>(h) * NB + phys[i]) * bs + t % bs) * HD +
-                   ch * 8
-             : 0;
-      rt::cp_async16(Kb + kk * LD + ch * 8, kp + off, ok);
-      rt::cp_async16(Vb + kk * LD + ch * 8, vp + off, ok);
-      if (ch == 0) kpos[buf * kKT + kk] = ok ? t : -1;
-    }
-    lookup(s + 1);
-  };
-  auto stage = [&](int s, int buf) {
-    const int k0 = t_lo + s * kKT, k1 = k0 + kKT - 1;
-    const int* kb = kpos + buf * kKT;
-    // every key of the stage is read (none past t_hi, none under -1)
-    const bool all_read = __all_sync(0xffffffffu, kb[lane] >= 0 &&
-                                                      kb[lane + 32] >= 0);
-    if (!live || k0 > qw_hi || (window > 0 && k1 <= qw_lo - window))
-      return;  // every key of the stage is masked for every row
-    const bool masked = !all_read || k1 > qw_lo ||
-                        (window > 0 && k0 <= qw_hi - window);
-    tc::attend_stage<HD>(
-        Ks + buf * kKT * LD, Vs + buf * kKT * LD, scale_log2, masked,
-        [&](int i, int kk) {
-          const int t = kb[kk];
+
+    wg::Rows<HD> st;
+    st.init();
+    // a stage's key positions, in its ring slot
+    auto kpos = [&](int s) { return sm.kpos + (s - s0) % Cf::NS * KT; };
+    wg::consume<Cf>(
+        s0, s1, sm, w, scale_log2,
+        [&](int s) {  // every key of the stage is masked for every row
+          const int k0 = t_lo + s * KT, k1 = k0 + KT - 1;
+          return !live || k0 > qg_hi || (window > 0 && k1 <= qg_lo - window);
+        },
+        [&](int s) {  // the warp's rows need per-key masks
+          const int k0 = t_lo + s * KT, k1 = k0 + KT - 1;
+          // every key of the stage is read (none past t_hi, none under -1)
+          const int* kb = kpos(s);
+          bool all_read = true;
+  #pragma unroll
+          for (int kk = lane; kk < KT; kk += 32)
+            all_read = all_read && kb[kk] >= 0;
+          return !__all_sync(0xffffffffu, all_read) || k1 > qw_lo ||
+                 (window > 0 && k0 <= qw_hi - window);
+        },
+        [&](int s, int i, int kk) {
+          const int t = kpos(s)[kk];
           bool ok = t >= 0 && t <= qp[i];
           if (window > 0) ok = ok && t > qp[i] - window;
           return ok;
         },
         st);
-  };
-  lookup(0);
-  tc::walk<HD, NS>(n, Qs, st, issue, stage);
-  tc::store_rows<HD>(st, Qs, out, b, C, H, h, G, r0, r_end);
+    if (S == 1)
+      wg::store_rows<Cf>(st, sm.q, out, b, C, H, h, G, w, r0, r_end);
+    else
+      wg::store_partial<Cf>(st, part_acc, part_m, part_l, S, p, b, C, H, h,
+                            G, w, r0, r_end);
+  }
+}
+
+// The partitions' merge: one block per output row (its own name, so a
+// profile tells it from the decode kernels' merge).
+template <int HD>
+__global__ void prefill_split_merge_kernel(const float* __restrict__ acc,
+                                           const float* __restrict__ m,
+                                           const float* __restrict__ l,
+                                           bf16* __restrict__ out, int S) {
+  rt::split_kv_merge_row<bf16, HD>(acc, m, l, out, S, blockIdx.x);
 }
 
 // ------------------------------------------------------------- launch
+// The longest walk the launcher can know of without reading the tables:
+// the table's span, or the window and the chunk.
+int walk(int span, int C, int window) {
+  return window > 0 && window + C < span ? window + C : span;
+}
+
+int gcd_int(int a, int b) { return b == 0 ? a : gcd_int(b, a % b); }
+
+template <int HD, int NWG>
+int launch_bf16(const void* q, const void* kp, const void* vp,
+                const void* tbl, const void* start, const void* q_pos,
+                void* out, void* part_acc, void* part_m, void* part_l, int B,
+                int C, int K, int G, int NB, int bs, int MB, int window,
+                int S, float scale_log2, cudaStream_t s) {
+  using Cf = CfgBf16<HD, NWG>;
+  // a stage's keys come in pieces of R that each lie in one table block;
+  // a TMA box starts on the swizzle's 1 KB period, so where R is not a
+  // multiple of 8 the kernel copies key by key instead
+  const int R = gcd_int(bs, Cf::KT);
+  if (S < 1 || (S > 1 && (!part_acc || !part_m || !part_l)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the pools (K, NB, bs, HD) as 2-d maps (HD, K * NB * bs); a box is SW
+  // columns of R keys
+  const cuuint64_t dims[2] = {HD, static_cast<cuuint64_t>(K) * NB * bs};
+  const cuuint64_t strides[1] = {HD * 2ull};
+  const cuuint32_t box[2] = {Cf::SW, static_cast<cuuint32_t>(R)};
+  CUtensorMap km, vm;
+  if (!rt::bf16_tensor_map(&km, kp, 2, dims, strides, box, Cf::SWB) ||
+      !rt::bf16_tensor_map(&vm, vp, 2, dims, strides, box, Cf::SWB))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr =
+      rt::allow_smem(paged_prefill_bf16<HD, NWG>, Cf::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B * K, (C * G + Cf::kM - 1) / Cf::kM, S);
+  paged_prefill_bf16<HD, NWG><<<grid, Cf::kThreads, Cf::kBytes, s>>>(
+      km, vm, static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
+      static_cast<const bf16*>(q), static_cast<const int*>(tbl),
+      static_cast<const int*>(start), static_cast<const int*>(q_pos),
+      static_cast<bf16*>(out), static_cast<float*>(part_acc),
+      static_cast<float*>(part_m), static_cast<float*>(part_l), C, K, G, NB,
+      bs, MB, window, R, scale_log2);
+  if (S > 1) {
+    if (cudaPeekAtLastError() != cudaSuccess) return 0;  // launch_status
+    prefill_split_merge_kernel<HD><<<B * C * K * G, HD, 0, s>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+        static_cast<bf16*>(out), S);
+  }
+  return 0;
+}
+
 template <int HD>
 int launch(int dtype, const void* q, const void* kp, const void* vp,
            const void* tbl, const void* start, const void* q_pos, void* out,
-           int B, int C, int K, int G, int NB, int bs, int MB, int window,
+           void* part_acc, void* part_m, void* part_l, int B, int C, int K,
+           int G, int NB, int bs, int MB, int window, int S,
            cudaStream_t s) {
   const double scale = 1.0 / std::sqrt(static_cast<double>(HD));
-  dim3 grid(B * K, (C * G + kM - 1) / kM);
   if (dtype == rt::DTYPE_BF16) {
-    const size_t smem = smem_bytes_bf16<HD>();
-    static const cudaError_t attr =
-        rt::allow_smem(paged_prefill_bf16<HD>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    paged_prefill_bf16<HD><<<grid, rt::tile::tc::kThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-        static_cast<const bf16*>(vp), static_cast<const int*>(tbl),
-        static_cast<const int*>(start), static_cast<const int*>(q_pos),
-        static_cast<bf16*>(out), C, K, G, NB, bs, MB, window,
-        static_cast<float>(rt::tile::tc::kLog2e * scale));
-    return 0;
+    const float sl2 = static_cast<float>(rt::tile::wg::kLog2e * scale);
+    return rt::tile::wg::tile_rows(HD, C * G, walk(MB * bs, C, window)) ==
+                   128
+               ? launch_bf16<HD, 2>(q, kp, vp, tbl, start, q_pos, out,
+                                    part_acc, part_m, part_l, B, C, K, G, NB,
+                                    bs, MB, window, S, sl2, s)
+               : launch_bf16<HD, 1>(q, kp, vp, tbl, start, q_pos, out,
+                                    part_acc, part_m, part_l, B, C, K, G, NB,
+                                    bs, MB, window, S, sl2, s);
   }
+  if (S != 1) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(B * K, (C * G + kM - 1) / kM);
   const size_t smem = smem_bytes_f32<HD>();
   static const cudaError_t attr =
       rt::allow_smem(paged_prefill_f32<HD>, smem);
@@ -353,44 +458,74 @@ int launch(int dtype, const void* q, const void* kp, const void* vp,
   return 0;
 }
 
+// Key partitions of the bf16 walk: kParts parts where kParts times the
+// grid (rows x kv heads x tiles) still fits one CTA on each of the `sms`
+// SMs, fewer where the longest walk the launcher knows of (walk()) gives
+// a part under kMinPartKeys keys, else none.  Measured on the card
+// (chip_variants.py set 5, bf16, phase 3's shapes; unsplit / 2 / 4
+// parts): RecurrentGemma-9B's 32 CTAs over 2112 keys 107.6 / 69.4 /
+// 50.2 us; Mixtral-8x22B's 96 over 4160 119.0 / 140.1 / 122.5,
+// Nemotron-4's 192 over 2112 175.1 / 180.1 / 205.6 and Llama-2-7B's 128
+// over 1024 25.9 / 33.4 / 38.2: a grid on a quarter of the SMs gains,
+// one on half of them or more loses to the merge.
+constexpr int kParts = 4, kMinPartKeys = 512;
+
+int partitions(int B, int C, int K, int G, int bs, int MB, int hd,
+               int window, int sms) {
+  const int keys = walk(MB * bs, C, window);
+  const int tile = rt::tile::wg::tile_rows(hd, C * G, keys);
+  const long long ctas =
+      static_cast<long long>(B) * K * ((C * G + tile - 1) / tile);
+  if (ctas * kParts > sms) return 1;
+  return std::max(1, std::min(kParts, keys / kMinPartKeys));
+}
+
 }  // namespace
 
 // q (B, C, K*G, hd); kp/vp (K, NB, bs, hd); tbl (B, MB) int32; start (B,)
 // int32; q_pos (B, C) int32 (checked == start[b] + c); out like q.
-// window <= 0 means none.  hd 32, 64, 128, 192 or 256.
+// window <= 0 means none.  hd 32, 64, 128, 192 or 256.  bf16 walks each
+// (row, kv head, tile)'s keys in S partitions (S = 1: no split); with S >
+// 1 part_acc (B*C*K*G, S, hd), part_m and part_l (B*C*K*G, S) are float32
+// scratch for the merge.  float32 takes S = 1.
 extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,
                              const void* tbl, const void* start,
-                             const void* q_pos, void* out, int B, int C,
+                             const void* q_pos, void* out, void* part_acc,
+                             void* part_m, void* part_l, int B, int C,
                              int K, int G, int NB, int bs, int MB, int hd,
-                             int window, int dtype, void* stream) {
+                             int window, int S, int dtype, void* stream) {
   if (G < 1 || C < 1 || bs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int bad;
   switch (hd) {
-    case 32:
-      bad = launch<32>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
-                       NB, bs, MB, window, s);
-      break;
-    case 64:
-      bad = launch<64>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
-                       NB, bs, MB, window, s);
-      break;
-    case 128:
-      bad = launch<128>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
-                        NB, bs, MB, window, s);
-      break;
-    case 192:
-      bad = launch<192>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
-                        NB, bs, MB, window, s);
-      break;
-    case 256:
-      bad = launch<256>(dtype, q, kp, vp, tbl, start, q_pos, out, B, C, K, G,
-                        NB, bs, MB, window, s);
-      break;
+#define REPRO_CASE(HD)                                                     \
+  case HD:                                                                 \
+    bad = launch<HD>(dtype, q, kp, vp, tbl, start, q_pos, out, part_acc,   \
+                     part_m, part_l, B, C, K, G, NB, bs, MB, window, S, s); \
+    break;
+    REPRO_CASE(32)
+    REPRO_CASE(64)
+    REPRO_CASE(128)
+    REPRO_CASE(192)
+    REPRO_CASE(256)
+#undef REPRO_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;
   return rt::launch_status();
+}
+
+// Key partitions the bf16 kernel's walk takes for this call on a card of
+// `sms` SMs (partitions() above): the wrapper allocates the merge's
+// scratch for them and passes the count to paged_prefill.  -1 for an
+// unknown hd or a bad shape.
+extern "C" int paged_prefill_partitions(int B, int C, int K, int G, int bs,
+                                        int MB, int hd, int window,
+                                        int sms) {
+  if (B < 1 || C < 1 || K < 1 || G < 1 || bs < 1 || MB < 1 || sms < 1 ||
+      (hd != 32 && hd != 64 && hd != 128 && hd != 192 && hd != 256))
+    return -1;
+  return partitions(B, C, K, G, bs, MB, hd, window, sms);
 }

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sgmv.cu", "paged_attn.cu", "paged_prefill.cu",
-           "flash_attn.cu", "decode_attn.cu")
+           "flash_attn.cu", "flash_attn_prefix.cu", "decode_attn.cu")
 HEADERS = ("common.cuh", "prefill_tile.cuh", "decode_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -45,11 +45,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: cudaError_t, or decode_smem_bytes's
-    # byte count)
+    # byte count, or flash's tile rows and paged prefill's key partitions)
     "sgmv": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "paged_decode": [_P] * 9 + [_I] * 10 + [_P],
-    "paged_prefill": [_P] * 7 + [_I] * 10 + [_P],
+    "paged_prefill": [_P] * 10 + [_I] * 11 + [_P],
     "flash_attn": [_P] * 4 + [_I] * 11 + [_P],
+    "flash_tile_rows": [_I] * 6,
+    "paged_prefill_partitions": [_I] * 9,
     "ring_decode": [_P] * 9 + [_I] * 9 + [_P],
     "decode_smem_bytes": [_I] * 4,
 }

@@ -1,9 +1,10 @@
 """Dense flash attention wrapper (the ring-cache engine's prefill).
 
 ``flash_mha`` launches the CUDA kernel (``csrc/flash_attn.cu``: one CTA
-per (batch row, kv head, tile of 64 query-head rows), a walk over the keys
-bounded by causality and the window) for CUDA tensors, and takes the plain
-version (``ref.flash_ref``) only for CPU tensors.
+per (batch row, kv head, tile of 64 or 128 query-head rows, by the rule
+of ``csrc/prefill_tile.cuh::wg::tile_rows`` in bf16, 64 in float32), a
+walk over the keys bounded by causality and the window) for CUDA tensors,
+and takes the plain version (``ref.flash_ref``) only for CPU tensors.
 
 Unlike the reference's wrapper, which pads T to whole blocks and
 transposes to (B, H, T, hd), the kernel reads the model's layout in place

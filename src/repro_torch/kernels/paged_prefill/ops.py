@@ -1,13 +1,17 @@
 """Chunked paged prefill attention wrapper.
 
 ``paged_prefill_gqa`` launches the CUDA kernel (``csrc/paged_prefill.cu``:
-one CTA per (row, kv head, tile of 64 query-head rows), in-kernel
-block-table walk bounded by the tile's last query and the window) for CUDA tensors, and takes the
-plain version (``ref.paged_prefill_ref``) only for CPU tensors.  Like the
-Pallas kernel, the CUDA kernel takes each row's chunk start (B,); the
-wrapper derives it from ``q_pos[:, 0]`` and hands the kernel ``q_pos`` as
-well, which asserts on the device that the positions are that contiguous
-run (no host synchronisation).
+one CTA per (row, kv head, tile of query-head rows, key partition),
+in-kernel block-table walk bounded by the tile's last query and the
+window) for CUDA tensors, and takes the plain version
+(``ref.paged_prefill_ref``) only for CPU tensors.  In bf16 the library's
+rule (``partitions``) may split each tile's key walk into parts whose rows
+a second kernel merges by log-sum-exp; the wrapper allocates their
+float32 scratch.  Like the Pallas kernel, the CUDA kernel takes each row's
+chunk start (B,); the wrapper derives it from ``q_pos[:, 0]`` and hands
+the kernel ``q_pos`` as well, which checks on the device that the
+positions are that contiguous run (no host synchronisation; an assert in
+float32, a trap in bf16).
 
 ``paged_prefill_gqa.launches`` counts calls that launched the kernel;
 ``work`` gives the FLOPs and bytes its bound counts.  On meta tensors the
@@ -15,6 +19,7 @@ wrapper returns an output of the kernel's shape and computes nothing.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -23,6 +28,24 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
 
 HEAD_DIMS = (32, 64, 128, 192, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def partitions(B: int, C: int, K: int, G: int, bs: int, MB: int, hd: int,
+               window: Optional[int], device: torch.device) -> int:
+    """Key partitions of the bf16 kernel's walk for this call on
+    ``device``: the library's rule (``csrc/paged_prefill.cu::partitions``,
+    the one the launcher's tile rule sits beside)."""
+    S = cuda_lib.library().paged_prefill_partitions(
+        B, C, K, G, bs, MB, hd, window or 0, _sms(device.index or 0))
+    if S < 1:
+        raise ValueError(f"paged prefill partitions: bad shape (B {B}, C "
+                         f"{C}, K {K}, G {G}, bs {bs}, MB {MB}, hd {hd})")
+    return S
 
 
 def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
@@ -58,10 +81,22 @@ def paged_prefill_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                          f"{HEAD_DIMS}, got {hd}")
     start = q_pos[:, 0].contiguous()
     out = torch.empty_like(q)
-    cuda_lib.check(cuda_lib.library().paged_prefill(
+    lib = cuda_lib.library()
+    S, scratch = 1, [None, None, None]
+    if q.dtype == torch.bfloat16:
+        S = partitions(B, C, K, G, bs, MB, hd, window, q.device)
+    if S > 1:
+        scratch = [torch.empty((B * C * H, S, hd), dtype=torch.float32,
+                               device=q.device),
+                   torch.empty((B * C * H, S), dtype=torch.float32,
+                               device=q.device),
+                   torch.empty((B * C * H, S), dtype=torch.float32,
+                               device=q.device)]
+    cuda_lib.check(lib.paged_prefill(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tbl.data_ptr(),
-        start.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, C, K, G, NB,
-        bs, MB, hd, window if window is not None else 0,
+        start.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        *[t.data_ptr() if t is not None else None for t in scratch], B, C, K,
+        G, NB, bs, MB, hd, window if window is not None else 0, S,
         code, cuda_lib.stream_of(q)), "paged_prefill")
     paged_prefill_gqa.launches += 1
     return out
