@@ -683,8 +683,16 @@ def build_phase() -> Dict:
               f"at {PARTITION} slots x G {d['G']}, spill stores "
               f"{u.get('spill_stores')} B, spill loads "
               f"{u.get('spill_loads')} B")
-    # SGMV: the bf16 row-tile kernels and the float32 CUDA-core ones (all
-    # static shared memory)
+    # the bf16 ring decode step (one instantiation per head dim)
+    for u in usage:
+        m = re.search(r"ring_decode_kernelILi(\d+)E", u["function"])
+        if m:
+            u["ring_step"] = {"hd": int(m[1])}
+            print(f"ptxas ring decode step bf16 hd {m[1]}: {u['registers']} "
+                  f"registers, static smem {u['static_smem']} B, spill "
+                  f"stores {u.get('spill_stores')} B, spill loads "
+                  f"{u.get('spill_loads')} B")
+    # SGMV: the bf16 cluster kernel and the float32 CUDA-core ones
     for u in usage:
         if "sgmv_" in u["function"]:
             print(f"ptxas {u['function']}: {u['registers']} registers, "
@@ -766,7 +774,7 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
     case for the kernel's per-tile passes; the prefills send token-major
     runs of a request's length), the last row out of range.  D x O is a
     LoRA site's width: Llama-2-7B's 4096 x 4096 by default."""
-    from repro_torch.kernels.sgmv.ops import sgmv_apply, work
+    from repro_torch.kernels.sgmv import ops
     from repro_torch.kernels.sgmv.ref import sgmv_ref
     r, N = 16, ADAPTERS
     x = _randn(gen, R, D, dtype=dtype)
@@ -786,10 +794,10 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
                  "only, rounds xa to the storage dtype")
     return dict(
         shape=f"R={R} D={D} r={r} O={O} N={N} run={run} adapters={used}",
-        kernel=lambda: sgmv_apply(x, a, b, idx, scaling=2.0),
+        kernel=lambda: ops.sgmv_apply(x, a, b, idx, scaling=2.0),
         plain=lambda: sgmv_ref(x, a, b, idx, scaling=2.0),
         library=library, library_label=label,
-        zero_rows=[R - 1], **bound_of(work(x, a, b, idx)))
+        zero_rows=[R - 1], **bound_of(ops.work(x, a, b, idx)))
 
 
 def decode_case(gen, dtype, K: int = 32, G: int = 1,
@@ -1067,12 +1075,14 @@ def flash_offset_case(gen, dtype, q0: int, window: Optional[int],
 
 def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
                      window: Optional[int] = None, hd: int = 128,
-                     sdpa_mask: bool = True) -> Dict:
+                     sdpa_mask: bool = True, poison: bool = False) -> Dict:
     """Ring-engine decode: one token per row over a ring of S slots that
     has seen positions 0..pos (slot = position % S; wrapped when pos >=
     S), at Llama-2-7B head widths by default.  Without ``sdpa_mask`` the
-    library yardstick takes no mask (every slot valid: a cross cache)."""
-    from repro_torch.kernels.decode_attention.ops import decode_gqa, work
+    library yardstick takes no mask (every slot valid: a cross cache).
+    With ``poison`` every masked slot's K holds NaN and its V Inf for the
+    kernel, zeros for the plain version and the yardstick."""
+    from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_ref
     H = K * G
@@ -1087,6 +1097,13 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
     if window is not None:
         ok = ok & (slot_pos > pos - window)
     valid = int(ok.sum())
+    kk, vk = k, v                        # what the kernel reads
+    if poison:
+        k[:, ~ok] = 0
+        v[:, ~ok] = 0
+        kk, vk = k.clone(), v.clone()
+        kk[:, ~ok] = float("nan")
+        vk[:, ~ok] = float("inf")
     # library yardstick: SDPA over K/V already in (B, H, S, hd) and a
     # boolean slot mask (the transposes are not timed)
     q4 = q[:, :, None, :].contiguous()
@@ -1095,8 +1112,9 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
     mask = ok[None, None, None, :].contiguous()
     return dict(
         shape=f"B={B} S={S} K={K} G={G} hd={hd} pos={pos} window={window} "
-              f"valid_slots={valid}",
-        kernel=lambda: decode_gqa(q, k, v, slot_pos, pos, window=window),
+              f"valid_slots={valid}" + (" masked=NaN/Inf" if poison else ""),
+        kernel=lambda: ops.decode_gqa(q, kk, vk, slot_pos, pos,
+                                      window=window),
         plain=lambda: decode_attention_ref(q, k, v, slot_pos, pos,
                                            window=window),
         library=lambda: F.scaled_dot_product_attention(
@@ -1105,17 +1123,15 @@ def ring_decode_case(gen, dtype, B: int, S: int, K: int, G: int, pos: int,
                       "transposed to (B, H, S, hd)"
                       + ("" if sdpa_mask else ", no mask"),
         zero_rows=[],
-        **bound_of(work(q, k, v, slot_pos, pos, window=window)))
+        **bound_of(ops.work(q, k, v, slot_pos, pos, window=window)))
 
 
-def kernels_phase() -> Dict[str, Dict]:
-    """Every kernel against its plain version; the bf16 cases are timed.
-    Returns name -> the numbers of its first timed (main-path) case."""
-    t0 = phase("phase 3: kernels vs plain versions on the card")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
-                        device="cuda")
+def phase3_makers(gen) -> Tuple[List, int, Dict]:
+    """Phase 3's cases, in order: (kernel name, dtype, maker) with maker()
+    -> a case dict (``sgmv_case``, ``decode_case``, ...).  Every bf16 case
+    is timed, and every case from index ``timed`` on in float32 too; the
+    dict that is returned third is the offset cases' shared state (the
+    whole call each chunk is held to), cleared after the phase."""
     Bl, T, S = LAUNCH_BATCH, LAUNCH["prompt_len"], LAUNCH_CONTEXT
     last = T + LAUNCH["max_new"] - 2        # position of the last decode
     makers = []
@@ -1123,6 +1139,10 @@ def kernels_phase() -> Dict[str, Dict]:
         makers += [
             ("sgmv", dtype,
              lambda d=dtype: sgmv_case(gen, d, SERVE["num_slots"])),
+            # the warm-function decode step's rows: one adapter, its
+            # batch of LAUNCH_BATCH (the shape phase 5 launches most)
+            ("sgmv", dtype, lambda d=dtype: sgmv_case(
+                gen, d, LAUNCH_BATCH, run=LAUNCH_BATCH, adapters=1)),
             ("sgmv", dtype, lambda d=dtype: sgmv_case(
                 gen, d, SERVE["prefill_rows"] * SERVE["prefill_chunk"])),
             ("paged_attention", dtype, lambda d=dtype: decode_case(gen, d)),
@@ -1146,6 +1166,12 @@ def kernels_phase() -> Dict[str, Dict]:
         ("decode_attention", bf,
          lambda: ring_decode_case(gen, bf, Bl, S, 32, 1, 2 * S + 17,
                                   window=128)),
+        # NaN and Inf in every masked slot's K and V (a stale lap, a fresh
+        # cache): the kernel copies masked slots whole and must select
+        # them away; the plain version reads the same slots as zeros
+        ("decode_attention", bf,
+         lambda: ring_decode_case(gen, bf, Bl, S, 8, 4, T + 40,
+                                  window=300, poison=True)),
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, K=8, G=4)),
         ("paged_prefill", bf, lambda: prefill_case(gen, bf, window=128)),
         ("paged_prefill", bf, lambda: prefill_case(
@@ -1344,6 +1370,23 @@ def kernels_phase() -> Dict[str, Dict]:
         makers += [("flash_attention", dtype,
                     lambda d=dtype, q0=q0, w=w: flash_offset_case(
                         gen, d, q0, w, shared)) for q0, w in FLASH_OFFSETS]
+    return makers, timed, shared
+
+
+# the redesigned kernels (one launch each, fixed-order sums): two calls on
+# the same inputs must give equal outputs bit for bit
+REPEATABLE = ("sgmv", "decode_attention")
+
+
+def kernels_phase() -> Dict[str, Dict]:
+    """Every kernel against its plain version; the bf16 cases are timed.
+    Returns name -> the numbers of its first timed (main-path) case."""
+    t0 = phase("phase 3: kernels vs plain versions on the card")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    makers, timed, shared = phase3_makers(gen)
     summary: Dict[str, Dict] = {}
     results: List[Dict] = []
     for i, (name, dtype, make) in enumerate(makers):
@@ -1369,9 +1412,13 @@ def kernels_phase() -> Dict[str, Dict]:
         for row in c["zero_rows"]:
             if bool(got[row].any()):
                 fail(f"{name}: row {row} must be exact zeros")
+        if name in REPEATABLE and not torch.equal(got, c["kernel"]()):
+            fail(f"{name} {c['shape']} {dtype}: a second call on the same "
+                 f"inputs differs")
         row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
                "shape": c["shape"], "max_abs_err": err, "tol": tol,
                "max_row_rel_rms": row_err,
+               "bitwise_repeat": name in REPEATABLE,
                "bytes": c["bytes"], "ops": c["ops"],
                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                "library": c["library_label"]}
@@ -1412,11 +1459,48 @@ def kernels_phase() -> Dict[str, Dict]:
     torch.cuda.empty_cache()
     refused = alignment_cases(gen)
     lse_err = ring_lse_check(gen)
+    plans = plan_check()
     print(f"phase 3 ok: {len(results)} cases within tolerance, "
           f"{refused} wrappers refuse a misaligned operand "
           f"({time.perf_counter() - t0:.1f} s)")
     return {"summary": summary, "cases": results,
-            "ring_lse_max_abs_err": lse_err}
+            "ring_lse_max_abs_err": lse_err, "plans": plans}
+
+
+# The libraries' grid rules at the main path's shapes: the values that
+# tests/test_torch_sgmv_tile_precision.py and test_torch_ring_decode_step.py
+# pin of their Python copies.  SGMV (R, D, O) -> (cluster, copies over O,
+# columns a tile); ring decode (B, K, G, S, hd) -> (cluster, slots a
+# partition).
+SGMV_PLANS = {(3, 4096, 4096): (16, 8, 32), (8, 4096, 4096): (16, 8, 32),
+              (256, 4096, 4096): (8, 4, 128),
+              (1500, 4096, 4096): (8, 1, 512),
+              (2048, 5120, 5120): (4, 1, 256)}
+RING_PLANS = {(3, 32, 1, 540, 128): (1, 64),
+              (2, 32, 1, 32768, 128): (2, 64),
+              (4, 16, 1, 1500, 64): (2, 128),
+              (4, 1, 8, 552, 256): (8, 32)}
+
+
+def plan_check() -> Dict:
+    """``sgmv_plan`` and ``ring_decode_plan`` of the library against
+    SGMV_PLANS and RING_PLANS."""
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.library()
+    got = {}
+    for (R, D, O), want in SGMV_PLANS.items():
+        v = lib.sgmv_plan(R, D, O)
+        got[f"sgmv {R} x {D} -> {O}"] = have = (v & 255, v >> 8 & 255,
+                                                v >> 16)
+        if have != want:
+            fail(f"sgmv_plan({R}, {D}, {O}) = {have}, the tests pin {want}")
+    for shape, want in RING_PLANS.items():
+        v = lib.ring_decode_plan(*shape)
+        got[f"ring decode {shape}"] = have = (v & 255, v >> 8 & 255)
+        if have != want:
+            fail(f"ring_decode_plan{shape} = {have}, the tests pin {want}")
+    print(f"grid rules as the tests pin them: {got}")
+    return got
 
 
 def ring_lse_check(gen) -> float:
@@ -1889,8 +1973,7 @@ def eager_compare(cfg, params, scfg, names, work, prompts, fn_adapter,
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    for key, kind in (("sgmv_shrink", "sgmv_shrink"),
-                      ("sgmv_expand", "sgmv_expand"),
+    for key, kind in (("sgmv_", "sgmv"),
                       ("paged_decode", "paged_attention"),
                       ("paged_prefill", "paged_prefill"),
                       ("flash_kernel", "flash_attention"),
@@ -1922,9 +2005,9 @@ def profiled(fn: Callable[[], object],
              by_op: Optional[Callable] = None) -> Dict:
     """Run ``fn`` once under ``torch.profiler``: the union of device
     activity and device time by kind (the profiler's host wall time is
-    kept too; it is inflated by the tracing itself).  SGMV's expand is
-    resident while its shrink runs, so the two kinds overlap:
-    ``sgmv_union_ms`` counts their time once.  ``by_op`` maps the CPU op
+    kept too; it is inflated by the tracing itself), and ``sgmv_union_ms``,
+    the union of the SGMV kernel's spans (one kernel a call,
+    whose launches do not overlap: its device ms).  ``by_op`` maps the CPU op
     that launched a kernel (a profiler ``FunctionEvent``) to a kind:
     ``device_ms_by_op`` then sums the kernels' device time by it.
 
@@ -1991,13 +2074,13 @@ def profiled(fn: Callable[[], object],
     return out
 
 
-# kernels the profiler shows for one launch of each wrapper (SGMV and the
-# split-KV decode wrappers launch two)
-PROFILED_KINDS = {"sgmv": ("sgmv_shrink", "sgmv_expand"),
+# kernels the profiler shows for one launch of each wrapper (the paged
+# decode wrapper launches two: its partitions and their merge)
+PROFILED_KINDS = {"sgmv": ("sgmv",),
                   "paged_attention": ("paged_attention", "decode_merge"),
                   "paged_prefill": ("paged_prefill",),
                   "flash_attention": ("flash_attention",),
-                  "decode_attention": ("decode_attention", "decode_merge")}
+                  "decode_attention": ("decode_attention",)}
 
 
 def cross_check(label: str, launches: Dict[str, int], prof: Dict, *,
@@ -5079,7 +5162,7 @@ def sharded_steps(device: Dict, mesh) -> Dict:
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention.ops import PARTITION
+    from repro_torch.kernels import cuda_lib
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.sharding import BASELINE
     from repro_torch.models import cache as cache_lib
@@ -5103,13 +5186,19 @@ def sharded_steps(device: Dict, mesh) -> Dict:
         ("params", "batch", "cache"), mesh)
     pre_specs = dryrun.arg_specs(pre, mesh, cfg, BASELINE)
     # the kernels at these shapes: offsets are size_t / long long in the
-    # sources; flash's grid (B K, T G / 64), ring decode's (B K, S / 64)
+    # sources; flash's grid (B K, T G / 64); ring decode's clusters of C
+    # CTAs over (B K) pairs, partitions of P slots, a TMA box's coordinates
+    # (column, slot, row) within int32
+    G2 = cfg.num_heads // cfg.num_kv_heads
+    rp = cuda_lib.library().ring_decode_plan(B2, cfg.num_kv_heads, G2, T,
+                                             cfg.head_dim_)
+    C2, P2 = rp & 255, rp >> 8 & 255
     print(f"index arithmetic: flash grid ({B1 * cfg.num_kv_heads}, "
           f"{-(-T * cfg.num_heads // cfg.num_kv_heads // 64)}), ring decode "
-          f"grid ({B2 * cfg.num_kv_heads}, {-(-T // PARTITION)}) with "
-          f"{-(-T // PARTITION)} partitions of {PARTITION} slots; largest "
-          f"cache element offset {B2 * T * cfg.num_kv_heads * cfg.head_dim_}"
-          f" (64-bit offsets in csrc/flash_attn.cu, decode_attn.cu)")
+          f"grid ({C2}, {B2 * cfg.num_kv_heads}) in clusters of {C2}, "
+          f"{-(-T // P2)} partitions of {P2} slots; largest cache element "
+          f"offset {B2 * T * cfg.num_kv_heads * cfg.head_dim_} (64-bit "
+          f"offsets in csrc/flash_attn.cu)")
 
     def prefill_plain():
         return pre.fn(params, batch, cache)[0]

@@ -38,28 +38,37 @@ Sets:
      block sizes 4 and 12 (no TMA box fits their pieces); then phases 9
      and 11 (RecurrentGemma-9B, Nemotron-4-340B) end to end under v0 and
      S1, each printed as one JSON line of its prefill breakdown;
-  4  SGMV (bf16) at the phase-3 row layouts and the warm-function decode
-     batch: v0 is the first version's CUDA-core kernels (one CTA per row
-     and 128-feature slice, then one thread per output column) against
-     this version's row tiles, plus the new shrink only, the new expand
-     only, the expand launched without programmatic dependence, the
-     expand at four CTAs an SM instead of two, the slice
-     rule at one shrink CTA an SM instead of four, a shrink ring of two
-     stages, the expand without its L2 prefetch of B, the expand at 64
-     rows a CTA whatever R, and where the new time goes: the shrink
-     without its copies or without its cluster sum, the expand without its
-     partials or without its FMAs; both versions' kernels one by one
-     under the profiler (``kernels_us``).
-The "copies only", "compute only", "no merge", "shrink only", "expand
-only", "no copy", "no cluster sum", "no partials" and "no FMA" variants
-give wrong outputs by design; their errors are printed, not checked.
+  6  the one-launch SGMV and ring decode kernels (bf16) against the
+     parent commit's kernels and wrappers (v0: the tree at that commit,
+     unpacked under ``build/parent/`` before the call: ``git archive
+     <parent> src/repro_torch | tar -x -C build/parent``) against this tree's
+     (``new``) at every bf16 phase-3 case of the two kernels and of paged
+     decode (whose sources did not change: its times should stay), plus
+     the design's choices one at a time: SGMV's cluster of 4, 8 or 16
+     whatever the rows, column tiles of the least power of two over the
+     CTAs instead of the balanced rule, half or twice the copies over O,
+     two ring stages, a 160 KB ring, and, to see where the time goes, the
+     shrink's products or the expand left out; ring decode's cluster rule
+     at two or four times the CTAs (one CTA an SM at most by the rule), 2
+     or 4 stages instead of 3, partitions of 16 KB, and the consumers'
+     compute or the producer's copies left out.  SGMV variants run on the
+     SGMV cases, ring variants on the ring cases.  Only sgmv.cu, paged_attn.cu
+     and decode_attn.cu are built, each library in parallel.
+The "copies only", "compute only", "no merge", "no compute", "no copy"
+and "no expand" variants give wrong outputs by design; their errors are
+printed, not checked.
 """
 from __future__ import annotations
 
+import ctypes
+import importlib.util
 import json
 import shutil
 import statistics
+import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -159,48 +168,77 @@ SETS = {
         const float ms = m[row * S + s];
         const float w = ms == neg_inf() ? 0.f : expf(ms - mx);""")],
     }),
-    "4": ("sgmv", {
-        "v0": [("sgmv.cu", "    return launch_tc(x, a, b, idx, part, y, R, D, "
-                "r, O, N, dslice, erows,\n                     scaling, st);",
-                "    launch_cuda_core<bf16>(x, a, b, idx, part, y, R, D, r, "
-                "O, N, dslice, scaling, st);\n    return rt::launch_status();"),
-               # the first version's slices of 128 and partials per slice
-               ("SGMV", {"d_slice": lambda R, D: 128, "CLUSTER": 1})],
+    "6": ("redesign", {
+        "v0": [("PARENT", True)],
         "new": [],
-        "shrink-only": [("sgmv.cu", "  cfg.numAttrs = 1;\n",
-                         "  cfg.numAttrs = 1;\n  if (cfg.numAttrs) return "
-                         "cudaSuccess;\n")],
-        "expand-only": [("sgmv.cu", "  sgmv_shrink_tc_kernel<<<",
-                         "  if (false) sgmv_shrink_tc_kernel<<<")],
-        "no-pdl": [("sgmv.cu", "  cfg.numAttrs = 1;\n",
-                    "  cfg.numAttrs = 0;\n")],
-        "expand-rows-4-per-sm": [("SGMV", {"EXPAND_CTAS_PER_SM": 4})],
-        "ctas-per-sm-1": [("SGMV", {"CTAS_PER_SM": 1})],
-        "ring-2": [("sgmv.cu", "constexpr int kStages = 4;",
-                    "constexpr int kStages = 2;")],
-        "no-b-prefetch": [("sgmv.cu", "  if (first_ad >= 0 && col_ok)\n",
-                           "  if (false)\n")],
-        "shrink-no-copy": [
-            ("sgmv.cu", "    if (j < n) issue(j, j);\n", ""),
-            ("sgmv.cu", "      issue(j + kStages - 1, (j + kStages - 1) % "
-             "kStages);\n", "      ;\n")],
-        "shrink-no-cluster-sum": [
-            ("sgmv.cu", "  cluster.sync();\n  {", "  {"),
-            ("sgmv.cu", "    if (k < r && ids[row] >= 0) {",
-             "    if (false) {"),
-            ("sgmv.cu", "  cluster.sync();  // no CTA leaves while another "
-             "reads its `red`\n", "")],
-        "expand-no-partials": [
-            ("sgmv.cu", "  for (int i = tid; i < nq; i += kThreads)\n"
-             "    cp_async16(pt + 4 * i, src + 4 * i, true);\n", ""),
-            ("sgmv.cu", "    for (int q = 0; q < sp; ++q) v += pt[(row * sp "
-             "+ q) * RK + k];\n", "")],
-        "expand-rows-64": [("SGMV", {"EXPAND_CTAS_PER_SM": 0})],
-        "expand-no-fma": [("sgmv.cu", "          acc[c] = fmaf(xv[kk], bv[4 "
-                           "* k4 + kk][c], acc[c]);",
-                           "          acc[c] = bv[4 * k4 + kk][c];")],
+        "sgmv-c4": [("sgmv.cu", "  Plan p{tiles <= 4 && (tiles == 1 || chunks "
+                     ">= 64) ? 16", "  Plan p{true ? 4")],
+        "sgmv-c8": [("sgmv.cu", "  Plan p{tiles <= 4 && (tiles == 1 || chunks "
+                     ">= 64) ? 16", "  Plan p{true ? 8")],
+        "sgmv-c16": [("sgmv.cu", "  Plan p{tiles <= 4 && (tiles == 1 || chunks "
+                      ">= 64) ? 16", "  Plan p{true ? 16")],
+        "sgmv-cols-pow2": [("sgmv.cu", "    if (best == 0 || cost < best) {",
+                            "    if (best == 0 || cols * ctas >= O) {")],
+        "sgmv-os-half": [("sgmv.cu", "constexpr int kTargetCtas = 128;",
+                          "constexpr int kTargetCtas = 64;")],
+        "sgmv-os-double": [("sgmv.cu", "constexpr int kTargetCtas = 128;",
+                            "constexpr int kTargetCtas = 256;")],
+        "sgmv-stages-2": [("sgmv.cu", "  const int ns = min(kMaxStages, "
+                           "kRingBytes / sb);", "  const int ns = 2;")],
+        "sgmv-ring-160k": [("sgmv.cu", "constexpr int kRingBytes = 96 * 1024;",
+                            "constexpr int kRingBytes = 160 * 1024;")],
+        "sgmv-no-compute": [("sgmv.cu", "      if (live) {\n        const "
+                             "unsigned char* Xs", "      if (false) {\n"
+                             "        const unsigned char* Xs")],
+        "sgmv-no-expand": [("sgmv.cu", "  if (warp < kCWarps) {\n    const "
+                            "int ncg", "  if (false) {\n    const int ncg")],
+        "ring-c-double": [("ring_decode_step.cuh",
+                           "units * p.cluster * 2 <= kSms",
+                           "units * p.cluster <= kSms")],
+        "ring-c-quad": [("ring_decode_step.cuh",
+                         "units * p.cluster * 2 <= kSms",
+                         "units * p.cluster <= 2 * kSms")],
+        "ring-stages-4": [("ring_decode_step.cuh",
+                           "  Plan p{1, part_for(hd), 3};",
+                           "  Plan p{1, part_for(hd), 4};")],
+        "ring-stages-2": [("ring_decode_step.cuh",
+                           "  Plan p{1, part_for(hd), 3};",
+                           "  Plan p{1, part_for(hd), 2};")],
+        "ring-part-half": [("ring_decode_step.cuh",
+                            "constexpr int kStageBytes = 32 * 1024;",
+                            "constexpr int kStageBytes = 16 * 1024;")],
+        "ring-no-compute": [("ring_decode_step.cuh",
+                             "        if (gb == 0) continue;",
+                             "        if (gb == 0 || gb != 0) continue;")],
+        "ring-no-copy": [("ring_decode_step.cuh",
+                          "        mbar_arrive_tx(&full[s], sb);\n#pragma "
+                          "unroll\n        for (int x = 0; x < X::kCount;",
+                          "        mbar_arrive(&full[s]);\n#pragma unroll\n"
+                          "        for (int x = 0; x < 0;")],
     }),
 }
+
+
+def applies(variant: str, case: str) -> bool:
+    """Set 6's variants named for one kernel run on that kernel's cases."""
+    for prefix in ("sgmv", "ring"):
+        if variant.startswith(prefix + "-"):
+            return case.startswith(prefix)
+    return True
+
+
+def redesign_cases(gen) -> dict:
+    """Every bf16 case of phase 3 of SGMV, ring decode and paged decode,
+    named kernel + index."""
+    makers, _, _ = cs.phase3_makers(gen)
+    names = {"sgmv": "sgmv", "decode_attention": "ring",
+             "paged_attention": "paged"}
+    out, seen = {}, {}
+    for name, dtype, make in makers:
+        if name in names and dtype == torch.bfloat16:
+            i = seen[name] = seen.get(name, 0) + 1
+            out[f"{names[name]} {i}"] = make
+    return out
 
 
 def setting(patches, key: str):
@@ -226,6 +264,90 @@ def kernel_split(fn, flush: torch.Tensor, runs: int = 5) -> dict:
             if kind != "other":          # the flush and the sleep
                 times.setdefault(kind, []).append(ms * 1e3)
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+REDESIGN_SOURCES = ("sgmv.cu", "paged_attn.cu", "decode_attn.cu")
+PARENT = Path("build/parent/src/repro_torch")
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod          # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _build_lib(csrc: Path, out: Path, signatures) -> ctypes.CDLL:
+    """REDESIGN_SOURCES of ``csrc`` compiled (one nvcc each, in parallel)
+    and linked into ``out``, loaded with ``signatures``' argument types;
+    every registers / spills line of the build printed."""
+    from repro_torch.kernels import cuda_lib
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    nvcc = cuda_lib.nvcc_path()
+    objs = [out / (Path(src).stem + ".o") for src in REDESIGN_SOURCES]
+    procs = [subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-c",
+                               str(csrc / src), "-o", str(obj)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(REDESIGN_SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        cs.fail(f"nvcc failed in {csrc}:\n" + "\n".join(logs))
+    lib_path = out / "lib.so"
+    subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(lib_path)],
+                   check=True)
+    for u in cs.ptxas_usage("\n".join(logs)):
+        if ("sgmv_bf16" in u["function"] or "ring_decode_kernel" in
+                u["function"] or u.get("spill_stores")):
+            print(f"{out.name}: {u['function'][:70]}... {u['registers']} "
+                  f"registers, spill stores {u.get('spill_stores')} B",
+                  flush=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def build_redesign(variants):
+    """Set 6: the parent's library (its sources, its signatures) and
+    every variant's, built in parallel; the parent's SGMV and ring decode
+    wrappers loaded over its own library.  Returns (libs, parent
+    wrappers)."""
+    from repro_torch.kernels import cuda_lib
+    if not (PARENT / "csrc" / "sgmv.cu").exists():
+        cs.fail(f"set 6 needs the parent's tree under {PARENT}")
+    root = cuda_lib.BUILD_ROOT.parent / "variants"
+    plib = _load("parent_cuda_lib", PARENT / "kernels" / "cuda_lib.py")
+    jobs = {}
+    for name, patches in variants.items():
+        if setting(patches, "PARENT"):
+            jobs[name] = (PARENT / "csrc", plib._SIGNATURES)
+            continue
+        d = root / name / "csrc"
+        shutil.rmtree(d.parent, ignore_errors=True)
+        shutil.copytree(cuda_lib.CSRC, d)
+        for f, old, new in patches:
+            src = (d / f).read_text()
+            if old not in src:
+                cs.fail(f"variant {name}: {f} has no line {old!r}")
+            (d / f).write_text(src.replace(old, new))
+        jobs[name] = (d, cuda_lib._SIGNATURES)
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {n: ex.submit(_build_lib, d, root / n / "build", sig)
+                for n, (d, sig) in jobs.items()}
+        libs = {n: f.result() for n, f in futs.items()}
+    plib.library = lambda: libs["v0"]
+    wrappers = {}
+    for key, rel in (("sgmv", "sgmv/ops.py"),
+                     ("ring", "decode_attention/ops.py")):
+        mod = _load(f"parent_{key}_ops", PARENT / "kernels" / rel)
+        mod.cuda_lib = plib
+        wrappers[key] = mod
+    return libs, wrappers
 
 
 def build_variants(variants):
@@ -277,7 +399,11 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_prefill import ops as pp_ops
     from repro_torch.kernels.sgmv import ops as sgmv_ops
-    libs = build_variants(variants)
+    parent = None
+    if kind == "redesign":
+        libs, parent = build_redesign(variants)
+    else:
+        libs = build_variants(variants)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32,
@@ -341,18 +467,17 @@ def main() -> int:
             "paged": lambda: cs.decode_case(gen, bf),
             "paged GQA": lambda: cs.decode_case(gen, bf, K=8, G=4),
         },
-        "sgmv": {
-            "R=8 interleaved": lambda: cs.sgmv_case(gen, bf, 8),
-            "R=256 interleaved": lambda: cs.sgmv_case(gen, bf, 256),
-            "R=256 runs of 64": lambda: cs.sgmv_case(gen, bf, 256, run=64),
-            "R=1500 one adapter": lambda: cs.sgmv_case(
-                gen, bf, 1500, run=500, adapters=1),
-            "R=3 one adapter": lambda: cs.sgmv_case(gen, bf, 3, run=3,
-                                                    adapters=1),
-        },
+        "redesign": redesign_cases(gen),
     }[kind]
     order = list(variants) + list(reversed(variants))
+    # every line also goes to a file (the card's tool keeps only the end of
+    # the output)
+    out = Path("chiprun_out") / (
+        f"variants_{sys.argv[1] if len(sys.argv) > 1 else '1'}.jsonl")
+    out.parent.mkdir(exist_ok=True)
+    out.write_text("")
     real, part = cuda_lib.library, ring_ops.PARTITION
+    real_sgmv, real_ring = sgmv_ops.sgmv_apply, ring_ops.decode_gqa
     split_rule = pp_ops.partitions
     sgmv_names = {name: getattr(sgmv_ops, name)
                   for v in variants.values()
@@ -360,6 +485,12 @@ def main() -> int:
 
     def use(n: str) -> None:
         cuda_lib.library = lambda: libs[n]
+        if parent is not None:      # set 6: v0 is the parent's wrappers
+            v0 = setting(variants[n], "PARENT")
+            sgmv_ops.sgmv_apply = (parent["sgmv"].sgmv_apply if v0
+                                   else real_sgmv)
+            ring_ops.decode_gqa = (parent["ring"].decode_gqa if v0
+                                   else real_ring)
         ring_ops.PARTITION = paged_ops.PARTITION = \
             setting(variants[n], "PARTITION") or part
         for name, value in {**sgmv_names,
@@ -373,9 +504,10 @@ def main() -> int:
             use("v0")           # a case is made under the library's rules
             c = make()
             want = c["plain"]()
-            us = {n: [] for n in variants}
+            mine = [n for n in variants if applies(n, cname)]
+            us = {n: [] for n in mine}
             err = {}
-            for n in order:
+            for n in (x for x in order if x in mine):
                 use(n)
                 got = c["kernel"]()
                 torch.cuda.synchronize()
@@ -395,12 +527,14 @@ def main() -> int:
                     "sdpa": cs.device_ms(c["library"], 30, flush,
                                          read_flush=True) * 1e3}
                 line["v0_kernels_us"] = kernel_split(c["kernel"], flush)
-            if kind == "sgmv":
+            if kind == "redesign" and not cname.startswith("paged"):
                 line["kernels_us"] = {}
                 for n in ("v0", "new"):
                     use(n)
                     line["kernels_us"][n] = kernel_split(c["kernel"], flush)
             print(json.dumps(line), flush=True)
+            with out.open("a") as f:
+                f.write(json.dumps(line) + "\n")
         if kind == "paged":
             for label, run in (("phase 9", cs.recurrentgemma_phase),
                                ("phase 11", cs.nemotron_phase)):
@@ -418,6 +552,7 @@ def main() -> int:
                         flush=True)
     finally:
         cuda_lib.library = real
+        sgmv_ops.sgmv_apply, ring_ops.decode_gqa = real_sgmv, real_ring
         ring_ops.PARTITION = paged_ops.PARTITION = part
         pp_ops.partitions = split_rule
         for name, value in sgmv_names.items():

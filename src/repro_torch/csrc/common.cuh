@@ -1,9 +1,10 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel reads float32 or bfloat16 storage and accumulates in
-// float32 (the bf16 SGMV shrink multiplies bf16 operands on the tensor
-// cores with the mma.sync fragment helpers below, the bf16 prefill
-// kernels with the Hopper helpers: TMA, mbarriers, wgmma).
+// float32 (the bf16 SGMV shrink and ring decode step multiply bf16
+// operands on the tensor cores with the mma.sync fragment helpers below,
+// the bf16 prefill kernels with wgmma; all four stage their operands with
+// the Hopper helpers: TMA, mbarriers).
 // The C entry points take a dtype code (DTYPE_F32 / DTYPE_BF16, mirrored
 // in kernels/cuda_lib.py), launch on the caller's stream and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -132,8 +133,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ------------------------------------ tensor-core fragments (sm_80+)
 //
-// The bf16 products of the SGMV shrink (sgmv.cu) are mma.sync.m16n8k16
-// with operands loaded from shared memory by ldmatrix.
+// The bf16 products of the SGMV shrink (sgmv.cu) and of the ring decode
+// step (ring_decode_step.cuh) are mma.sync.m16n8k16 with operands loaded
+// from shared memory by ldmatrix.
 
 // Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
@@ -193,6 +195,8 @@ inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 // (cp.async.bulk.tensor) that complete on a stage's "full" mbarrier, and
 // consumer warpgroups multiply with wgmma from shared memory in the
 // swizzle the TMA wrote, then arrive on the stage's "empty" mbarrier.
+// The bf16 SGMV (sgmv.cu) and ring decode step (ring_decode_step.cuh) run
+// the same producer / consumer ring, their consumers on mma.sync.
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -268,6 +272,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -277,6 +292,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The two halves of a cluster barrier: every thread of every CTA of the
+// cluster arrives (release: its shared-memory accesses are ordered before
+// the others' after their wait), and waits (acquire).  Between the two a
+// thread may work on; a CTA must not exit while another CTA of its
+// cluster may still read its shared memory.  Not .aligned: the threads of
+// a warp may reach them apart.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Hand registers between warpgroups: the producer gives them up, the
@@ -570,16 +598,16 @@ inline EncodeTiled encode_tiled() {
 
 // A bf16 tensor map of `rank` dimensions (innermost first; strides in
 // bytes of dims 1..rank-1), boxes of `box` elements, 128- or 64-byte
-// swizzle, zeros out of bounds.  Maps are cached by (pointer, dims,
-// strides, box): a pool's map is encoded once, and the eager ring prefill
-// calls the kernel many times on few tensors.  Returns false where the
-// driver refuses the map.
+// swizzle or none (swizzle_bytes 0), zeros out of bounds.  Maps are cached
+// by (pointer, dims, strides, box, swizzle): a pool's map is encoded once,
+// and the eager ring prefill calls the kernel many times on few tensors.
+// Returns false where the driver refuses the map.
 inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
                             const cuuint32_t* box, int swizzle_bytes) {
   struct Entry {
     const void* base;
-    int rank;
+    int rank, swizzle;
     cuuint64_t dims[5], strides[4];
     cuuint32_t box[5];
     CUtensorMap map;
@@ -590,7 +618,8 @@ inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
   static std::mutex mu;
   std::lock_guard<std::mutex> lock(mu);
   auto same = [&](const Entry& e) {
-    if (e.base != base || e.rank != rank) return false;
+    if (e.base != base || e.rank != rank || e.swizzle != swizzle_bytes)
+      return false;
     for (int i = 0; i < rank; ++i)
       if (e.dims[i] != dims[i] || e.box[i] != box[i] ||
           (i + 1 < rank && e.strides[i] != strides[i]))
@@ -609,8 +638,9 @@ inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
   const CUresult r = encode(
       &m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
       dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B,
+      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return false;
   Entry& e = cache[next];
@@ -618,6 +648,7 @@ inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
   used = used < kEntries ? used + 1 : kEntries;
   e.base = base;
   e.rank = rank;
+  e.swizzle = swizzle_bytes;
   for (int i = 0; i < rank; ++i) {
     e.dims[i] = dims[i];
     e.box[i] = box[i];

@@ -13,74 +13,79 @@
 //   R = 256 (runtime prefill, 4 runs of 64)        5.24 MB    1.57 us
 //   R = 1500 (warm-function prefill, one adapter) 24.8 MB     7.4 us
 // against 2 R r (D + O) flops (0.4 GFLOP at R = 1500, 0.4 us at the bf16
-// tensor-core rate).  At decode two launches and a few dependent memory
-// latencies are larger than either bound.
+// tensor-core rate).  At decode a launch and its few dependent memory
+// latencies are larger than either bound; the previous design paid two
+// launches, and a round trip of float32 partials of xa through device
+// memory between them.
 //
-// bfloat16 (the serving dtype): two kernels, no sort, no padding, no
-// atomics (the result is bitwise the same run to run).
+// bfloat16 (the serving dtype): one kernel, no sort, no padding, no
+// atomics, no scratch in device memory (the result is bitwise the same
+// run to run, and a CUDA graph replays it with nothing to reset).
 //  * Adapter-pure row tiles.  Rows are cut into tiles of kTileM = 64
 //    consecutive rows, and a tile into *passes*, one per distinct in-range
-//    adapter id (at most min(64, N)).  Prefill rows are token-major, so a
-//    request's run of rows shares one adapter: a tile is one pass, or two
-//    where it straddles two requests; the 8-row decode batch is one tile of
-//    up to 4 passes.  A pass stages its adapter's slab once for all of its
-//    rows.  The first version ran one CTA per row, which read the row's
-//    whole 131 KB slab, 2 bytes per load: ~197 MB of L2 traffic in ~98 M
-//    loads at R = 1500.  Rows out of range are in no pass; their y rows
-//    are written as zeros.
-//  * shrink: one CTA of 4 warps per (row tile, D slice).  For each pass it
-//    stages the pass's x rows (the tile's other rows are zero-filled, not
-//    read) and the slab's rows of the slice, in chunks of kChunk = 32
-//    input features, with 16-byte cp.async into a ring of kStages buffers,
-//    and multiplies them on the tensor cores: xa_part = x_tile @ A[ad]
-//    with mma.sync.m16n8k16, bf16 operands and float32 sums, as the Pallas
-//    kernel's dot_general with preferred_element_type=float32.  It is P V
-//    of the prefill tile step: x takes P's place (A fragments by
-//    ldmatrix) and the row-major (D, r) slab V's (B fragments by
-//    ldmatrix.trans); r = 16 is two n8 tiles (r = 8 zero-fills the second).
-//  * Slices and clusters.  ops.py::d_slice fixes the slice: the fewest
-//    32-feature chunks a CTA that keep tiles x slices within 4 CTAs an SM
-//    (so that enough copies are in flight) and D in at most 128 slices.
-//    At D = 4096 the decode batch spreads over 128 CTAs of one chunk each,
-//    R = 256 over 4 x 128, R = 1500 over 24 x 22 slices of 192 features.
-//    Slices run as clusters of kCluster = 8 CTAs (the grid pads S to a
-//    multiple of 8 with CTAs that have no chunk): each CTA leaves its
-//    float32 partials in shared memory, and CTA c of the cluster adds rows
-//    8c..8c+7 over the 8 slices in order through distributed shared
-//    memory.  So a row keeps ceil(S / 8) partials (16 at decode, 3 at
-//    R = 1500) where the first version kept S = 32, and the expand reads
-//    8x fewer.
-//  * expand: one CTA of 4 warps per (erows rows, 256 output columns);
-//    ops.py::expand_rows takes 64 rows, or 32 or 16 where 64 leave fewer
-//    than two CTAs an SM (R = 256: 16 rows, 256 CTAs; on an H100 at
-//    700 W, 64-row CTAs took 1.4x as long there, chip_variants.py 4).
-//    It is launched with
-//    programmatic stream serialization: its CTAs become resident while
-//    the shrink runs (the shrink allows it at its start), load the tile's
-//    ids and prefetch B into L2, then wait for the shrink.  The CTA copies
-//    its rows' cluster partials (one contiguous block) into shared memory
-//    with cp.async, and each (row, k) of xa is their sum in order, a thread
-//    each, where the first version had r threads each run a serial loop
-//    over 32 partials.  xa stays float32, as the reference keeps it in an
-//    f32 scratch.  Warp w takes rows w, w + 4, ...; each lane owns 8
-//    adjacent output columns (16-byte loads and stores) and holds
-//    B[ad][:, its columns] in float32 registers, loaded once per run of
-//    its rows with one adapter, where the first version read B again for
-//    every row.  The r FMAs per output run in float32 on the CUDA cores, as
-//    the reference casts B to float32 (sgmv.py:45-52); scaling * acc is
-//    rounded once to bf16.  No tensor core: they would round xa.
-//  * What the bf16 kernels take (the C entry returns cudaErrorInvalidValue
+//    adapter id (at most min(64, N)), found by one ballot over the tile's
+//    ids.  Prefill rows are token-major, so a request's run of rows shares
+//    one adapter: a tile is one pass, or two where it straddles two
+//    requests; the 8-row decode batch is one tile of up to 4 passes.  A
+//    pass stages its adapter's slab once for all of its rows.  Rows out of
+//    range are in no pass; their y rows are written as exact zeros.
+//  * A cluster of C CTAs takes one tile (plan(): 16 for the decode rows'
+//    one tile and for up to 4 tiles of a long D, else 8, or 4 where 8 a
+//    tile would spill the clusters into a second wave; fewer where D has
+//    fewer 128-feature chunks).  CTA c of the cluster shrinks its slice of
+//    the chunks: for each pass, xa_c = x[:, slice] @ A[ad][slice] with
+//    mma.sync.m16n8k16 (bf16 operands, float32 sums, as the Pallas
+//    kernel's dot_general with preferred_element_type=float32) into a
+//    float32 (rows x r) tile in its shared memory.  The shrink does about
+//    16 flops a byte at r = 16, far under the tensor cores' ridge, so the
+//    product stays on mma.sync; what it needs is bytes in flight.
+//  * Copies: a producer warp keeps a ring of (x chunk, slab chunk) stages
+//    full by TMA under mbarriers, as deep as kRingBytes of shared memory
+//    allows (4 stages of 20 KB at 64-row tiles, 12 of 8 KB at the decode
+//    batch's 16-row box); the four consumer warps multiply what has
+//    landed, warp w on rows 16w..16w+15 (a tile of one 16-row block, the
+//    decode rows, gives warp w passes w, w + 4, ... instead), and release
+//    the stage.  A chunk is 128 features: two x boxes of 64 features
+//    (128-byte rows) under the 128-byte swizzle, so each ldmatrix phase
+//    hits every bank once, and one slab box of 16 contiguous 256-byte
+//    rows; the boxes' rows past R and features past D arrive as zeros, so
+//    a ragged edge needs no predicate.  Each warp keeps the even and odd
+//    k-steps in two sums, two chains of products instead of one.
+//  * The cluster's sum: each element of xa is the C slices' partials added
+//    in order of slice through distributed shared memory (the C reads in
+//    flight together), so every CTA holds the tile's whole xa, float32,
+//    identical in all of them.  At the decode rows (xa at most one
+//    element a thread) every CTA sums it all itself, and a split cluster
+//    barrier keeps it resident until the others have read its partials;
+//    else CTA c sums a 1/C share and stores it into every CTA.
+//  * Expand: CTA c of the cluster's o-th copy owns column tiles (o C + c),
+//    (o C + c) + OS C, ... of W columns; each thread owns 8
+//    adjacent columns of a tile (16-byte loads and stores) for rows
+//    t, t + 128 / (W / 8), ..., and holds B[ad][:, its columns] in
+//    float32 registers, loaded once per run of its rows with one adapter
+//    (the producer warp has prefetched the CTA's B columns into L2 while
+//    the shrink ran).  The r FMAs per output run in float32 on the CUDA
+//    cores, as the reference casts B to float32 (sgmv.py:45-52); scaling *
+//    acc is rounded once to bf16.  No tensor core: they would round xa.
+//  * Few rows (decode: R = 3 or 8, one tile): one cluster would put 16
+//    SMs on the slabs, so the grid gives the tile OS copies of its
+//    cluster over O (plan(): up to 16, about one CTA an SM in all); each
+//    copy repeats the shrink, whose x and A then come from L2.  Column
+//    tiles (plan()) give the busiest CTA the least work, a tile costing a
+//    reload of B plus its FMAs.
+//  * What the bf16 kernel takes (the C entry returns cudaErrorInvalidValue
 //    otherwise, and ops.py raises ValueError first): D and O multiples of
-//    8 and r 8 or 16 (every config of the repository uses r = 16), for
-//    16-byte copies of x, A and B, and x, A and B on 16-byte boundaries
-//    (y and the scratch are the wrapper's own allocations).
+//    8 and r 8 or 16 (every config of the repository uses r = 16), for the
+//    tensor maps' 16-byte strides and 16-byte loads of B, and x, A and B
+//    on 16-byte boundaries.
 //
 // float32 (the SMOKE parity runs) keeps the first version's two CUDA-core
 // kernels unchanged: a shrink CTA per (row, slice of `dslice` features;
 // the wrapper passes 128) whose threads are (d-lane, rank column) pairs
-// reduced in shared memory, and an expand thread per output column that
-// first sums the row's partials serially.  Their rows gather their own
-// slabs: no tile, no pass, no cluster.
+// reduced in shared memory into float32 partials in device memory, and an
+// expand thread per output column that first sums the row's partials
+// serially.  Their rows gather their own slabs: no tile, no pass, no
+// cluster.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -89,36 +94,71 @@ namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-using rt::cp_async16;
-using rt::cp_async_commit;
-using rt::cp_async_wait;
 using rt::ldsm_x4;
 using rt::ldsm_x4_trans;
 using rt::mma_bf16;
 using rt::pack_bf16;
 
-// ----------------------------------------- bfloat16: row tiles and passes
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTileM = 16 * kWarps;  // rows per tile: one m16 block a warp
-constexpr int kChunk = 32;           // input features per shrink stage
-constexpr int kStages = 4;           // shrink ring depth
-constexpr int kRank = 16;            // largest rank: two n8 tiles
-constexpr int kLdx = kChunk + 8;     // padded row strides (elements): the
-constexpr int kLda = kRank + 8;      // rows of one ldmatrix hit 8 bank groups
-constexpr int kCluster = 8;          // slices a cluster sums in its smem
-constexpr int kMaxSlices = 128;      // so at most 16 cluster partials a row
-constexpr int kOutTile = 8 * 32;     // expand columns per CTA: a warp x 8
+// ------------------------------- bfloat16: one launch on a cluster step
+constexpr int kCWarps = 4;                   // consumer warps
+constexpr int kThreads = 32 * (kCWarps + 1);  // + the producer warp
+constexpr int kTileM = 16 * kCWarps;  // rows per tile: one m16 block a warp
+constexpr int kBoxCols = 64;          // features of one x box (128 B)
+constexpr int kChunk = 2 * kBoxCols;  // input features per stage
+constexpr int kRank = 16;             // largest rank: two n8 tiles
+constexpr int kMaxStages = 32;
+constexpr int kRingBytes = 96 * 1024;  // the stages' shared memory
+constexpr int kTargetCtas = 128;  // about one CTA an SM at few rows
+constexpr int kSms = 132;
+constexpr int kMaxCols = 1024;    // columns a CTA's tile: 8 a thread
 static_assert(kTileM == 64, "two warps' ballots cover a tile's ids");
-static_assert(kChunk % 16 == 0 && kRank == 16, "k-steps of 16, n8 x 2");
-static_assert(kTileM % kCluster == 0 && (kTileM / kCluster) * kRank ==
-                                           kThreads,
-              "a cluster's CTAs each sum 8 rows x 16 ranks, a thread each");
 
-// Bytes of the expand's dynamic shared memory: the tile's cluster
-// partials (rows x sp x r float32).
-constexpr size_t expand_smem_bytes(int rows, int sp, int r) {
-  return static_cast<size_t>(rows) * sp * r * sizeof(float);
+// The grid of one call: a cluster of `cluster` CTAs per (row tile, copy
+// over O), `osplit` copies, column tiles of `cols` columns.
+struct Plan {
+  int cluster, osplit, cols;
+};
+
+__host__ __device__ inline Plan plan(int R, int D, int O) {
+  const int tiles = (R + kTileM - 1) / kTileM;
+  const int chunks = (D + kChunk - 1) / kChunk;
+  // 16 CTAs split D for one tile, and for up to 4 tiles of a long D;
+  // else 8, or 4 where 8 a tile would leave more than 1.5 CTAs an SM
+  // (the clusters then spill into a second wave)
+  Plan p{tiles <= 4 && (tiles == 1 || chunks >= 64) ? 16
+         : 2 * tiles * 8 <= 3 * kSms                  ? 8
+                                                      : 4,
+         1, 8};
+  while (p.cluster > 1 && p.cluster > chunks) p.cluster /= 2;
+  while (p.osplit < 16 &&
+         tiles * p.cluster * p.osplit * 2 <= kTargetCtas &&
+         p.osplit * 2 * p.cluster * 8 <= O)
+    p.osplit *= 2;
+  // column tiles: the least work for the busiest CTA of a copy's
+  // cluster, a tile costing a reload of B (about 4 rows' FMAs a thread)
+  // plus its rows x columns / 1024 a thread; ties to the wider tile
+  const int ctas = p.osplit * p.cluster, rows = R < kTileM ? R : kTileM;
+  long best = 0;
+  for (int cols = kMaxCols; cols >= 8; cols /= 2) {
+    const long per = ((O + cols - 1) / cols + ctas - 1) / ctas;
+    const long cost = per * (4 * 1024 + static_cast<long>(cols) * rows);
+    if (best == 0 || cost < best) {
+      best = cost;
+      p.cols = cols;
+    }
+  }
+  return p;
+}
+
+// Rows of the x box: the whole tile, or the rows a one-tile call has
+// rounded up to whole m16 blocks.
+__host__ __device__ inline int box_rows(int R) {
+  return R >= kTileM ? kTileM : (R + 15) / 16 * 16;
+}
+
+template <int RK>
+__host__ __device__ constexpr int stage_bytes(int bm) {
+  return bm * kChunk * 2 + kChunk * RK * 2;  // two x boxes, then the slab
 }
 
 // ids[i] = adapter of row r0 + i (i < n), or -1 when the row is past R or
@@ -132,40 +172,58 @@ __device__ __forceinline__ void load_ids(int* ids, const int* idx, int r0,
   }
 }
 
-// Programmatic dependent launch (sm_90): the shrink lets the expand start
-// early; the expand waits for the shrink's results only where it reads
-// them.  Without a programmatic launch the wait returns at once.
-__device__ __forceinline__ void allow_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_primary() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+// Two 8x8 b16 matrices, transposed; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(rt::smem_u32(p))
+      : "memory");
 }
 
-// part (R, gridDim.y / kCluster, r): slice s of the grid covers input
-// features [s * dslice, (s + 1) * dslice); the kCluster slices of a
-// cluster add their partials in order of slice inside the cluster.
-__global__ void __cluster_dims__(1, kCluster, 1)
-    __launch_bounds__(kThreads) sgmv_shrink_tc_kernel(
-        const bf16* __restrict__ x, const bf16* __restrict__ a,
-        const int* __restrict__ idx, float* __restrict__ part, int R, int D,
-        int r, int N, int dslice) {
-  __shared__ __align__(16) bf16 ring[kStages][kTileM * kLdx + kChunk * kLda];
-  __shared__ __align__(16) float red[kTileM][kRank];  // this slice's xa
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Grid (tiles x osplit, C), clusters of (1, C, 1): blockIdx.x = tile x
+// osplit + copy, blockIdx.y = the CTA's slice of the chunks.  xmap: x as
+// (D, R), boxes of (kBoxCols, bm), 128-byte swizzle; amap: A as (8 RK,
+// D / 8, N), rows of 8 features, boxes of (8 RK, kChunk / 8, 1): a
+// chunk's slab is one contiguous box of 16 rows of 256 bytes at r = 16.
+template <int RK>
+__global__ void __launch_bounds__(kThreads, 2) sgmv_bf16_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap amap, const bf16* __restrict__ b,
+    const int* __restrict__ idx, bf16* __restrict__ y, int R, int D, int O,
+    int N, int osplit, int cols, int bm, int ns, float scaling) {
+  extern __shared__ unsigned char dyn[];
+  __shared__ __align__(16) float red[kTileM][RK];  // this slice's xa
+  __shared__ __align__(16) float xs[kTileM][RK];   // the tile's xa
+  constexpr int kMaxCluster = 16;
   __shared__ int ids[kTileM];
   __shared__ int pass_ad[kTileM];
   __shared__ unsigned first[2];
-  allow_dependents();
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dyn) + 1023) & ~uintptr_t(1023));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * kTileM;
-  const int s = blockIdx.y;
-  const int d_lo = s * dslice, d_hi = min(D, d_lo + dslice);
-  // chunks of the slice (none in the slices that pad the grid to clusters)
-  const int nc = d_lo < D ? (d_hi - d_lo + kChunk - 1) / kChunk : 0;
+  const int C = gridDim.y, c = blockIdx.y;
+  const int copy = blockIdx.x % osplit;
+  const int r0 = (blockIdx.x / osplit) * kTileM;
+  const int rows = min(kTileM, R - r0);
+  const int sb = stage_bytes<RK>(bm);
 
   // the tile's passes: its distinct in-range ids, in order of first row
   load_ids(ids, idx, r0, R, N, kTileM);
-  for (int i = tid; i < kTileM * kRank; i += kThreads) (&red[0][0])[i] = 0.f;
+  for (int i = tid; i < kTileM * RK; i += kThreads) (&red[0][0])[i] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      rt::mbar_init(&full[s], 1);
+      rt::mbar_init(&empty[s], kCWarps);
+    }
+    rt::mbar_init_fence();
+  }
   __syncthreads();
   if (tid < kTileM) {
     const int ad = ids[tid];
@@ -183,231 +241,250 @@ __global__ void __cluster_dims__(1, kCluster, 1)
           ids[tid];
   }
   __syncthreads();
-  const int n = (__popc(m0) + __popc(m1)) * nc;  // stages: passes x chunks
+  const int passes = __popc(m0) + __popc(m1);
+  // this CTA's slice of the chunks (none past the last chunk)
+  const int chunks = (D + kChunk - 1) / kChunk, per = (chunks + C - 1) / C;
+  const int c_lo = min(chunks, c * per);
+  const int nc = min(chunks, c_lo + per) - c_lo;
+  const int n = passes * nc;  // stages: passes x chunks
 
-  // stage j = (pass j / nc, chunk j % nc) into ring buffer buf
-  auto issue = [&](int j, int buf) {
-    const int ad = pass_ad[j / nc], d0 = d_lo + (j % nc) * kChunk;
-    bf16* Xs = ring[buf];
-    bf16* As = Xs + kTileM * kLdx;
-    for (int i = tid; i < kTileM * (kChunk / 8); i += kThreads) {
-      const int row = i / (kChunk / 8), d = d0 + (i % (kChunk / 8)) * 8;
-      const bool ok = ids[row] == ad && d < d_hi;
-      cp_async16(Xs + row * kLdx + (d - d0),
-                 ok ? x + static_cast<size_t>(r0 + row) * D + d : x, ok);
-    }
-    for (int i = tid; i < kChunk * (kRank / 8); i += kThreads) {
-      const int dd = i / (kRank / 8), c = (i % (kRank / 8)) * 8;
-      const bool ok = d0 + dd < d_hi && c < r;
-      cp_async16(As + dd * kLda + c,
-                 ok ? a + (static_cast<size_t>(ad) * D + d0 + dd) * r + c : a,
-                 ok);
-    }
-  };
-
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, its row
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment: row, column pair
-  float acc[kRank / 8][4] = {};
-  for (int j = 0; j < kStages - 1; ++j) {
-    if (j < n) issue(j, j);
-    cp_async_commit();
-  }
-  for (int j = 0; j < n; ++j) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (j + kStages - 1 < n)
-      issue(j + kStages - 1, (j + kStages - 1) % kStages);
-    cp_async_commit();
-    const int ad = pass_ad[j / nc];
-    // a warp none of whose 16 rows is in the pass skips its products
-    const bool live =
-        __any_sync(0xffffffffu, lane < 16 && ids[16 * warp + lane] == ad);
-    if (live) {
-      const bf16* Xw = ring[j % kStages] + 16 * warp * kLdx;
-      const bf16* As = ring[j % kStages] + kTileM * kLdx;
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        uint32_t af[4], bf[4];
-        ldsm_x4(af, Xw + (lane & 15) * kLdx + kk * 16 + (lane >> 4) * 8);
-        // matrices: features 16kk + {0..7, 8..15, 0..7, 8..15} x ranks
-        // {0..7, 0..7, 8..15, 8..15}, transposed -> n-tiles 0 and 1
-        ldsm_x4_trans(bf, As + (16 * kk + (mi & 1) * 8 + mr) * kLda +
-                              (mi >> 1) * 8);
-        mma_bf16(acc[0], af, bf[0], bf[1]);
-        mma_bf16(acc[1], af, bf[2], bf[3]);
+  if (warp == kCWarps) {
+    // producer: stage j = (pass j / nc, chunk j % nc) into slot j % ns
+    if (lane == 0) {
+      rt::tma_prefetch(&xmap);
+      rt::tma_prefetch(&amap);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % ns;
+        if (j >= ns) rt::mbar_wait(&empty[s], ((j / ns) - 1) & 1);
+        unsigned char* st = ring + s * sb;
+        const int d0 = (c_lo + j % nc) * kChunk;
+        rt::mbar_arrive_tx(&full[s], sb);
+        rt::tma_load_2d(st, &xmap, &full[s], d0, r0);
+        rt::tma_load_2d(st + bm * kBoxCols * 2, &xmap, &full[s],
+                        d0 + kBoxCols, r0);
+        rt::tma_load_3d(st + bm * kChunk * 2, &amap, &full[s], 0, d0 / 8,
+                        pass_ad[j / nc]);
       }
     }
-    if (j % nc == nc - 1) {  // the pass's last chunk: its rows' partials
+    // the CTA's columns of B for every pass into L2 while the shrink runs
+    const int lines = (cols + 63) / 64;  // 128-byte lines of a column tile
+    for (int p = 0; p < passes; ++p) {
+      const bf16* bp = b + static_cast<size_t>(pass_ad[p]) * RK * O;
+      for (int t = copy * C + c; t * cols < O; t += osplit * C)
+        for (int i = lane; i < RK * lines; i += 32) {
+          const int col = t * cols + (i % lines) * 64;
+          if (col < O) prefetch_l2(bp + static_cast<size_t>(i / lines) * O +
+                                   col);
+        }
+    }
+    __syncwarp();
+  } else {
+    const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, its row
+    const int g = lane >> 2, t4 = lane & 3;   // mma fragment: row, columns
+    // a tile of one 16-row block (the decode rows): warp w takes passes w,
+    // w + 4, ... on that block; else warp w takes its own block of every
+    // pass
+    const bool one_block = bm <= 16;
+    const int blk = one_block ? 0 : warp;
+    const int arow = 16 * blk + (lane & 15);  // this lane's ldmatrix row
+    // the even and odd k-steps in two sums (two chains of products)
+    float acc[RK / 8][4] = {}, acd[RK / 8][4] = {};
+    for (int j = 0; j < n; ++j) {
+      const int s = j % ns;
+      const int ad = pass_ad[j / nc];
+      // a warp none of whose 16 rows is in the pass skips its products
+      const bool live =
+          (!one_block || (j / nc) % kCWarps == warp) &&
+          __any_sync(0xffffffffu, lane < 16 && ids[16 * blk + lane] == ad);
+      rt::mbar_wait(&full[s], (j / ns) & 1);
+      if (live) {
+        const unsigned char* Xs = ring + s * sb;
+        const bf16* As = reinterpret_cast<const bf16*>(Xs + bm * kChunk * 2);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = 16 * warp + g + 8 * i;
-        if (live && ids[row] == ad) {
-#pragma unroll
-          for (int nt = 0; nt < kRank / 8; ++nt)
-            *reinterpret_cast<float2*>(&red[row][8 * nt + 2 * t4]) =
-                make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          uint32_t af[4];
+          // box kk / 4, 16-byte unit of its 128-byte row
+          const int unit = 2 * (kk % 4) + (lane >> 4);
+          ldsm_x4(af, reinterpret_cast<const bf16*>(
+                          Xs + (kk / 4) * bm * 128 + arow * 128 +
+                          ((unit ^ (arow & 7)) << 4)));
+          float(&d)[RK / 8][4] = kk % 2 ? acd : acc;
+          if constexpr (RK == 16) {
+            // features 16kk + {0..7, 8..15, 0..7, 8..15} x ranks {0..7,
+            // 0..7, 8..15, 8..15}, transposed -> n-tiles 0 and 1
+            uint32_t bf[4];
+            ldsm_x4_trans(bf, As + (16 * kk + (mi & 1) * 8 + mr) * RK +
+                                  (mi >> 1) * 8);
+            mma_bf16(d[0], af, bf[0], bf[1]);
+            mma_bf16(d[1], af, bf[2], bf[3]);
+          } else {
+            uint32_t bf[2];
+            ldsm_x2_trans(bf, As + (16 * kk + (lane & 15)) * RK);
+            mma_bf16(d[0], af, bf[0], bf[1]);
+          }
         }
       }
+      __syncwarp();
+      if (lane == 0) rt::mbar_arrive(&empty[s]);
+      if (j % nc == nc - 1) {  // the pass's last chunk: its rows' partials
 #pragma unroll
-      for (int nt = 0; nt < kRank / 8; ++nt)
+        for (int i = 0; i < 2; ++i) {
+          const int row = 16 * blk + g + 8 * i;
+          if (live && ids[row] == ad) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+            for (int nt = 0; nt < RK / 8; ++nt)
+              *reinterpret_cast<float2*>(&red[row][8 * nt + 2 * t4]) =
+                  make_float2(acc[nt][2 * i] + acd[nt][2 * i],
+                              acc[nt][2 * i + 1] + acd[nt][2 * i + 1]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < RK / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = acd[nt][e] = 0.f;
+      }
     }
   }
-  cp_async_wait<0>();
 
-  // the cluster's sum: CTA c adds rows 8c..8c+7 over the cluster's slices
-  // in order, reading the other CTAs' `red` through distributed shared
-  // memory, and writes one float32 partial per row and cluster
+  // the cluster's sum of each element of the tile's xa over the C slices'
+  // partials, in order of slice, through distributed shared memory (the C
+  // reads in flight together; rows out of range are skipped).  Where the
+  // tile's xa is at most one element a thread (the decode rows), every CTA
+  // sums it all into its own `xs`, and a split barrier keeps each CTA
+  // resident until the others have read its `red`; else CTA c sums
+  // elements c x 160 + t, ... and stores each sum into every CTA's `xs`,
+  // all done past a second barrier.
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  {
-    const int c = static_cast<int>(cluster.block_rank());
-    const int row = (kTileM / kCluster) * c + tid / kRank, k = tid % kRank;
-    if (k < r && ids[row] >= 0) {
-      float v = 0.f;
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q)
-        v += *cluster.map_shared_rank(&red[row][k], q);
-      part[(static_cast<size_t>(r0 + row) * (gridDim.y / kCluster) +
-            s / kCluster) * r + k] = v;
-    }
-  }
-  cluster.sync();  // no CTA leaves while another reads its `red`
-}
-
-template <int RK>
-__global__ void __launch_bounds__(kThreads) sgmv_expand_tc_kernel(
-    const float* __restrict__ part, const bf16* __restrict__ b,
-    const int* __restrict__ idx, bf16* __restrict__ y, int R, int O, int N,
-    int sp, int erows, float scaling) {
-  extern __shared__ __align__(16) float pt[];  // rows x sp x RK partials
-  __shared__ __align__(16) float xs[kTileM][RK];
-  __shared__ int ids[kTileM];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * erows, rows = min(erows, R - r0);
-  const int o = blockIdx.y * kOutTile + 8 * lane;  // the lane's 8 columns
-  const bool col_ok = o < O;
-  load_ids(ids, idx, r0, R, N, erows);
-  __syncthreads();
-
-  // B[ad][:, o..o+7] of the warp's first row into L2 while the shrink
-  // finishes (B is an input, not the shrink's result)
-  const int first_ad = warp < rows ? ids[warp] : -1;
-  if (first_ad >= 0 && col_ok)
-#pragma unroll
-    for (int k = 0; k < RK; ++k)
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
-          b + (static_cast<size_t>(first_ad) * RK + k) * O + o));
-
-  // the shrink's cluster partials of the tile's rows, one contiguous block
-  wait_primary();
-  const int nq = rows * sp * RK / 4;
-  const float* src = part + static_cast<size_t>(r0) * sp * RK;
-  for (int i = tid; i < nq; i += kThreads)
-    cp_async16(pt + 4 * i, src + 4 * i, true);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // xa[row][k] = the row's cluster partials in order (rows out of range
-  // are skipped: their partials were never written)
-  for (int i = tid; i < rows * RK; i += kThreads) {
+  const bool local = rows * RK <= kThreads;
+  for (int i = local ? tid : c * kThreads + tid; i < rows * RK;
+       i += local ? kThreads : C * kThreads) {
     const int row = i / RK, k = i % RK;
     if (ids[row] < 0) continue;
+    float part[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < C) part[q] = *cluster.map_shared_rank(&red[row][k], q);
     float v = 0.f;
-    for (int q = 0; q < sp; ++q) v += pt[(row * sp + q) * RK + k];
-    xs[row][k] = v;
-  }
-  __syncthreads();
-
-  float bv[RK][8];  // B[ad][:, o..o+7] in float32
-  int cur = -1;
-  for (int row = warp; row < rows; row += kWarps) {
-    const int ad = ids[row];
-    bf16* dst = y + static_cast<size_t>(r0 + row) * O + o;
-    if (ad < 0) {
-      if (col_ok) *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      continue;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < C) v += part[q];
+    if (local) {
+      xs[row][k] = v;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < C) *cluster.map_shared_rank(&xs[row][k], q) = v;
     }
-    if (ad != cur) {
-      cur = ad;
-#pragma unroll
-      for (int k = 0; k < RK; ++k) {
-        const uint4 w = col_ok ? *reinterpret_cast<const uint4*>(
-                                     b + (static_cast<size_t>(ad) * RK + k) *
-                                             O + o)
-                               : make_uint4(0, 0, 0, 0);
-        const uint32_t h[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          bv[k][2 * e] = __uint_as_float(h[e] << 16);
-          bv[k][2 * e + 1] = __uint_as_float(h[e] & 0xffff0000u);
+  }
+  if (local) {
+    __syncthreads();
+    rt::cluster_arrive();  // done reading the others' `red`
+  } else {
+    cluster.sync();
+  }
+
+  // expand: the CTA's column tiles, 8 columns a thread
+  if (warp < kCWarps) {
+    const int ncg = cols / 8, step = (32 * kCWarps) / ncg;
+    const int cgi = tid % ncg;
+    for (int t = copy * C + c; t * cols < O; t += osplit * C) {
+      const int o = t * cols + 8 * cgi;
+      const bool col_ok = o < O;
+      float bv[RK][8];  // B[ad][:, o..o+7] in float32
+      int cur = -1;
+      for (int row = tid / ncg; row < rows; row += step) {
+        const int ad = ids[row];
+        bf16* dst = y + static_cast<size_t>(r0 + row) * O + o;
+        if (ad < 0) {
+          if (col_ok) *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+          continue;
         }
+        if (ad != cur) {
+          cur = ad;
+#pragma unroll
+          for (int k = 0; k < RK; ++k) {
+            const uint4 w =
+                col_ok ? *reinterpret_cast<const uint4*>(
+                             b + (static_cast<size_t>(ad) * RK + k) * O + o)
+                       : make_uint4(0, 0, 0, 0);
+            const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              bv[k][2 * e] = __uint_as_float(h[e] << 16);
+              bv[k][2 * e + 1] = __uint_as_float(h[e] & 0xffff0000u);
+            }
+          }
+        }
+        float acc[8] = {};
+#pragma unroll
+        for (int k4 = 0; k4 < RK / 4; ++k4) {
+          const float4 xk = *reinterpret_cast<const float4*>(&xs[row][4 * k4]);
+          const float xv[4] = {xk.x, xk.y, xk.z, xk.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              acc[e] = fmaf(xv[kk], bv[4 * k4 + kk][e], acc[e]);
+        }
+        if (col_ok)
+          *reinterpret_cast<uint4*>(dst) = make_uint4(
+              pack_bf16(scaling * acc[0], scaling * acc[1]),
+              pack_bf16(scaling * acc[2], scaling * acc[3]),
+              pack_bf16(scaling * acc[4], scaling * acc[5]),
+              pack_bf16(scaling * acc[6], scaling * acc[7]));
       }
     }
-    float acc[8] = {};
-#pragma unroll
-    for (int k4 = 0; k4 < RK / 4; ++k4) {
-      const float4 xk = *reinterpret_cast<const float4*>(&xs[row][4 * k4]);
-      const float xv[4] = {xk.x, xk.y, xk.z, xk.w};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          acc[c] = fmaf(xv[kk], bv[4 * k4 + kk][c], acc[c]);
-    }
-    if (col_ok)
-      *reinterpret_cast<uint4*>(dst) = make_uint4(
-          pack_bf16(scaling * acc[0], scaling * acc[1]),
-          pack_bf16(scaling * acc[2], scaling * acc[3]),
-          pack_bf16(scaling * acc[4], scaling * acc[5]),
-          pack_bf16(scaling * acc[6], scaling * acc[7]));
   }
+  if (local) rt::cluster_wait();  // no CTA leaves while another reads `red`
 }
 
 template <int RK>
-cudaError_t launch_expand(const float* part, const bf16* b, const int* idx,
-                          bf16* y, int R, int O, int N, int sp, int erows,
-                          float scaling, cudaStream_t st) {
-  static const cudaError_t attr = rt::allow_smem(
-      sgmv_expand_tc_kernel<RK>,
-      expand_smem_bytes(kTileM, kMaxSlices / kCluster, RK));
-  if (attr != cudaSuccess) return attr;
-  // programmatic stream serialization: the CTAs may become resident
-  // while the shrink runs (it allows it at its start)
+int launch_bf16(const void* x, const void* a, const void* b, const void* idx,
+                void* y, int R, int D, int O, int N, float scaling,
+                cudaStream_t st) {
+  const Plan p = plan(R, D, O);
+  const int bm = box_rows(R), sb = stage_bytes<RK>(bm);
+  const int ns = min(kMaxStages, kRingBytes / sb);
+  static const cudaError_t attr = [] {
+    const cudaError_t e =
+        rt::allow_smem(sgmv_bf16_kernel<RK>, kRingBytes + 1024);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(
+                     sgmv_bf16_kernel<RK>,
+                     cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap xm, am;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(D),
+                               static_cast<cuuint64_t>(R)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t xbox[2] = {kBoxCols, static_cast<cuuint32_t>(bm)};
+  const cuuint64_t adims[3] = {8 * RK, static_cast<cuuint64_t>(D) / 8,
+                               static_cast<cuuint64_t>(N)};
+  const cuuint64_t astrides[2] = {8 * RK * 2,
+                                  static_cast<cuuint64_t>(D) * RK * 2};
+  const cuuint32_t abox[3] = {8 * RK, kChunk / 8, 1};
+  if (!rt::bf16_tensor_map(&xm, x, 2, xdims, xstrides, xbox, 128) ||
+      !rt::bf16_tensor_map(&am, a, 3, adims, astrides, abox, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((R + erows - 1) / erows, (O + kOutTile - 1) / kOutTile);
+  cfg.gridDim = dim3((R + kTileM - 1) / kTileM * p.osplit, p.cluster);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = expand_smem_bytes(min(erows, R), sp, RK);
+  cfg.dynamicSmemBytes = ns * sb + 1024;
   cfg.stream = st;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = pdl;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = p.cluster;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, sgmv_expand_tc_kernel<RK>, part, b, idx, y,
-                            R, O, N, sp, erows, scaling);
-}
-
-int launch_tc(const void* x, const void* a, const void* b, const void* idx,
-              void* part, void* y, int R, int D, int r, int O, int N,
-              int dslice, int erows, float scaling, cudaStream_t st) {
-  const int tiles = (R + kTileM - 1) / kTileM;
-  const int S = (D + dslice - 1) / dslice;
-  if (S > kMaxSlices) return static_cast<int>(cudaErrorInvalidValue);
-  const int sp = (S + kCluster - 1) / kCluster;  // cluster partials a row
-  sgmv_shrink_tc_kernel<<<dim3(tiles, sp * kCluster), kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(a),
-      static_cast<const int*>(idx), static_cast<float*>(part), R, D, r, N,
-      dslice);
-  const int shrink = rt::launch_status();
-  if (shrink != cudaSuccess) return shrink;
-  auto expand = r == 16 ? launch_expand<16> : launch_expand<8>;
-  return static_cast<int>(expand(static_cast<const float*>(part),
-                                 static_cast<const bf16*>(b),
-                                 static_cast<const int*>(idx),
-                                 static_cast<bf16*>(y), R, O, N, sp, erows,
-                                 scaling, st));
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, sgmv_bf16_kernel<RK>, xm, am, static_cast<const bf16*>(b),
+      static_cast<const int*>(idx), static_cast<bf16*>(y), R, D, O, N,
+      p.osplit, p.cols, bm, ns, scaling));
 }
 
 // ------------------------------------- float32: the CUDA-core kernels
@@ -496,28 +573,35 @@ void launch_cuda_core(const void* x, const void* a, const void* b,
 }  // namespace
 
 // x (R, D), a (N, D, r), b (N, r, O), idx (R,) int32 -> y (R, O) in the
-// storage type, through float32 scratch `part` of R x P x r floats, where
-// S = ceil(D / dslice) slices and P = ceil(S / 8) (bf16: a partial per
-// cluster of 8 slices) or P = S (float32).  erows: rows per bf16 expand
-// CTA (float32 takes one row a CTA and ignores it).
-// bf16: D, O and r multiples of 8, r <= 16, dslice a multiple of 32,
-// S <= 128, 1 <= erows <= 64.  float32: 1 <= r <= 256.
+// storage type.  bf16: one launch, no scratch (part and dslice unused); D
+// and O multiples of 8, r 8 or 16.  float32: through float32 scratch
+// `part` of R x ceil(D / dslice) x r floats, 1 <= r <= 256.
 extern "C" int sgmv(const void* x, const void* a, const void* b,
                     const void* idx, void* part, void* y, int R, int D, int r,
-                    int O, int N, int dslice, int erows, float scaling,
-                    int dtype, void* stream) {
+                    int O, int N, int dslice, float scaling, int dtype,
+                    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (R < 1 || dslice < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == rt::DTYPE_BF16) {
-    if (r < 8 || r > kRank || r % 8 || D % 8 || O % 8 || dslice % kChunk ||
-        erows < 1 || erows > kTileM)
+    if ((r != 8 && r != kRank) || D % 8 || O % 8)
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tc(x, a, b, idx, part, y, R, D, r, O, N, dslice, erows,
-                     scaling, st);
+    const int bad = r == kRank
+                        ? launch_bf16<16>(x, a, b, idx, y, R, D, O, N,
+                                          scaling, st)
+                        : launch_bf16<8>(x, a, b, idx, y, R, D, O, N,
+                                         scaling, st);
+    return bad ? bad : rt::launch_status();
   }
-  if (r < 1 || r > kShrinkThreads)
+  if (r < 1 || r > kShrinkThreads || dslice < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   launch_cuda_core<float>(x, a, b, idx, part, y, R, D, r, O, N, dslice,
                           scaling, st);
   return rt::launch_status();
+}
+
+// The bf16 grid of a call of R rows, D -> O: cluster size | copies over O
+// << 8 | columns a CTA's tile << 16 (the wrapper's tests read the rule).
+extern "C" int sgmv_plan(int R, int D, int O) {
+  const Plan p = plan(R, D, O);
+  return p.cluster | p.osplit << 8 | p.cols << 16;
 }

@@ -1,11 +1,15 @@
 """Ring-cache decode attention wrapper.
 
-``decode_gqa`` launches the split-KV CUDA kernel (``csrc/decode_attn.cu``:
-one CTA per (row, kv head, partition of ``PARTITION`` slots) testing each
-slot against ``slot_pos`` and staging the partition's K/V rows in shared
-memory with 16-byte ``cp.async`` copies, then a merge kernel) for CUDA
+``decode_gqa`` launches the CUDA kernel (``csrc/decode_attn.cu``) for CUDA
 tensors, and takes the plain version (``ref.decode_attention_ref``) only
-for CPU tensors.
+for CPU tensors.  In bfloat16 it is one launch: a cluster of CTAs per
+(row, kv head, group of at most 8 query heads) walks the ring's
+partitions through a pipelined shared-memory ring fed by TMA, testing
+each slot against ``slot_pos``, and merges its CTAs' partial softmax in
+shared memory (``csrc/ring_decode_step.cuh``; the library picks the
+cluster size and the partition, ``ring_decode_plan``).  float32 keeps
+the split-KV kernels: one CTA per (row, kv head, partition of
+``PARTITION`` slots) staging K/V with ``cp.async``, then a merge kernel.
 
 The kernel reads the engine's (B, S, K, hd) cache in place; the
 reference's wrapper copies it to (B, K, S, hd) on every step.  ``pos`` is
@@ -29,7 +33,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-PARTITION = 64           # slots per split-KV partition (kernel max 128)
+PARTITION = 64           # float32: slots per split-KV partition (max 128)
 HEAD_DIMS = (32, 64, 128, 192, 256)
 MAX_GROUP = 16           # query heads per kv head
 
@@ -41,8 +45,9 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (S,) int32; pos: the current absolute decode position.  Returns
     (B, H, hd); with ``return_lse`` also each row's and head's log of the
     sum of exp scores over its valid slots, (B, H) float32 (-inf with
-    none), from the partitions' (max, sum): what a merge across devices
-    that split the slots needs (``models/layers.py::_merge_partials``)."""
+    none), written by the bf16 kernel's merge (float32: from the
+    partitions' (max, sum)): what a merge across devices that split the
+    slots needs (``models/layers.py::_merge_partials``)."""
     B, H, hd = q.shape
     Bk, S, K, hd_k = k.shape
     pos_t = pos if isinstance(pos, torch.Tensor) else None
@@ -75,23 +80,30 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"ring decode kernel supports head_dim {HEAD_DIMS} "
                          f"and <= {MAX_GROUP} query heads per kv head, got "
                          f"hd={hd}, G={G}")
-    NP = -(-S // PARTITION)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty((B, K, G, NP, hd), **f32)
-    m = torch.empty((B, K, G, NP), **f32)
-    l = torch.empty((B, K, G, NP), **f32)
     out = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = m = l = lse = None
+    if q.dtype == torch.bfloat16:
+        if return_lse:
+            lse = torch.empty((B, H), **f32)
+    else:
+        NP = -(-S // PARTITION)
+        acc = torch.empty((B, K, G, NP, hd), **f32)
+        m = torch.empty((B, K, G, NP), **f32)
+        l = torch.empty((B, K, G, NP), **f32)
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     cuda_lib.check(cuda_lib.library().ring_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
-        None if pos_t is None else pos_t.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), out.data_ptr(),
+        ptr(pos_t), ptr(acc), ptr(m), ptr(l), out.data_ptr(), ptr(lse),
         0 if pos_t is not None else int(pos), B, K, G, S, hd, PARTITION,
         window if window is not None else 0, code,
         cuda_lib.stream_of(q)), "ring_decode")
     decode_gqa.launches += 1
-    if return_lse:
-        return out, torch.logsumexp(m + torch.log(l), -1).reshape(B, H)
-    return out
+    if not return_lse:
+        return out
+    if lse is None:              # float32: from the partitions' (m, l)
+        lse = torch.logsumexp(m + torch.log(l), -1).reshape(B, H)
+    return out, lse
 
 
 decode_gqa.launches = 0

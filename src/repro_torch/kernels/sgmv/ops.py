@@ -1,15 +1,16 @@
 """SGMV wrappers: per-row multi-LoRA delta over a stacked adapter bank.
 
-``sgmv_apply`` launches the CUDA SGMV (``csrc/sgmv.cu``: a shrink into
-float32 partials of ``xa`` over slices of the input features, then an
-expand) for CUDA tensors, and takes the plain version (``ref.sgmv_ref``)
-only for CPU tensors.  There is no sort or segment padding.  In bfloat16
-the kernels cut the rows into tiles of ``TILE_M`` consecutive rows and run
-one pass per distinct adapter of a tile, so an adapter's slab is read
-once per tile, not once per row; the shrink multiplies on the tensor cores
-over ``d_slice(R, D)`` input features per CTA, and the expand takes
-``expand_rows(R, O)`` rows per CTA.  float32 keeps the first version's
-CUDA-core kernels (``F32_SLICE`` features per CTA).
+``sgmv_apply`` launches the CUDA SGMV (``csrc/sgmv.cu``) for CUDA tensors,
+and takes the plain version (``ref.sgmv_ref``) only for CPU tensors.
+There is no sort or segment padding.  In bfloat16 it is one kernel: the
+rows are cut into tiles of ``TILE_M`` consecutive rows, a tile runs one
+pass per distinct adapter (so an adapter's slab is read once per tile,
+not once per row), a cluster of CTAs splits the input features for the
+shrink on the tensor cores, adds its partials in shared memory and
+expands its share of the output columns; the library picks the cluster
+size and the copies over the outputs (``sgmv_plan`` in the C library).
+float32 keeps the first version's two CUDA-core kernels (``F32_SLICE``
+features per shrink CTA, float32 partials in device memory between them).
 Out-of-range adapter ids give an exact zero row.
 
 ``sgmv_apply.launches`` counts calls that launched the kernels; ``work``
@@ -24,47 +25,9 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.sgmv.ref import sgmv_ref
 
 TILE_M = 64              # rows per tile (csrc/sgmv.cu kTileM)
-CHUNK = 32               # input features per shrink stage (kChunk)
-CLUSTER = 8              # slices one shrink cluster sums (kCluster)
-MAX_SLICES = 128         # slices of D at most (kMaxSlices)
-MAX_RANK = 16            # largest rank of the bf16 kernels (kRank)
-OUT_TILE = 256           # output columns per expand CTA (kOutTile)
-SMS = 132                # streaming multiprocessors of an H100 SXM
-CTAS_PER_SM = 4          # shrink CTAs an SM keeps in flight at prefill
-EXPAND_CTAS_PER_SM = 2   # expand CTAs an SM at least, where rows allow
+MAX_RANK = 16            # largest rank of the bf16 kernel (kRank)
 F32_SLICE = 128          # float32: input features per shrink CTA
 _MAX_RANK_F32 = 256      # float32 shrink: one rank column per thread group
-
-
-def d_slice(R: int, D: int) -> int:
-    """Input features per bf16 shrink CTA: the fewest ``CHUNK``-feature
-    chunks that keep row tiles x slices within ``CTAS_PER_SM`` x ``SMS``
-    CTAs, and D in at most ``MAX_SLICES`` slices.  At D = 4096 the decode
-    batch spreads over 128 CTAs of one chunk each, and a prefill of 1500
-    rows over 24 tiles x 22 slices of 6 chunks."""
-    tiles = -(-R // TILE_M)
-    chunks = -(-D // CHUNK)
-    per = max(1, -(-chunks * tiles // (CTAS_PER_SM * SMS)),
-              -(-chunks // MAX_SLICES))
-    return CHUNK * per
-
-
-def expand_rows(R: int, O: int) -> int:
-    """Rows per bf16 expand CTA: ``TILE_M``, or fewer (32, 16) where
-    ``TILE_M`` would leave under ``EXPAND_CTAS_PER_SM`` CTAs an SM, so
-    that a small prefill spreads its rows over the card (R = 256: 16 rows,
-    256 CTAs; R = 1500: 64 rows, 384 CTAs)."""
-    col_tiles = -(-O // OUT_TILE)
-    rows = TILE_M
-    while rows > 16 and -(-R // rows) * col_tiles < EXPAND_CTAS_PER_SM * SMS:
-        rows //= 2
-    return rows
-
-
-def partials(D: int, dslice: int, cluster: int) -> int:
-    """float32 partials of xa a row keeps between the two kernels: one per
-    slice, or one per ``cluster`` slices that a shrink cluster sums."""
-    return -(-(-(-D // dslice)) // cluster)
 
 
 def sgmv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -98,21 +61,20 @@ def sgmv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"sgmv bf16 kernel takes rank 8 or 16 "
                              f"(multiples of 8 up to {MAX_RANK}), got {r}")
         cuda_lib.require_aligned(x=x, a=a, b=b)
-        dslice, cluster, erows = d_slice(R, D), CLUSTER, expand_rows(R, O)
-    else:
-        if not 1 <= r <= _MAX_RANK_F32:
-            raise ValueError(f"sgmv float32 kernel supports rank "
-                             f"1..{_MAX_RANK_F32}, got {r}")
-        dslice, cluster, erows = F32_SLICE, 1, 1
+    elif not 1 <= r <= _MAX_RANK_F32:
+        raise ValueError(f"sgmv float32 kernel supports rank "
+                         f"1..{_MAX_RANK_F32}, got {r}")
     y = torch.empty((R, O), dtype=x.dtype, device=x.device)
     if R == 0:
         return y
-    part = torch.empty((R, partials(D, dslice, cluster), r),
-                       dtype=torch.float32, device=x.device)
+    part = None                      # bf16: no scratch
+    if x.dtype == torch.float32:
+        part = torch.empty((R, -(-D // F32_SLICE), r), dtype=torch.float32,
+                           device=x.device)
     cuda_lib.check(cuda_lib.library().sgmv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(),
-        part.data_ptr(), y.data_ptr(), R, D, r, O, N, dslice, erows,
-        float(scaling), code, cuda_lib.stream_of(x)), "sgmv")
+        None if part is None else part.data_ptr(), y.data_ptr(), R, D, r, O,
+        N, F32_SLICE, float(scaling), code, cuda_lib.stream_of(x)), "sgmv")
     sgmv_apply.launches += 1
     return y
 

@@ -1,7 +1,8 @@
-"""The arithmetic of the split-KV decode kernels (ring decode,
+"""The arithmetic of the split-KV decode kernels (ring decode in float32,
 ``csrc/decode_attn.cu``, and paged decode, ``csrc/paged_attn.cu``, on the
 partition step of ``csrc/decode_tile.cuh`` and the merge
-``rt::split_kv_merge_kernel`` of ``csrc/common.cuh``), emulated in plain
+``rt::split_kv_merge_kernel`` of ``csrc/common.cuh``; the bf16 ring decode
+step is ``test_torch_ring_decode_step.py``'s), emulated in plain
 PyTorch on the CPU and held against the reference's Pallas kernels in
 interpret mode and the port's plain versions.
 

@@ -1,21 +1,24 @@
-"""The arithmetic of the bf16 SGMV kernels (``csrc/sgmv.cu``), emulated in
+"""The arithmetic of the bf16 SGMV kernel (``csrc/sgmv.cu``), emulated in
 plain PyTorch on the CPU and held against the reference's Pallas kernel in
 interpret mode and the port's plain version.
 
-The kernels cut the rows into tiles of ``TILE_M`` consecutive rows.  A
+The kernel cuts the rows into tiles of ``TILE_M`` consecutive rows.  A
 tile runs one pass per distinct in-range adapter id, in the order of the
 rows that first carry it; a pass covers exactly the tile's rows with that
 id, and a row whose id lies outside [0, N) is in no pass and is written as
-zeros.  The shrink cuts the input features into S slices of
-``d_slice(R, D)`` (the wrapper's own rule) and takes, per row and slice,
-the float32 sum of bf16 products (tensor-core products with float32
-sums).  A cluster of ``CLUSTER`` consecutive slices adds its slices'
-partials in order (slices past S, which pad the grid, add zeros) and
-writes one partial per row; the expand adds a row's cluster partials in
-order.  Then y = scaling * xa @ B[ad] in float32, rounded once to the
-output dtype.
+zeros.  A cluster of C CTAs takes a tile (the library's plan, copied below
+as ``plan``): the input features are cut into chunks of ``CHUNK``, CTA c
+takes chunks [c per, (c + 1) per) (per = ceil(chunks / C); a CTA past the
+last chunk takes none) and forms, per pass and row, the float32 sum of
+bf16 products over its slice (tensor-core products with float32 sums).
+Every CTA then adds the C slices' partials in order of slice: xa, float32.
+The grid gives the tile ``osplit`` copies of its cluster, each repeating
+the shrink; CTA c of copy o expands column tiles (o C + c), (o C + c) + OS
+C, ... of ``cols`` columns: y = scaling * xa @ B[ad] in float32, rounded
+once to the output dtype.  Every column of a tile is expanded by exactly
+one CTA.
 
-Tolerances, as ``chip_smoke.py`` holds the kernels to the plain version
+Tolerances, as ``chip_smoke.py`` holds the kernel to the plain version
 (``TOL``): max |a - b| <= tol * max(1, max |b|), tol = 1e-5 in float32
 (the implementations differ only in summation order) and 2^-7 in bfloat16
 (each side rounds once).
@@ -27,14 +30,45 @@ import pytest
 import torch
 
 from repro.kernels.sgmv.ops import sgmv_apply as jax_sgmv_apply
-from repro_torch.kernels.sgmv.ops import (CHUNK, CLUSTER, CTAS_PER_SM,
-                                          EXPAND_CTAS_PER_SM, MAX_SLICES,
-                                          OUT_TILE, SMS, TILE_M, d_slice,
-                                          expand_rows, partials)
+from repro_torch.kernels.sgmv.ops import TILE_M
 from repro_torch.kernels.sgmv.ref import sgmv_ref
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SCALING = 2.0
+
+# csrc/sgmv.cu's constants
+CHUNK = 128              # input features per stage (two 64-feature x boxes)
+TARGET_CTAS = 128        # about one CTA an SM at few rows
+SMS = 132
+MAX_COLS = 1024          # columns of a CTA's tile: 8 a thread
+MAX_OSPLIT = 16
+
+
+def plan(R: int, D: int, O: int):
+    """(cluster, osplit, cols) of a call: a cluster of 16 CTAs for one
+    tile and for up to 4 tiles of 64 chunks or more, else 8, or 4 where 8
+    a tile would leave more than 1.5 CTAs an SM (fewer where D has fewer
+    chunks); as many copies over O as keep the
+    grid near TARGET_CTAS CTAs (each CTA at least 8 columns); column tiles
+    (a power of two, 8..MAX_COLS) that give the busiest CTA of a copy's
+    cluster the least work: a tile costs a reload of B (about 4 rows'
+    FMAs a thread) plus its rows x columns / 1024 a thread; ties to the
+    wider tile."""
+    tiles, chunks = -(-R // TILE_M), -(-D // CHUNK)
+    c = (16 if tiles <= 4 and (tiles == 1 or chunks >= 64)
+         else 8 if 2 * tiles * 8 <= 3 * SMS else 4)
+    while c > 1 and c > chunks:
+        c //= 2
+    os_ = 1
+    while (os_ < MAX_OSPLIT and tiles * c * os_ * 2 <= TARGET_CTAS
+           and os_ * 2 * c * 8 <= O):
+        os_ *= 2
+    ctas, rows, best, cols = os_ * c, min(R, TILE_M), None, None
+    for w in (MAX_COLS >> i for i in range(8)):           # 1024 .. 8
+        cost = -(-(-(-O // w)) // ctas) * (4 * 1024 + w * rows)
+        if best is None or cost < best:
+            best, cols = cost, w
+    return c, os_, cols
 
 
 def tile_passes(ids: torch.Tensor):
@@ -50,37 +84,49 @@ def tile_passes(ids: torch.Tensor):
     return out
 
 
-def tile_emulation(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                   idx: torch.Tensor, scaling: float):
+def cluster_emulation(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      idx: torch.Tensor, scaling: float):
     """x (R, D), a (N, D, r), b (N, r, O), idx (R,).  Returns y (R, O) in
-    x's dtype, the passes of each tile and the number of slices S."""
+    x's dtype, the passes of each tile and the slices [(lo, hi)] of the
+    cluster's CTAs."""
     R, D = x.shape
     N, _, r = a.shape
-    ds = d_slice(R, D)
-    S = -(-D // ds)
+    O = b.shape[2]
+    C, osplit, cols = plan(R, D, O)
+    chunks = -(-D // CHUNK)
+    per = -(-chunks // C)
+    slices = [(min(chunks, c * per) * CHUNK,
+               min(D, min(chunks, c * per + per) * CHUNK)) for c in range(C)]
     ids = torch.where((idx >= 0) & (idx < N), idx.long(),
                       torch.full_like(idx.long(), -1))
     passes = tile_passes(ids)
-    part = torch.zeros(R, S, r)
+    y = torch.zeros(R, O)
+    n_tiles = -(-O // cols)
     for t, order in enumerate(passes):
         t0 = t * TILE_M
         tile = ids[t0:t0 + TILE_M]
-        for ad in order:
-            rows = t0 + torch.nonzero(tile == ad).flatten()
-            for s in range(S):
-                d0, d1 = s * ds, min(D, (s + 1) * ds)
-                part[rows, s] = x[rows, d0:d1].float() @ a[ad, d0:d1].float()
-    sp = partials(D, ds, CLUSTER)
-    xa = torch.zeros(R, r)
-    for c in range(sp):
-        acc = torch.zeros(R, r)
-        for s in range(c * CLUSTER, (c + 1) * CLUSTER):
-            acc = acc + (part[:, s] if s < S else 0.0)
-        xa = xa + acc
-    bg = b[ids.clamp(min=0)].float()                      # (R, r, O)
-    y = scaling * torch.einsum("rk,rko->ro", xa, bg)
-    y = torch.where((ids >= 0)[:, None], y, torch.zeros_like(y))
-    return y.to(x.dtype), passes, S
+        red = torch.zeros(C, len(tile), r)         # each CTA's partials
+        for c, (lo, hi) in enumerate(slices):
+            for ad in order:
+                rows = torch.nonzero(tile == ad).flatten()
+                if hi > lo:
+                    red[c, rows] = (x[t0 + rows, lo:hi].float()
+                                    @ a[ad, lo:hi].float())
+        xa = torch.zeros(len(tile), r)
+        for c in range(C):                         # in order of slice
+            xa = xa + red[c]
+        seen = torch.zeros(O, dtype=torch.int64)
+        for copy in range(osplit):
+            for c in range(C):
+                for ct in range(copy * C + c, n_tiles, osplit * C):
+                    o0, o1 = ct * cols, min(O, (ct + 1) * cols)
+                    seen[o0:o1] += 1
+                    for i, ad in enumerate(tile.tolist()):
+                        if ad >= 0:
+                            y[t0 + i, o0:o1] = scaling * (
+                                xa[i] @ b[ad, :, o0:o1].float())
+        assert bool((seen == 1).all()), "a column expanded twice or never"
+    return y.to(x.dtype), passes, slices
 
 
 def _inputs(rng, dtype, R, D, O, N, r):
@@ -132,15 +178,27 @@ LAYOUTS = {
                          np.where(np.arange(20) == 7, -1, 0).astype(np.int32),
                          [1]),
     "one-row": (1, 200, 72, 2, 16, np.array([1], np.int32), [1]),
-    # 5 tiles x 32 slices: four clusters
+    # 5 tiles, 8 chunks: a cluster of 8 CTAs of one chunk each
     "four-clusters": (320, 1000, 72, 4, 16,
                       _runs([80] * 4, [3, 1, 0, 2]), [1, 2, 2, 2, 1]),
-    # 9 tiles x 64 chunks > CTAS_PER_SM x SMS: two chunks a slice, the
-    # last slice of 56 features
+    # 17 chunks over 8 CTAs: three a CTA, the last ragged, one CTA idle
     "multi-chunk-slices": (520, 2040, 72, 4, 16,
                            _runs([130] * 4, [0, 1, 2, 3]),
                            [1, 1, 2, 1, 2, 1, 2, 1, 1]),
     "rank-8": (70, 200, 72, 4, 8, _runs([35, 35], [0, 3]), [2, 1]),
+    # the decode rows: the warm-function batch of 3 (one adapter) and the
+    # runtime's 8 interleaved over 4, each one tile over 4 copies of its
+    # cluster; the runtime's prefill of 4 runs of 64; the launcher's 3 x
+    # 500 of one adapter
+    "R3-one-adapter": (3, 1040, 256, 4, 16, np.full(3, 2, np.int32), [1]),
+    "R8-interleaved": (8, 1040, 256, 4, 16,
+                       np.arange(8, dtype=np.int32) % 4, [4]),
+    "4-runs-of-64": (256, 1040, 200, 4, 16, _runs([64] * 4, [0, 1, 2, 3]),
+                     [1, 1, 1, 1]),
+    "3x500": (1500, 264, 136, 4, 16, _runs([500] * 3, [1, 1, 1]),
+              [1] * 24),
+    "rank-8-decode": (8, 1040, 256, 4, 8, np.arange(8, dtype=np.int32) % 4,
+                      [4]),
 }
 
 DTYPES = [pytest.param(torch.float32, id="f32"),
@@ -157,7 +215,7 @@ def test_tile_emulation_matches_pallas_and_plain(layout, dtype):
     rng = np.random.default_rng(R + D + N + r)
     x, a, b = _inputs(rng, dtype, R, D, O, N, r)
     idx = torch.from_numpy(ids)
-    emu, passes, S = tile_emulation(x, a, b, idx, SCALING)
+    emu, passes, slices = cluster_emulation(x, a, b, idx, SCALING)
     assert [len(p) for p in passes] == n_passes
     bad = (idx < 0) | (idx >= N)
     # every in-range row is in exactly one pass of its tile
@@ -165,7 +223,7 @@ def test_tile_emulation_matches_pallas_and_plain(layout, dtype):
         tile = idx[t * TILE_M:(t + 1) * TILE_M]
         assert sorted(order) == sorted(set(
             tile[(tile >= 0) & (tile < N)].tolist()))
-    assert S == -(-D // d_slice(R, D))
+    assert slices[0][0] == 0 and max(hi for _, hi in slices) == D
     pallas = jax_sgmv_apply(_j(x), _j(a), _j(b), jnp.asarray(ids),
                             scaling=SCALING, use_kernel=True)
     pallas = torch.from_numpy(np.array(jnp.asarray(pallas, jnp.float32)))
@@ -179,36 +237,51 @@ def test_tile_emulation_matches_pallas_and_plain(layout, dtype):
 
 
 def test_layouts_reach_every_slice_shape():
-    """The layouts above reach one padded cluster (S = 7), several
-    clusters of one-chunk slices (S = 32) and slices of two chunks, the
-    last one ragged."""
-    for R, D, S, ds, sp in [(150, 200, 7, CHUNK, 1), (320, 1000, 32, CHUNK, 4),
-                            (520, 2040, 32, 2 * CHUNK, 4)]:
-        assert d_slice(R, D) == ds
-        assert -(-D // ds) == S
-        assert partials(D, ds, CLUSTER) == sp
+    """The layouts above reach a cluster smaller than 8 (D of 2 chunks),
+    8 CTAs of one chunk each, several chunks a CTA with the last ragged
+    and a CTA with none, and a decode batch over 4 copies of 8-column
+    tiles."""
+    for R, D, O, want in [(150, 200, 72, (2, 4, 16)),
+                          (320, 1000, 72, (8, 1, 16)),
+                          (520, 2040, 72, (8, 1, 16)),
+                          (8, 1040, 256, (8, 4, 8))]:
+        assert plan(R, D, O) == want
+    chunks, per = -(-2040 // CHUNK), -(-(-(-2040 // CHUNK)) // 8)
+    assert (chunks, per) == (16, 2) and 2040 % CHUNK
+    _, _, slices = cluster_emulation(*[torch.zeros(s) for s in (
+        (1, 1040), (1, 1040, 16), (1, 16, 256))],
+        torch.zeros(1, dtype=torch.int32), 1.0)
+    assert slices[-1][0] >= slices[-1][1] == 1040   # an idle CTA
 
 
-@pytest.mark.parametrize("R,S,ctas,erows", [
-    (3, 128, 128, 16),       # warm-function decode: one chunk per CTA
-    (8, 128, 128, 16),       # runtime decode
-    (256, 128, 512, 16),     # runtime prefill, 4 x 64 rows
-    (1500, 22, 576, 64),     # warm-function prefill, 3 x 500 rows
+# (R, D, O) -> (cluster, osplit, cols): the runtime's and the launcher's
+# decode and prefill rows at Llama-2-7B's 4096 -> 4096
+@pytest.mark.parametrize("R,C,osplit,cols", [
+    (3, 16, 8, 32),          # warm-function decode: 128 CTAs
+    (8, 16, 8, 32),          # runtime decode
+    (256, 8, 4, 128),        # runtime prefill, 4 x 64 rows
+    (1500, 8, 1, 512),       # warm-function prefill, 3 x 500 rows
 ])
-def test_grid_rules_at_main_path_shapes(R, S, ctas, erows):
-    """At D = O = 4096 the decode batch spreads over every 32-feature chunk;
-    prefill is cut no finer than CTAS_PER_SM shrink CTAs an SM need; the
-    grid pads the slices to whole clusters.  The expand takes 64 rows a
-    CTA, fewer where that leaves under EXPAND_CTAS_PER_SM CTAs an SM."""
+def test_grid_rules_at_main_path_shapes(R, C, osplit, cols):
+    """At D = O = 4096 the decode batch's tile is a cluster of 16 CTAs of
+    2 chunks each over 8 copies (128 CTAs), a prefill tile 8 CTAs of 4
+    chunks, the copies' CTAs covering O once (``chip_smoke.py`` phase 3
+    checks that the library returns these)."""
     D = O = 4096
-    ds = d_slice(R, D)
-    tiles, chunks, per = -(-R // TILE_M), D // CHUNK, ds // CHUNK
-    assert ds % CHUNK == 0
-    assert -(-D // ds) == S <= MAX_SLICES
-    assert tiles * partials(D, ds, CLUSTER) * CLUSTER == ctas
-    # the fewest chunks per CTA that keep tiles x slices within the target
-    assert tiles * chunks <= CTAS_PER_SM * SMS * per
-    assert per == 1 or tiles * chunks > CTAS_PER_SM * SMS * (per - 1)
-    assert expand_rows(R, O) == erows
-    expand_ctas = -(-R // erows) * (O // OUT_TILE)
-    assert erows == 16 or expand_ctas >= EXPAND_CTAS_PER_SM * SMS
+    assert plan(R, D, O) == (C, osplit, cols)
+    tiles = -(-R // TILE_M)
+    assert tiles * C * osplit <= TARGET_CTAS or osplit == 1
+    assert -(-O // cols) <= osplit * C * -(-(-(-O // cols)) // (osplit * C))
+
+
+@pytest.mark.parametrize("R,D,O,want", [
+    (8, 6144, 6144, (16, 8, 64)),         # Mixtral-8x22B q and o
+    (256, 6144, 1024, (8, 4, 32)),        # its k and v at prefill
+    (8, 18432, 18432, (16, 8, 256)),      # Nemotron-4-340B: 144 chunks
+    (256, 18432, 1536, (16, 2, 64)),
+    (8, 1536, 6448, (8, 16, 64)),         # Mamba2-780M's in-projection
+    (2048, 960, 960, (4, 1, 256)),        # SmolLM-360M's 8 x 256 rows
+    (2048, 5120, 5120, (4, 1, 256)),      # Phi-3-medium-14B's q and o
+])
+def test_grid_rules_at_other_sites(R, D, O, want):
+    assert plan(R, D, O) == want
