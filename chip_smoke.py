@@ -14,11 +14,16 @@ neither JAX nor the JAX package.  Phases, each fatal on failure:
    registers and spills of the tensor-core (bf16) prefill kernels and of
    the float32 flash and paged prefill at hd 192 and 256, and the
    registers, static and dynamic shared memory and spills of the split-KV
-   decode instantiations and of the SGMV kernels; fail on any spill;
+   (float32) decode instantiations, of the bf16 decode step of ring and
+   paged decode and of the SGMV kernels; fail on any spill;
 3. kernels: each of the five hand-written kernels against its plain
    PyTorch version at the shapes the two serving paths give it at the
    widths of Llama-2-7B, in bfloat16 and float32 (and bfloat16 GQA and
    window cases of flash, ring decode, paged decode and paged prefill,
+   paged decode at block sizes 4, 6, 8 and 12 and with NaN / Inf in every
+   masked slot of its blocks and in the garbage block (each paged decode
+   call also profiled: one kernel and one allocation in bf16, the
+   partitions, their merge and four allocations in float32),
    SGMV at the row layouts of the two prefills, Mixtral-8x22B's shapes,
    and, timed in both dtypes, paged decode and prefill at
    RecurrentGemma-9B's hd 256 and G = 16 and at Nemotron-4-340B's hd 192
@@ -303,12 +308,14 @@ REQUESTS = 12
 SYSTEM_PROMPT = 128          # per-adapter shared prefix (8 whole blocks)
 MAX_PROMPT = 768
 OUTPUT_TOKENS = 32
-# Phase 3's paged prefill at block sizes whose pieces of a stage no TMA
-# box fits (the kernel's key-by-key copy): Llama-2-7B's history of up to
-# 768 keys in blocks of 4 and of 12
+# Phase 3's paged kernels at other block sizes: 4 and 12 (pieces of a
+# stage of 4 keys: paged prefill copies them key by key, paged decode by
+# TMA boxes that start part way into the swizzle's period), 6 (paged
+# decode's boxes of 2 rows) and 8, phase 18a's (serve_continuous);
+# Llama-2-7B's history of up to 768 keys
 SMALL_BLOCK_SERVE = {bs: dict(SERVE, block_size=bs,
                               max_blocks_per_slot=-(-MAX_PROMPT // bs))
-                     for bs in (4, 12)}
+                     for bs in (4, 6, 8, 12)}
 
 # Phase 5: the warm-function launcher's flags.  Its scheduler forms
 # batches of 1-3 rows at these flags; phase 3 times the ring-engine kernels
@@ -683,12 +690,16 @@ def build_phase() -> Dict:
               f"at {PARTITION} slots x G {d['G']}, spill stores "
               f"{u.get('spill_stores')} B, spill loads "
               f"{u.get('spill_loads')} B")
-    # the bf16 ring decode step (one instantiation per head dim)
+    # the bf16 decode step: ring decode (one instantiation per head dim)
+    # and paged decode (per head dim, up to 8 or 16 query heads a CTA)
     for u in usage:
-        m = re.search(r"ring_decode_kernelILi(\d+)E", u["function"])
+        m = re.search(r"(ring|paged)_decode_kernelILi(\d+)E(?:Li(\d+)E)?",
+                      u["function"])
         if m:
-            u["ring_step"] = {"hd": int(m[1])}
-            print(f"ptxas ring decode step bf16 hd {m[1]}: {u['registers']} "
+            u["ring_step"] = {"kernel": f"{m[1]}_decode", "hd": int(m[2]),
+                              "rows": int(m[3] or 8)}
+            print(f"ptxas {m[1]} decode step bf16 hd {m[2]}, "
+                  f"{m[3] or 8} heads a CTA: {u['registers']} "
                   f"registers, static smem {u['static_smem']} B, spill "
                   f"stores {u.get('spill_stores')} B, spill loads "
                   f"{u.get('spill_loads')} B")
@@ -803,15 +814,18 @@ def sgmv_case(gen, dtype, R: int, run: int = 1,
 def decode_case(gen, dtype, K: int = 32, G: int = 1,
                 window: Optional[int] = None, serve: Dict = SERVE,
                 positions=(SYSTEM_PROMPT, MAX_PROMPT + OUTPUT_TOKENS),
-                reclaimed: bool = False, hd: int = 128) -> Dict:
+                reclaimed: bool = False, hd: int = 128,
+                poison: bool = False) -> Dict:
     """Runtime decode: one token for each of ``num_slots`` rows over its
     paged history, at Llama-2-7B head widths by default (``H = K * G``
     query heads of ``hd``), rows at positions in [``positions``).  With
     ``reclaimed``, each live row's table holds -1 for every block that
     slid wholly out of the window, as the runtime's window reclamation
-    leaves it."""
-    from repro_torch.kernels.paged_attention.ops import (paged_decode_gqa,
-                                                         work)
+    leaves it.  With ``poison`` every masked slot of a block in a table
+    (past its row's position, before its window) and the garbage block 0
+    hold NaN in K and Inf in V for the kernel, zeros for the plain version
+    and the yardstick."""
+    from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     B = serve["num_slots"]
     NB, bs, MB = serve["num_blocks"], serve["block_size"], \
@@ -836,6 +850,18 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
     if window is not None:
         ok = ok & (t[None] > pos[:, None] - window)
     live = int(ok.sum())
+    kk, vk = kp, vp                        # what the kernel reads
+    if poison:
+        blk = tbl[:, t // bs]
+        bad = (blk >= 0) & ~ok
+        phys, off = blk[bad].long(), t.expand_as(blk)[bad] % bs
+        for pool in (kp, vp):
+            pool[:, phys, off] = 0
+            pool[:, 0] = 0
+        kk, vk = kp.clone(), vp.clone()
+        for pool, x in ((kk, float("nan")), (vk, float("inf"))):
+            pool[:, phys, off] = x
+            pool[:, 0] = x
     # library yardstick: SDPA over K/V already gathered contiguous
     L = int(pos.max()) + 1
     nblk = -(-L // bs)
@@ -850,8 +876,10 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
         shape=f"B={B} K={K} G={G} hd={hd} NB={NB} bs={bs} MB={MB} "
               f"window={window} live_keys={live}"
               + (f" reclaimed_entries={int((tbl[:-1] < 0).sum())}"
-                 if reclaimed else ""),
-        kernel=lambda: paged_decode_gqa(q, kp, vp, tbl, pos, window=window),
+                 if reclaimed else "")
+              + (" masked=NaN/Inf" if poison else ""),
+        kernel=lambda: ops.paged_decode_gqa(q, kk, vk, tbl, pos,
+                                            window=window),
         plain=lambda: paged_attention_ref(q, kp, vp, tbl, pos,
                                           window=window),
         library=lambda: F.scaled_dot_product_attention(q4, kc, vc,
@@ -860,7 +888,7 @@ def decode_case(gen, dtype, K: int = 32, G: int = 1,
                       "gathered contiguous"
                       + (", repeated per head" if G > 1 else ""),
         zero_rows=[B - 1],
-        **bound_of(work(q, kp, vp, tbl, pos, window=window)))
+        **bound_of(ops.work(q, kp, vp, tbl, pos, window=window)))
 
 
 def prefill_case(gen, dtype, K: int = 32, G: int = 1,
@@ -1180,6 +1208,18 @@ def phase3_makers(gen) -> Tuple[List, int, Dict]:
             gen, bf, K=8, G=4, serve=SMALL_BLOCK_SERVE[12])),
         ("paged_attention", bf, lambda: decode_case(gen, bf, K=8, G=4)),
         ("paged_attention", bf, lambda: decode_case(gen, bf, window=128)),
+        # block sizes 4 and 12 (boxes of 4 rows), 6 (of 2 rows) and 8
+        # (phase 18a's)
+        *[("paged_attention", bf, lambda bs=bs: decode_case(
+            gen, bf, K=8 if bs == 12 else 32, G=4 if bs == 12 else 1,
+            serve=dict(SMALL_BLOCK_SERVE[bs], num_blocks=1 + SERVE[
+                "num_slots"] * SMALL_BLOCK_SERVE[bs]["max_blocks_per_slot"]),
+            positions=(SYSTEM_PROMPT, MAX_PROMPT))) for bs in (4, 6, 8, 12)],
+        # NaN and Inf in every masked slot of the tables' blocks and in the
+        # garbage block: a TMA box copies a block whole, and the kernel
+        # must select the masked slots away
+        ("paged_attention", bf, lambda: decode_case(
+            gen, bf, K=8, G=4, window=300, poison=True)),
         # SGMV at the prefills' row layouts: the runtime's 4 rows x 64
         # tokens of 4 adapters, the launcher's 3 x 500 of one adapter
         ("sgmv", bf, lambda: sgmv_case(
@@ -1373,9 +1413,36 @@ def phase3_makers(gen) -> Tuple[List, int, Dict]:
     return makers, timed, shared
 
 
-# the redesigned kernels (one launch each, fixed-order sums): two calls on
-# the same inputs must give equal outputs bit for bit
-REPEATABLE = ("sgmv", "decode_attention")
+# the redesigned kernels (one launch each, fixed-order sums; paged decode's
+# float32 split-KV kernels sum in a fixed order too): two calls on the
+# same inputs must give equal outputs bit for bit
+REPEATABLE = ("sgmv", "decode_attention", "paged_attention")
+
+
+def one_call(name: str, dtype: torch.dtype, fn: Callable[[], object]
+             ) -> Dict:
+    """The kernels the profiler shows for one call of a decode wrapper and
+    the blocks the call allocates: in bf16 one kernel and the output
+    alone, in float32 the partitions, their merge and three scratch
+    arrays besides (``profiled_kinds``).  A profile that falls short
+    while it lost markers (F7) is taken again."""
+    want = {k: 1 for k in profiled_kinds(name, dtype)}
+    torch.cuda.synchronize()
+    key = "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    fn()
+    allocs = torch.cuda.memory_stats()[key] - before
+    for _ in range(PROFILE_ATTEMPTS):
+        prof = profiled(fn)
+        got = prof.get("kernels_by_kind") or {}
+        if got == want or not prof.get("markers_lost"):
+            break
+    if got != want:
+        fail(f"{name} {dtype}: one call shows kernels {got}, expected "
+             f"{want}")
+    if allocs != 1 + 3 * (dtype == torch.float32):
+        fail(f"{name} {dtype}: one call allocated {allocs} blocks")
+    return {"kernels": got, "allocations": allocs}
 
 
 def kernels_phase() -> Dict[str, Dict]:
@@ -1415,10 +1482,12 @@ def kernels_phase() -> Dict[str, Dict]:
         if name in REPEATABLE and not torch.equal(got, c["kernel"]()):
             fail(f"{name} {c['shape']} {dtype}: a second call on the same "
                  f"inputs differs")
+        calls = (one_call(name, dtype, c["kernel"])
+                 if name == "paged_attention" else None)
         row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
                "shape": c["shape"], "max_abs_err": err, "tol": tol,
                "max_row_rel_rms": row_err,
-               "bitwise_repeat": name in REPEATABLE,
+               "bitwise_repeat": name in REPEATABLE, "one_call": calls,
                "bytes": c["bytes"], "ops": c["ops"],
                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                "library": c["library_label"]}
@@ -1468,10 +1537,11 @@ def kernels_phase() -> Dict[str, Dict]:
 
 
 # The libraries' grid rules at the main path's shapes: the values that
-# tests/test_torch_sgmv_tile_precision.py and test_torch_ring_decode_step.py
-# pin of their Python copies.  SGMV (R, D, O) -> (cluster, copies over O,
-# columns a tile); ring decode (B, K, G, S, hd) -> (cluster, slots a
-# partition).
+# tests/test_torch_sgmv_tile_precision.py, test_torch_ring_decode_step.py
+# and test_torch_paged_decode_step.py pin of their Python copies.  SGMV
+# (R, D, O) -> (cluster, copies over O, columns a tile); ring decode (B, K,
+# G, S, hd) -> (cluster, slots a partition); paged decode (B, K, G, MB, bs,
+# hd) -> (cluster, slots a stage, stages): phases 4 and 6, 8, 9, 11 and 18a.
 SGMV_PLANS = {(3, 4096, 4096): (16, 8, 32), (8, 4096, 4096): (16, 8, 32),
               (256, 4096, 4096): (8, 4, 128),
               (1500, 4096, 4096): (8, 1, 512),
@@ -1480,11 +1550,16 @@ RING_PLANS = {(3, 32, 1, 540, 128): (1, 64),
               (2, 32, 1, 32768, 128): (2, 64),
               (4, 16, 1, 1500, 64): (2, 128),
               (4, 1, 8, 552, 256): (8, 32)}
+PAGED_PLANS = {(8, 32, 1, 64, 16, 128): (1, 64, 3),
+               (8, 8, 6, 304, 16, 128): (2, 64, 3),
+               (8, 1, 16, 168, 16, 256): (8, 64, 3),
+               (8, 8, 12, 132, 16, 192): (2, 64, 3),
+               (8, 32, 1, 8, 8, 128): (1, 64, 3)}
 
 
 def plan_check() -> Dict:
-    """``sgmv_plan`` and ``ring_decode_plan`` of the library against
-    SGMV_PLANS and RING_PLANS."""
+    """``sgmv_plan``, ``ring_decode_plan`` and ``paged_decode_plan`` of the
+    library against SGMV_PLANS, RING_PLANS and PAGED_PLANS."""
     from repro_torch.kernels import cuda_lib
     lib = cuda_lib.library()
     got = {}
@@ -1499,6 +1574,12 @@ def plan_check() -> Dict:
         got[f"ring decode {shape}"] = have = (v & 255, v >> 8 & 255)
         if have != want:
             fail(f"ring_decode_plan{shape} = {have}, the tests pin {want}")
+    for shape, want in PAGED_PLANS.items():
+        v = lib.paged_decode_plan(*shape)
+        got[f"paged decode {shape}"] = have = (v & 255, v >> 8 & 255,
+                                               v >> 16)
+        if have != want:
+            fail(f"paged_decode_plan{shape} = {have}, the tests pin {want}")
     print(f"grid rules as the tests pin them: {got}")
     return got
 
@@ -2074,13 +2155,23 @@ def profiled(fn: Callable[[], object],
     return out
 
 
-# kernels the profiler shows for one launch of each wrapper (the paged
-# decode wrapper launches two: its partitions and their merge)
+# kernels the profiler shows for one launch of each wrapper in bf16, the
+# serving dtype of every profiled round; in float32 the two decode
+# wrappers launch their partitions and a merge (FLOAT32_KINDS)
 PROFILED_KINDS = {"sgmv": ("sgmv",),
-                  "paged_attention": ("paged_attention", "decode_merge"),
+                  "paged_attention": ("paged_attention",),
                   "paged_prefill": ("paged_prefill",),
                   "flash_attention": ("flash_attention",),
                   "decode_attention": ("decode_attention",)}
+FLOAT32_KINDS = {"paged_attention": ("paged_attention", "decode_merge"),
+                 "decode_attention": ("decode_attention", "decode_merge")}
+
+
+def profiled_kinds(name: str, dtype: torch.dtype = torch.bfloat16
+                   ) -> Tuple[str, ...]:
+    if dtype == torch.float32:
+        return FLOAT32_KINDS.get(name, PROFILED_KINDS[name])
+    return PROFILED_KINDS[name]
 
 
 def cross_check(label: str, launches: Dict[str, int], prof: Dict, *,
@@ -2096,7 +2187,7 @@ def cross_check(label: str, launches: Dict[str, int], prof: Dict, *,
     asks for the round again (``retry``) instead of failing."""
     want: Dict[str, int] = {}
     for name, n in launches.items():
-        for kind in PROFILED_KINDS[name]:
+        for kind in profiled_kinds(name):
             want[kind] = want.get(kind, 0) + n
     seen = prof.get("kernels_by_kind") or {}
     got = {k: seen.get(k, 0) for k in want}

@@ -53,7 +53,25 @@ Sets:
      or 4 stages instead of 3, partitions of 16 KB, and the consumers'
      compute or the producer's copies left out.  SGMV variants run on the
      SGMV cases, ring variants on the ring cases.  Only sgmv.cu, paged_attn.cu
-     and decode_attn.cu are built, each library in parallel.
+     and decode_attn.cu are built, each library in parallel;
+  7  the one-launch bf16 paged decode kernel against the parent commit's
+     split-KV kernel and merge (v0: the parent's tree under
+     ``build/parent/`` as for set 6, its own wrappers and library) at every
+     phase-3 paged decode case, bf16 and float32 (whose kernels did not
+     change: its times should stay), and at every bf16 ring decode case
+     (whose step is now shared: its times should stay too), plus the
+     cluster rule's alternatives on the bf16 paged cases: clusters of 1,
+     2, 4 and 8 whatever the grid, and the rule at twice the CTAs (up to
+     two CTAs an SM); ring decode's chunk-major layout at hd 128 and 192
+     (a TMA box a 64-column chunk, not one a piece), stages of half the
+     slots (twice as many of them), the producer resolving a stage's table
+     entries only once its ring slot is free (not before its wait), and, to
+     see where the time goes, the consumers' compute or the producer's
+     copies left out.  The cases are made from phase 3's draws (every
+     phase-3 case made once first), so their inputs are phase 3's.  v0's and the new kernels' device time by kind
+     under the profiler (``kernels_us``: partitions and merge apart) is
+     printed for the bf16 paged cases.  Only paged_attn.cu and
+     decode_attn.cu are built.
 The "copies only", "compute only", "no merge", "no compute", "no copy"
 and "no expand" variants give wrong outputs by design; their errors are
 printed, not checked.
@@ -73,6 +91,11 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
+
+# paged decode's cluster rule (csrc/paged_attn.cu::paged_plan)
+PAGED_RULE = """  while (p.cluster < kMaxCluster && units * p.cluster * 2 <= kSms &&
+         2 * p.cluster <= np)
+    p.cluster *= 2;"""
 
 SETS = {
     "1": ("prefill", {
@@ -216,28 +239,67 @@ SETS = {
                           "        mbar_arrive(&full[s]);\n#pragma unroll\n"
                           "        for (int x = 0; x < 0;")],
     }),
+    "7": ("redesign", {
+        "v0": [("PARENT", True)],
+        "new": [],
+        **{f"paged-c{c}": [("paged_attn.cu", PAGED_RULE,
+                            f"  p.cluster = {c};")] for c in (1, 2, 4, 8)},
+        "paged-c-double": [("paged_attn.cu", PAGED_RULE, PAGED_RULE.replace(
+            "units * p.cluster * 2 <= kSms", "units * p.cluster <= kSms"))],
+        "paged-chunk-major": [("paged_attn.cu", "static constexpr bool "
+                               "kRowMajor = X::kCount == 2 || X::kCount == 3;",
+                               "static constexpr bool kRowMajor = false;")],
+        "paged-stage-16k": [("paged_attn.cu",
+                             "(hd > 128 ? 2 : 1) * kStageBytes)",
+                             "(hd > 128 ? 2 : 1) * kStageBytes / 2)")],
+        "paged-prepare-after-wait": [
+            ("ring_decode_step.cuh", "      ps.prepare(j, lane);\n      if "
+             "(k >= ns) mbar_wait(&empty[s], ((k / ns) - 1) & 1);\n",
+             "      if (k >= ns) mbar_wait(&empty[s], ((k / ns) - 1) & 1);\n"
+             "      ps.prepare(j, lane);\n")],
+        "paged-no-compute": [("ring_decode_step.cuh",
+                              "        if (gb == 0) continue;",
+                              "        if (gb == 0 || gb != 0) continue;")],
+        "paged-no-copy": [
+            ("paged_attn.cu", "mbar_arrive_tx(full, read * 4 * R * HD);",
+             "mbar_arrive_tx(full, 0);"),
+            ("paged_attn.cu", "      if (prow[q] < 0) continue;",
+             "      if (prow[q] < 0 || prow[q] >= 0) continue;")],
+    }),
 }
 
 
 def applies(variant: str, case: str) -> bool:
-    """Set 6's variants named for one kernel run on that kernel's cases."""
-    for prefix in ("sgmv", "ring"):
+    """Set 6's and 7's variants named for one kernel run on that kernel's
+    bf16 cases."""
+    for prefix in ("sgmv", "ring", "paged"):
         if variant.startswith(prefix + "-"):
-            return case.startswith(prefix)
+            return case.startswith(prefix + " ") and "f32" not in case
     return True
 
 
-def redesign_cases(gen) -> dict:
-    """Every bf16 case of phase 3 of SGMV, ring decode and paged decode,
-    named kernel + index."""
-    makers, _, _ = cs.phase3_makers(gen)
-    names = {"sgmv": "sgmv", "decode_attention": "ring",
-             "paged_attention": "paged"}
+def redesign_cases(gen, names: dict, dtypes, same_draws: bool = False
+                   ) -> dict:
+    """The phase-3 cases of the kernels in ``names`` (phase 3's name ->
+    short name) in ``dtypes``, named short name (+ " f32") + index.  With
+    ``same_draws`` each case is made from the generator state phase 3
+    makes it from (every case of phase 3 made once, in order, first), so
+    its inputs are phase 3's."""
+    makers, _, shared = cs.phase3_makers(gen)
     out, seen = {}, {}
     for name, dtype, make in makers:
-        if name in names and dtype == torch.bfloat16:
-            i = seen[name] = seen.get(name, 0) + 1
-            out[f"{names[name]} {i}"] = make
+        keep = name in names and dtype in dtypes
+        if keep:
+            key = names[name] + (" f32" if dtype == torch.float32 else "")
+            i = seen[key] = seen.get(key, 0) + 1
+            if same_draws:
+                state = gen.get_state()
+                make = (lambda m=make, st=state: (gen.set_state(st), m())[1])
+            out[f"{key} {i}"] = make
+        if same_draws:
+            make()                  # advance the generator as phase 3 does
+            torch.cuda.empty_cache()
+    shared.clear()
     return out
 
 
@@ -266,7 +328,8 @@ def kernel_split(fn, flush: torch.Tensor, runs: int = 5) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-REDESIGN_SOURCES = ("sgmv.cu", "paged_attn.cu", "decode_attn.cu")
+REDESIGN_SOURCES = {"6": ("sgmv.cu", "paged_attn.cu", "decode_attn.cu"),
+                    "7": ("paged_attn.cu", "decode_attn.cu")}
 PARENT = Path("build/parent/src/repro_torch")
 
 
@@ -278,20 +341,20 @@ def _load(name: str, path: Path):
     return mod
 
 
-def _build_lib(csrc: Path, out: Path, signatures) -> ctypes.CDLL:
-    """REDESIGN_SOURCES of ``csrc`` compiled (one nvcc each, in parallel)
-    and linked into ``out``, loaded with ``signatures``' argument types;
-    every registers / spills line of the build printed."""
+def _build_lib(csrc: Path, out: Path, signatures, sources) -> ctypes.CDLL:
+    """``sources`` of ``csrc`` compiled (one nvcc each, in parallel) and
+    linked into ``out``, loaded with ``signatures``' argument types; every
+    registers / spills line of the build printed."""
     from repro_torch.kernels import cuda_lib
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     nvcc = cuda_lib.nvcc_path()
-    objs = [out / (Path(src).stem + ".o") for src in REDESIGN_SOURCES]
+    objs = [out / (Path(src).stem + ".o") for src in sources]
     procs = [subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-c",
                                str(csrc / src), "-o", str(obj)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(REDESIGN_SOURCES, objs)]
+             for src, obj in zip(sources, objs)]
     logs = [p.communicate()[0] for p in procs]
     if any(p.returncode for p in procs):
         cs.fail(f"nvcc failed in {csrc}:\n" + "\n".join(logs))
@@ -299,7 +362,7 @@ def _build_lib(csrc: Path, out: Path, signatures) -> ctypes.CDLL:
     subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(lib_path)],
                    check=True)
     for u in cs.ptxas_usage("\n".join(logs)):
-        if ("sgmv_bf16" in u["function"] or "ring_decode_kernel" in
+        if ("sgmv_bf16" in u["function"] or "_decode_kernelILi" in
                 u["function"] or u.get("spill_stores")):
             print(f"{out.name}: {u['function'][:70]}... {u['registers']} "
                   f"registers, spill stores {u.get('spill_stores')} B",
@@ -312,11 +375,11 @@ def _build_lib(csrc: Path, out: Path, signatures) -> ctypes.CDLL:
     return lib
 
 
-def build_redesign(variants):
-    """Set 6: the parent's library (its sources, its signatures) and
-    every variant's, built in parallel; the parent's SGMV and ring decode
-    wrappers loaded over its own library.  Returns (libs, parent
-    wrappers)."""
+def build_redesign(variants, sources):
+    """Sets 6 and 7: the parent's library (its sources, its signatures)
+    and every variant's, built in parallel; the parent's SGMV, ring decode
+    and paged decode wrappers loaded over its own library.  Returns (libs,
+    parent wrappers)."""
     from repro_torch.kernels import cuda_lib
     if not (PARENT / "csrc" / "sgmv.cu").exists():
         cs.fail(f"set 6 needs the parent's tree under {PARENT}")
@@ -337,13 +400,15 @@ def build_redesign(variants):
             (d / f).write_text(src.replace(old, new))
         jobs[name] = (d, cuda_lib._SIGNATURES)
     with ThreadPoolExecutor(len(jobs)) as ex:
-        futs = {n: ex.submit(_build_lib, d, root / n / "build", sig)
+        futs = {n: ex.submit(_build_lib, d, root / n / "build", sig,
+                             sources)
                 for n, (d, sig) in jobs.items()}
         libs = {n: f.result() for n, f in futs.items()}
     plib.library = lambda: libs["v0"]
     wrappers = {}
     for key, rel in (("sgmv", "sgmv/ops.py"),
-                     ("ring", "decode_attention/ops.py")):
+                     ("ring", "decode_attention/ops.py"),
+                     ("paged", "paged_attention/ops.py")):
         mod = _load(f"parent_{key}_ops", PARENT / "kernels" / rel)
         mod.cuda_lib = plib
         wrappers[key] = mod
@@ -391,7 +456,8 @@ def build_variants(variants):
 
 
 def main() -> int:
-    kind, variants = SETS[sys.argv[1] if len(sys.argv) > 1 else "1"]
+    which = sys.argv[1] if len(sys.argv) > 1 else "1"
+    kind, variants = SETS[which]
     device = cs.device_phase()
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_lib
@@ -401,7 +467,7 @@ def main() -> int:
     from repro_torch.kernels.sgmv import ops as sgmv_ops
     parent = None
     if kind == "redesign":
-        libs, parent = build_redesign(variants)
+        libs, parent = build_redesign(variants, REDESIGN_SOURCES[which])
     else:
         libs = build_variants(variants)
     gen = torch.Generator(device="cuda")
@@ -467,17 +533,22 @@ def main() -> int:
             "paged": lambda: cs.decode_case(gen, bf),
             "paged GQA": lambda: cs.decode_case(gen, bf, K=8, G=4),
         },
-        "redesign": redesign_cases(gen),
+        "redesign": redesign_cases(
+            gen, {"sgmv": "sgmv", "decode_attention": "ring",
+                  "paged_attention": "paged"}, (torch.bfloat16,))
+        if which == "6" else redesign_cases(
+            gen, {"decode_attention": "ring", "paged_attention": "paged"},
+            (torch.bfloat16, torch.float32), same_draws=True),
     }[kind]
     order = list(variants) + list(reversed(variants))
     # every line also goes to a file (the card's tool keeps only the end of
     # the output)
-    out = Path("chiprun_out") / (
-        f"variants_{sys.argv[1] if len(sys.argv) > 1 else '1'}.jsonl")
+    out = Path("chiprun_out") / f"variants_{which}.jsonl"
     out.parent.mkdir(exist_ok=True)
     out.write_text("")
     real, part = cuda_lib.library, ring_ops.PARTITION
     real_sgmv, real_ring = sgmv_ops.sgmv_apply, ring_ops.decode_gqa
+    real_paged = paged_ops.paged_decode_gqa
     split_rule = pp_ops.partitions
     sgmv_names = {name: getattr(sgmv_ops, name)
                   for v in variants.values()
@@ -485,12 +556,14 @@ def main() -> int:
 
     def use(n: str) -> None:
         cuda_lib.library = lambda: libs[n]
-        if parent is not None:      # set 6: v0 is the parent's wrappers
+        if parent is not None:   # sets 6, 7: v0 is the parent's wrappers
             v0 = setting(variants[n], "PARENT")
             sgmv_ops.sgmv_apply = (parent["sgmv"].sgmv_apply if v0
                                    else real_sgmv)
             ring_ops.decode_gqa = (parent["ring"].decode_gqa if v0
                                    else real_ring)
+            paged_ops.paged_decode_gqa = (parent["paged"].paged_decode_gqa
+                                          if v0 else real_paged)
         ring_ops.PARTITION = paged_ops.PARTITION = \
             setting(variants[n], "PARTITION") or part
         for name, value in {**sgmv_names,
@@ -527,7 +600,9 @@ def main() -> int:
                     "sdpa": cs.device_ms(c["library"], 30, flush,
                                          read_flush=True) * 1e3}
                 line["v0_kernels_us"] = kernel_split(c["kernel"], flush)
-            if kind == "redesign" and not cname.startswith("paged"):
+            if kind == "redesign" and (
+                    not cname.startswith("paged") if which == "6"
+                    else cname.startswith("paged ") and "f32" not in cname):
                 line["kernels_us"] = {}
                 for n in ("v0", "new"):
                     use(n)
@@ -553,6 +628,7 @@ def main() -> int:
     finally:
         cuda_lib.library = real
         sgmv_ops.sgmv_apply, ring_ops.decode_gqa = real_sgmv, real_ring
+        paged_ops.paged_decode_gqa = real_paged
         ring_ops.PARTITION = paged_ops.PARTITION = part
         pp_ops.partitions = split_rule
         for name, value in sgmv_names.items():

@@ -47,7 +47,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: cudaError_t, or decode_smem_bytes's
     # byte count, or flash's tile rows, paged prefill's key partitions and
-    # the packed plans of SGMV and ring decode)
+    # the packed plans of SGMV, ring decode and paged decode)
     "sgmv": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "sgmv_plan": [_I] * 3,
     "paged_decode": [_P] * 9 + [_I] * 10 + [_P],
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "paged_prefill_partitions": [_I] * 9,
     "ring_decode": [_P] * 10 + [_I] * 9 + [_P],
     "ring_decode_plan": [_I] * 5,
+    "paged_decode_plan": [_I] * 6,
     "decode_smem_bytes": [_I] * 4,
 }
 

@@ -1,14 +1,18 @@
 """Paged decode attention wrapper.
 
-``paged_decode_gqa`` launches the split-KV CUDA kernel
-(``csrc/paged_attn.cu``: one CTA per (row, kv head, partition of
-``PARTITION`` tokens) resolving its tokens through the block table
-in-kernel and staging their K/V rows in shared memory with 16-byte
-``cp.async`` copies, then a merge kernel) for CUDA tensors, and takes the
-plain version (``ref.paged_attention_ref``) only for CPU tensors.
-
-A kv head with more than 8 query heads (up to ``MAX_GROUP``) is served
-by groups of 8 heads, each group in CTAs of its own.
+``paged_decode_gqa`` launches the CUDA kernel (``csrc/paged_attn.cu``)
+for CUDA tensors, and takes the plain version (``ref.paged_attention_ref``)
+only for CPU tensors.  In bfloat16 it is one launch: a cluster of CTAs
+per (row, kv head) with all of its query heads (up to ``MAX_GROUP``, the
+rows of one tensor-core tile) splits the row's live range on the device,
+resolves the block table a stage at a time and copies the stage's blocks
+with TMA (token by token with ``cp.async`` where a block size leaves
+pieces of a stage that are not a multiple of 8 tokens), and merges its
+CTAs' partial softmax in shared memory, on the step ring decode runs too
+(``csrc/ring_decode_step.cuh``; the library picks the cluster size and the
+stage, ``paged_decode_plan``).  float32 keeps the split-KV kernels: one
+CTA per (row, kv head, group of 8 query heads, partition of ``PARTITION``
+tokens) staging K/V with ``cp.async``, then a merge kernel.
 
 ``paged_decode_gqa.launches`` counts calls that launched the kernel;
 ``work`` gives the FLOPs and bytes its bound counts.  On meta tensors the
@@ -23,7 +27,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-PARTITION = 64           # tokens per split-KV partition (kernel max 128)
+PARTITION = 64           # float32: tokens per split-KV partition (max 128)
 HEAD_DIMS = (32, 64, 128, 192, 256)
 MAX_GROUP = 16           # query heads per kv head
 
@@ -60,18 +64,19 @@ def paged_decode_gqa(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         raise ValueError(f"paged decode kernel supports head_dim "
                          f"{HEAD_DIMS} and <= {MAX_GROUP} query heads per "
                          f"kv head, got hd={hd}, G={G}")
-    S = -(-(MB * bs) // PARTITION)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty((B, K, G, S, hd), **f32)
-    m = torch.empty((B, K, G, S), **f32)
-    l = torch.empty((B, K, G, S), **f32)
     out = torch.empty_like(q)
+    scratch = [None] * 3          # bf16: none (one launch)
+    if q.dtype != torch.bfloat16:
+        S = -(-(MB * bs) // PARTITION)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        scratch = [torch.empty(shape, **f32) for shape in
+                   ((B, K, G, S, hd), (B, K, G, S), (B, K, G, S))]
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     cuda_lib.check(cuda_lib.library().paged_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tbl.data_ptr(),
-        pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        out.data_ptr(), B, K, G, NB, bs, MB, hd, PARTITION,
-        window if window is not None else 0, code, cuda_lib.stream_of(q)),
-        "paged_decode")
+        pos.data_ptr(), *map(ptr, scratch), out.data_ptr(), B, K, G, NB, bs, MB, hd,
+        PARTITION, window if window is not None else 0, code,
+        cuda_lib.stream_of(q)), "paged_decode")
     paged_decode_gqa.launches += 1
     return out
 
